@@ -1,0 +1,108 @@
+"""Config tree and DTOID model defaults (copy of ossid_code_tpu/core/config.py).
+
+A `Config` is a recursive attribute dict that round-trips YAML. The defaults
+mirror the reference's conf/model/dtoid.yaml; the TPU-only knobs of the JAX
+package (bf16 inference, packed single-buffer fetch) are not read by the port.
+"""
+
+from __future__ import annotations
+
+import copy
+
+
+class Config(dict):
+    """dict with attribute access, recursively."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        self.update(dict(*args, **kwargs))
+
+    def update(self, other):
+        for k, v in other.items():
+            self[k] = v
+
+    def __setitem__(self, k, v):
+        if isinstance(v, dict) and not isinstance(v, Config):
+            v = Config(v)
+        super().__setitem__(k, v)
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError as e:
+            raise AttributeError(k) from e
+
+    def __setattr__(self, k, v):
+        self[k] = v
+
+    def __deepcopy__(self, memo):
+        return Config({k: copy.deepcopy(v, memo) for k, v in self.items()})
+
+    def to_dict(self) -> dict:
+        return {k: (v.to_dict() if isinstance(v, Config) else v) for k, v in self.items()}
+
+    def save(self, path: str):
+        import yaml
+
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f, sort_keys=False)
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        import yaml
+
+        with open(path) as f:
+            return cls(yaml.safe_load(f))
+
+    def merged(self, other: dict) -> "Config":
+        out = copy.deepcopy(self)
+
+        def _merge(dst, src):
+            for k, v in src.items():
+                if k in dst and isinstance(dst[k], dict) and isinstance(v, dict):
+                    _merge(dst[k], v)
+                else:
+                    dst[k] = v
+
+        _merge(out, other)
+        return out
+
+
+def dtoid_model_config() -> Config:
+    return Config(
+        name="dtoid",
+        lam_seg=20.0,
+        lam_center=20.0,
+        lam_cls=1.0,
+        lam_reg=1.0,
+        learning_rate=1e-4,
+        weight_decay=1e-6,
+        nms_iou_thresh=0.5,
+        img_h=480,
+        img_w=640,
+        heatmap_h=29,
+        heatmap_w=39,
+        template_size=124,
+        filter_z=False,
+        valid_all_templates=False,
+        use_pretrained_dtoid=False,
+        pretrained_dtoid_path=None,
+        monitor="valunseen_seg_IoU",
+        monitor_mode="max",
+        max_epochs=100,
+        save_top_k=5,
+        compute_dtype="float32",
+        # DenseNet block2/3/4 repeats (torchvision densenet121 = 12/24/16)
+        densenet_blocks=(12, 24, 16),
+        topk_pre_nms=1000,
+        topk_post_nms=500,
+        # seg mask transfer: 'packed' = mask thresholded at 0.5 packed
+        # 8 px/byte; 'u8' keeps quantized probabilities
+        seg_transfer="packed",
+    )
+
+
+def default_config() -> Config:
+    """The model group of the JAX package's default config (the dataset and
+    training groups belong to later slices of the port)."""
+    return Config(model=dtoid_model_config(), seed=42)

@@ -1,0 +1,122 @@
+"""Carry DTOID weights from the JAX package into the port.
+
+`dtoid_from_jax(params, batch_stats)` takes the JAX package's nested dicts of
+numpy arrays (as `jax.device_get(model.params)` gives them) and returns a
+state_dict, under the reference's torch key names, that `DtoidNetwork` loads
+with strict=True. Conversions: conv kernels HWIO -> OIHW; BatchNorm
+scale/bias/mean/var -> weight/bias/running_mean/running_var (flax momentum
+0.9 is torch momentum 0.1; BatchNorm's num_batches_tracked is filled in by
+the loader). The key tables are this package's own copy of the JAX package's
+export tables, with the DenseNet block repeats read from the tree.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _n_layers(tree: dict, path: str) -> int:
+    node = _get(tree, path)
+    return sum(1 for k in node if k.startswith("denselayer"))
+
+
+def _dense_entries(params: dict, p: str = "image_feature_extractor"):
+    f = "image_feature_extractor"
+    out = [
+        (f"{p}.backdense_0.0", f"{f}/stem/conv0", "conv"),
+        (f"{p}.backdense_1.0", f"{f}/early/norm0", "bn"),
+        (f"{p}.c1", f"{f}/c1", "conv"),
+        (f"{p}.n1", f"{f}/n1", "bn"),
+    ]
+    blocks = (
+        (f"{p}.backdense_1.3", f"{f}/early/denseblock1"),
+        (f"{p}.backdense_2.1", f"{f}/late/denseblock2"),
+        (f"{p}.backdense_2.3", f"{f}/late/denseblock3"),
+        (f"{p}.backdense_2.5", f"{f}/late/denseblock4"),
+    )
+    for tb, fb in blocks:
+        for i in range(1, _n_layers(params, fb) + 1):
+            for sub, kind in (("norm1", "bn"), ("conv1", "conv"), ("norm2", "bn"), ("conv2", "conv")):
+                out.append((f"{tb}.denselayer{i}.{sub}", f"{fb}/denselayer{i}/{sub}", kind))
+    for tname, fname in ((f"{p}.backdense_2.0", f"{f}/late/transition1"),
+                         (f"{p}.backdense_2.2", f"{f}/late/transition2"),
+                         (f"{p}.backdense_2.4", f"{f}/late/transition3")):
+        out.append((f"{tname}.norm", f"{fname}/norm", "bn"))
+        out.append((f"{tname}.conv", f"{fname}/conv", "conv"))
+    out.append((f"{p}.backdense_2.6", f"{f}/late/norm5", "bn"))
+    return out
+
+
+def _squeeze_entries(name: str, with_global_head: bool):
+    fires = {"fire2": "backbone_1.2", "fire3": "backbone_1.3",
+             "fire4": "backbone_2.1", "fire5": "backbone_2.2",
+             "fire6": "backbone_2.4", "fire7": "backbone_2.5",
+             "fire8": "backbone_2.6", "fire9": "backbone_2.7"}
+    out = [(f"{name}.backbone_0.0", f"{name}/stem/conv1", "conv")]
+    for fname, tf in fires.items():
+        stage = "early" if fname in ("fire2", "fire3") else "late"
+        for sub in ("squeeze", "expand1x1", "expand3x3"):
+            out.append((f"{name}.{tf}.{sub}", f"{name}/{stage}/{fname}/{sub}", "conv"))
+    out.append((f"{name}.norm_1", f"{name}/norm_1", "bn"))
+    out.append((f"{name}.norm_2", f"{name}/norm_2", "bn"))
+    if with_global_head:
+        for i in (1, 2):
+            out.append((f"{name}.final_conv_{i}", f"{name}/final_conv_{i}", "conv"))
+            out.append((f"{name}.final_norm_{i}", f"{name}/final_norm_{i}", "bn"))
+    return out
+
+
+def _correlation_entries():
+    p = "correlation_model"
+    out = []
+    for c, n in (("c1", "n1"), ("c2", "n2")):
+        out += [(f"{p}.{c}", f"{p}/{c}", "conv"), (f"{p}.{n}", f"{p}/{n}", "bn")]
+    for name in ("dot", "dot3x3", "sub"):
+        out += [(f"{p}.corr_conv_{name}", f"{p}/corr_conv_{name}", "conv"),
+                (f"{p}.norm_corr_{name}", f"{p}/norm_corr_{name}", "bn")]
+    out += [(f"{p}.cf", f"{p}/cf", "conv"), (f"{p}.nf", f"{p}/nf", "bn")]
+    for i in range(1, 6):
+        out += [(f"{p}.s{i}", f"{p}/s{i}", "conv"), (f"{p}.ns{i}", f"{p}/ns{i}", "bn")]
+    out += [(f"{p}.seg_final", f"{p}/seg_final", "conv"),
+            (f"{p}.corr_conv_heatmap", f"{p}/corr_conv_heatmap", "conv")]
+    return out
+
+
+def _head_entries():
+    return [(f"{head}.{c}", f"{head}/{c}", "conv")
+            for head in ("classification", "regression")
+            for c in ("conv1", "conv2", "conv3", "conv4", "output")]
+
+
+def _get(tree: dict, path: str):
+    node = tree
+    for p in path.split("/"):
+        node = node[p]
+    return node
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def dtoid_from_jax(params: dict, batch_stats: dict) -> dict:
+    """JAX DTOID params + batch_stats (numpy) -> port state_dict (torch, CPU)."""
+    entries = (_dense_entries(params)
+               + _squeeze_entries("template_feature_extractor_global", True)
+               + _squeeze_entries("template_feature_extractor", False)
+               + _correlation_entries() + _head_entries())
+    sd = {}
+    for tkey, fpath, kind in entries:
+        node = _get(params, fpath)
+        if kind == "bn":
+            stats = _get(batch_stats, fpath)
+            sd[f"{tkey}.weight"] = _t(node["scale"])
+            sd[f"{tkey}.bias"] = _t(node["bias"])
+            sd[f"{tkey}.running_mean"] = _t(stats["mean"])
+            sd[f"{tkey}.running_var"] = _t(stats["var"])
+        else:
+            sd[f"{tkey}.weight"] = _t(np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+            if "bias" in node:
+                sd[f"{tkey}.bias"] = _t(node["bias"])
+    return sd

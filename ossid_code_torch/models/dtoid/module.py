@@ -1,0 +1,164 @@
+"""DtoidModel: the host-side DTOID inference wrapper (counterpart of the
+inference surface of ossid_code_tpu/models/dtoid/module.py).
+
+It holds the network, the anchor grid and a per-object template-feature
+cache that stays on the device. `detect_async` launches the whole serving
+path for one frame (CUDA launches return before the device finishes);
+`fetch_detections` copies the results to the host and builds the
+reference-schema dict. The finetune step belongs to a later slice of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ossid_code_torch.device import resolve_device
+from ossid_code_torch.models.dtoid.anchors import generate_anchor_grid
+from ossid_code_torch.models.dtoid.network import DtoidNetwork, imagenet_normalize
+
+
+class DtoidModel:
+    """Network weights + template cache; runs on `device` (None -> cuda)."""
+
+    def __init__(self, cfg, seed: int = 42, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        m = cfg.model
+        self.img_size = (int(m.img_h), int(m.img_w))
+        self.feat_size = (int(m.img_h) // 16 - 1, int(m.img_w) // 16 - 1)
+        self.pre_nms_topk = int(m.get("topk_pre_nms", 1000))
+        self.nms_iou = float(m.nms_iou_thresh)
+        self._pack_seg = str(m.get("seg_transfer", "packed")) == "packed"
+
+        self.net = DtoidNetwork(self.img_size, tuple(m.get("densenet_blocks", (12, 24, 16))))
+        self.net.reset_parameters(torch.Generator().manual_seed(seed))
+        self.net.to(device=self.device, memory_format=torch.channels_last).eval()
+        self.anchors = torch.from_numpy(generate_anchor_grid(*self.feat_size)).to(self.device)
+
+        # per-object template features, device-resident
+        self.template_feature_cache: dict[Any, tuple] = {}
+        # bumped on every weight change
+        self.weights_version = 0
+
+    # ------------------------------------------------------------- weights
+    def state_dict(self) -> dict:
+        return self.net.state_dict()
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.net.load_state_dict(sd, strict=True)
+        self.weights_version += 1
+        self.clear_cache()
+
+    # ----------------------------------------------------------- inference
+    def clear_cache(self) -> None:
+        self.template_feature_cache = {}
+
+    def _tensor(self, a, dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    @torch.inference_mode()
+    def get_template_features(self, obj_id, limg: np.ndarray, lmask: np.ndarray):
+        """Cache-or-compute the device template features of one object.
+        limg (T, h, w, 3) float [0,1]; lmask (T, h, w) or (T, h, w, 1).
+        The global feature comes from the first template."""
+        if obj_id not in self.template_feature_cache:
+            lmask = np.asarray(lmask)
+            if lmask.ndim == 3:
+                lmask = lmask[..., None]
+            t4 = torch.cat([imagenet_normalize(self._tensor(limg)), self._tensor(lmask)], -1)
+            local = self.net.compute_template_local(t4)
+            glob = self.net.compute_template_global(t4[0:1])
+            self.template_feature_cache[obj_id] = (local, glob)
+        return self.template_feature_cache[obj_id]
+
+    @torch.inference_mode()
+    def detect_async(self, batch: dict, topk: int = 500) -> dict:
+        """Launch detection for one frame without waiting; returns the dict of
+        device tensors (see DtoidNetwork.detect)."""
+        img = batch["img"]
+        if isinstance(img, torch.Tensor):
+            img = img.to(self.device)
+        else:
+            img = np.asarray(img)
+            if img.dtype != np.uint8:
+                img = (np.clip(img, 0.0, 1.0) * 255.0).round().astype(np.uint8)
+            img = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        if img.ndim == 3:
+            img = img[None]
+        if img.shape[0] != 1 or img.dtype != torch.uint8:
+            raise ValueError(f"detect takes one uint8 frame, got {tuple(img.shape)} {img.dtype}")
+
+        obj_id = batch["obj_id"]
+        if hasattr(obj_id, "__len__"):
+            obj_id = int(np.asarray(obj_id).reshape(-1)[0])
+        local, glob = self.get_template_features(obj_id, batch["limg"], batch["lmask"])
+        return self.net.detect(img, local, glob, self.anchors,
+                               pre_nms_topk=self.pre_nms_topk, topk=topk,
+                               nms_iou=self.nms_iou, pack_seg=self._pack_seg)
+
+    def fetch_detections(self, out_dev: dict, batch: dict | None = None,
+                         fetched: dict | None = None) -> dict:
+        """Copy a detect_async result to the host and build the
+        reference-schema output dict; `fetched` injects host arrays that were
+        already copied."""
+        out = (dict(fetched) if fetched is not None
+               else {k: v.cpu().numpy() for k, v in out_dev.items()})
+        if "seg_packed" in out:
+            packed = out.pop("seg_packed")
+            bits = np.unpackbits(packed[..., None], axis=-1, bitorder="little")
+            out["segmentation"] = bits.reshape(packed.shape[0], -1).astype(np.float32)
+        else:
+            out["segmentation"] = out.pop("seg_u8").astype(np.float32) / 255.0
+
+        result = {
+            "pred_bbox": out["pred_bbox"],
+            "pred_scores": out["pred_scores"],
+            "pred_template_ids": out["pred_template_ids"],
+            "valid": out["valid"],
+            "segmentation": out["segmentation"],
+            "heat_map": out["heat_map"],
+            # reference-compatible aliases (ref models/dtoid/__init__.py:152-160)
+            "final_bbox": [out["pred_bbox"]],
+            "final_score": [out["pred_scores"]],
+        }
+        if batch is not None and batch.get("mask") is not None:
+            gt = np.asarray(batch["mask"]).squeeze() > 0.5
+            pred = out["segmentation"] > 0.5
+            union = np.logical_or(pred, gt).sum()
+            iou = float(np.logical_and(pred, gt).sum() / union) if union > 0 else 1.0
+            result["seg_IoU"] = iou
+            result["seg_IoU_50"] = float(iou > 0.5)
+        return result
+
+    def forward_test_time(self, batch: dict, topk: int = 500) -> dict:
+        """Zero-shot detection on one frame (ref models/dtoid/__init__.py:61-171).
+
+        batch: 'img' (H, W, 3) or (1, H, W, 3), float [0,1] or uint8; 'obj_id';
+        'limg' (T, h, w, 3); 'lmask' (T, h, w[, 1]); optional 'mask' GT for
+        seg_IoU; optional 'template_z_values' for z-filtering."""
+        out = self.fetch_detections(self.detect_async(batch, topk=topk), batch)
+        if self.cfg.model.get("filter_z") and batch.get("template_z_values") is not None:
+            out = self._filter_z(out, np.asarray(batch["template_z_values"]).reshape(-1))
+        return out
+
+    def _filter_z(self, out: dict, template_z_values: np.ndarray) -> dict:
+        """Reject detections whose implied object distance is implausible: the
+        124px template at distance |z_t| scales to the box's max dimension,
+        implying z = 124 / max_dim * -z_t; keep 0.4 m < z < 2 m."""
+        boxes = out["pred_bbox"]
+        tids = out["pred_template_ids"].astype(int)
+        zt = template_z_values[tids]
+        max_dim = np.maximum(boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1])
+        pred_z = (124.0 / np.clip(max_dim, 1e-6, None)) * -zt
+        cond = (pred_z > 0.4) & (pred_z < 2.0) & out["valid"]
+        ids = np.nonzero(cond)[0]
+        if len(ids) == 0:
+            ids = np.asarray([0])
+        for k in ("pred_bbox", "pred_scores", "pred_template_ids", "valid"):
+            out[k] = out[k][ids]
+        out["final_bbox"] = [out["pred_bbox"]]
+        out["final_score"] = [out["pred_scores"]]
+        return out

@@ -1,0 +1,246 @@
+"""ZephyrModel: pose-hypothesis scoring, inference (counterpart of
+ossid_code_tpu/models/zephyr/module.py).
+
+One score program takes the frame (uint8 image, uint16 depth, K), the
+object's prepared model cloud and grouping indices, and a batch of pose
+hypotheses padded to a power-of-two bucket; it blurs the image, assembles
+per-point features on the device and scores every hypothesis with
+PointNet2SSG. Hypotheses whose free-space-violation ratio reaches
+`inconst_ratio_th` score -inf (the reference's pre-network pruning).
+Per-object state (cloud, colours, normals, grouping indices) is prepared once
+and kept on the device: grouping is rigid-invariant, so FPS and ball query
+never run per frame. Device ICP (`refine_top > 0`) and training belong to
+later slices of the port.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+
+from ossid_code_torch.device import resolve_device
+from ossid_code_torch.models.dtoid.network import lecun_init_
+from ossid_code_torch.models.zephyr.features import DIM_POINT, assemble_score_features
+from ossid_code_torch.models.zephyr.pointnet2 import PointNet2SSG
+
+
+def _bucket(m: int, minimum: int = 64) -> int:
+    b = minimum
+    while b < m:
+        b *= 2
+    return b
+
+
+def _fps_np(pts: np.ndarray, n: int) -> np.ndarray:
+    if n >= len(pts):
+        return np.arange(len(pts))
+    idxs = np.zeros(n, np.int32)
+    d = np.full(len(pts), np.inf)
+    last = 0
+    for i in range(1, n):
+        d = np.minimum(d, ((pts - pts[last]) ** 2).sum(1))
+        last = int(d.argmax())
+        idxs[i] = last
+    return idxs
+
+
+def _ball_np(centers: np.ndarray, pts: np.ndarray, r: float, k: int) -> np.ndarray:
+    d2 = ((centers[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+    idx = np.zeros((len(centers), k), np.int32)
+    for i in range(len(centers)):
+        inside = np.nonzero(d2[i] <= r * r)[0]
+        if len(inside) == 0:
+            continue
+        sel = inside[:k]
+        idx[i, : len(sel)] = sel
+        idx[i, len(sel):] = sel[0]
+    return idx
+
+
+# cv2 GaussianBlur((5,5), 0) kernel == [1, 4, 6, 4, 1] / 16
+_BLUR_K = np.asarray([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
+
+
+def _blur5(img: torch.Tensor) -> torch.Tensor:
+    """Separable 5x5 Gaussian blur of an (H, W, C) image, edge-replicated,
+    with the taps summed in the JAX package's order."""
+    h, w = img.shape[0], img.shape[1]
+    x = torch.cat([img[:1], img[:1], img, img[-1:], img[-1:]], 0)
+    x = sum(float(_BLUR_K[i]) * x[i:i + h] for i in range(5))
+    x = torch.cat([x[:, :1], x[:, :1], x, x[:, -1:], x[:, -1:]], 1)
+    return sum(float(_BLUR_K[i]) * x[:, i:i + w] for i in range(5))
+
+
+class ZephyrModel:
+    def __init__(self, num_points: int = 512, inconst_ratio_th: float = 100.0, seed: int = 0,
+                 need_uv: bool = True, refine_top: int = 0, rank_blend: float = 0.0,
+                 align_feats: bool = False, device: str | torch.device | None = None):
+        if refine_top > 0:
+            raise NotImplementedError(
+                "refine_top > 0 needs device ICP (ops/icp_device.py), which is not "
+                "ported yet: ROADMAP.md, 'Still to port', item 1")
+        self.device = resolve_device(device)
+        self.num_points = num_points
+        self.inconst_ratio_th = inconst_ratio_th
+        self.need_uv = need_uv
+        # blended ranking weight of the geometric alignment statistic in _pick
+        # (0 = argmax of the net score); host-side only
+        self.rank_blend = float(rank_blend)
+        self.align_feats = bool(align_feats)
+        self.net = PointNet2SSG(num_class=1, dim_point=DIM_POINT, align_feats=self.align_feats)
+        lecun_init_(self.net, torch.Generator().manual_seed(seed))
+        if self.net.align_head is not None:
+            torch.nn.init.zeros_(self.net.align_head.weight)
+        self.net.to(self.device).eval()
+        self._objects: dict = {}
+
+    # ------------------------------------------------------------- weights
+    def state_dict(self) -> dict:
+        return self.net.state_dict()
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.net.load_state_dict(sd, strict=True)
+
+    # --------------------------------------------------------- object prep
+    def prepare_object(self, obj_id, points, colors, normals):
+        """Resample the model cloud to num_points, precompute the
+        rigid-invariant PointNet++ grouping indices, keep all on the device."""
+        if obj_id in self._objects:
+            return self._objects[obj_id]
+        points = np.asarray(points, np.float32)
+        colors = np.asarray(colors, np.float32)
+        normals = np.asarray(normals, np.float32)
+        n = len(points)
+        if n >= self.num_points:
+            idx = np.linspace(0, n - 1, self.num_points).round().astype(int)
+        else:
+            idx = np.resize(np.arange(n), self.num_points)
+        pts, cols, nrms = points[idx], colors[idx], normals[idx]
+
+        centered = pts - pts.mean(0, keepdims=True)
+        sa1_n = min(512, self.num_points)
+        sa2_n = min(128, sa1_n)
+        sa1c = (np.arange(sa1_n, dtype=np.int32) if sa1_n == self.num_points
+                else _fps_np(centered, sa1_n))
+        c1 = centered[sa1c]
+        sa1g = _ball_np(c1, centered, 0.2, min(64, self.num_points))
+        sa2c = _fps_np(c1, sa2_n)
+        sa2g = _ball_np(c1[sa2c], c1, 0.4, 64)
+
+        prep = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in (pts, cols, nrms, sa1c.astype(np.int32), sa1g.astype(np.int32),
+                               sa2c.astype(np.int32), sa2g.astype(np.int32)))
+        self._objects[obj_id] = prep
+        return prep
+
+    # -------------------------------------------------------- score program
+    def _score(self, img_u8, depth_u16, depth_origin, cam_K, pts, cols, nrms,
+               sa1c, sa1g, sa2c, sa2g, poses, valid):
+        img = _blur5(img_u8.to(torch.float32) / 255.0)
+        depth = depth_u16.to(torch.float32) / 1000.0
+        point_x, uv, inconst = assemble_score_features(
+            img, depth, cam_K, pts, cols, nrms, poses, return_uv=self.need_uv,
+            depth_origin=depth_origin, packed_sample=True)
+        if uv is None:
+            uv = torch.zeros((poses.shape[0], 1, 2), device=poses.device)
+        # geometric alignment statistic per hypothesis (see _pick)
+        okp = point_x[..., 10]
+        aligned = okp * (torch.abs(point_x[..., 6]) < 0.01) * (point_x[..., 3] < 0.05)
+        align_stat = aligned.sum(-1) / okp.sum(-1).clamp(min=1.0)
+        static_idx = {"sa1": (sa1c, sa1g), "sa2": (sa2c, sa2g)}
+        raw = self.net(point_x, static_idx).to(torch.float32)
+        neg_inf = torch.full_like(raw, float("-inf"))
+        ok = valid & (inconst < self.inconst_ratio_th)
+        return torch.where(ok, raw, neg_inf), torch.where(valid, raw, neg_inf), uv, inconst, align_stat
+
+    # ----------------------------------------------------------------- API
+    @torch.inference_mode()
+    def score_hypotheses_async(self, data: dict, obj_id=None) -> dict:
+        """Launch the score program without waiting; returns a handle for
+        `fetch_scores`."""
+        poses = np.asarray(data["pose_hypos"], np.float32)
+        m = len(poses)
+        mb = _bucket(m)
+        poses_p = np.concatenate([poses, np.tile(np.eye(4, dtype=np.float32), (mb - m, 1, 1))])
+        valid = np.zeros((mb,), bool)
+        valid[:m] = True
+
+        # content hash, not id(): python ids are recycled
+        key = obj_id if obj_id is not None else hashlib.sha1(
+            np.ascontiguousarray(data["model_points"]).tobytes()).hexdigest()
+        prep = self.prepare_object(key, data["model_points"], data["model_colors"],
+                                   data["model_normals"])
+
+        img = data["img"]
+        if not (hasattr(img, "dtype") and img.dtype == np.uint8):
+            img = (np.clip(np.asarray(img), 0, 1) * 255).astype(np.uint8)
+        depth = data["depth"]
+        if not (hasattr(depth, "dtype") and depth.dtype == np.uint16):
+            depth = (np.asarray(depth, np.float64) * 1000.0).round().clip(0, 65535).astype(np.uint16)
+        origin = np.asarray(data.get("depth_origin", (0, 0)), np.int32)
+
+        def dev(a, dtype=None):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return t.to(self.device, dtype=dtype)
+
+        scores, raw, uv, inconst, align_stat = self._score(
+            dev(img), dev(depth.astype(np.int32)), dev(origin),
+            dev(np.asarray(data["cam_K"], np.float32)), *prep,
+            dev(poses_p), dev(valid))
+        return {"dev": (scores, raw, inconst, align_stat), "uv_dev": uv,
+                "poses": poses, "m": m}
+
+    def _pick(self, scores_np: np.ndarray, stat_np: np.ndarray) -> int:
+        """Winning hypothesis: argmax of the net score, or with rank_blend of
+        z-scored net score + rank_blend * z-scored alignment statistic over
+        the non-pruned entries."""
+        lam = self.rank_blend
+        finite = np.isfinite(scores_np)
+        if not lam or finite.sum() < 2:
+            return np.argmax(scores_np)
+        s = scores_np[finite]
+        sz = (s - s.mean()) / max(float(s.std()), 1e-6)
+        t = stat_np[finite]
+        tz = (t - t.mean()) / max(float(t.std()), 1e-6)
+        return np.flatnonzero(finite)[np.argmax(sz + lam * tz)]
+
+    def fetch_scores(self, handle: dict, fetched=None) -> dict:
+        """Wait for the score outputs and build the result dict ('scores',
+        'align_stat', 'inconst_ratio', 'pred_idx/score/pose', device 'uv_dev')."""
+        poses, m = handle["poses"], handle["m"]
+        scores_np, raw_np, inconst_np, stat_np = (
+            fetched if fetched is not None else [t.cpu().numpy() for t in handle["dev"]])
+        scores_np = np.asarray(scores_np)[:m]
+        raw_np = np.asarray(raw_np)
+        inconst_np = np.asarray(inconst_np)[:m]
+        stat_np = np.asarray(stat_np)[:m]
+        if m and not np.isfinite(scores_np).any():
+            # every hypothesis was pruned by the free-space check: fall back to
+            # the raw network scores so the caller always gets a pose
+            scores_np = raw_np[:m]
+        idx = int(self._pick(scores_np, stat_np)) if m else -1
+        return {
+            "scores": scores_np,
+            "align_stat": stat_np,
+            "inconst_ratio": inconst_np,
+            "uv_dev": handle["uv_dev"],
+            "pred_idx": idx,
+            "pred_score": float(scores_np[idx]) if m else -np.inf,
+            "pred_pose": poses[idx] if m else np.eye(4),
+        }
+
+    def score_hypotheses(self, data: dict, obj_id=None, fetch_uv: bool = False) -> dict:
+        """data: img (H,W,3) uint8 or float [0,1]; depth (H,W) float meters or
+        uint16 mm; cam_K (3,3); model_points/colors/normals (N,3);
+        pose_hypos (M,4,4). Returns numpy 'scores' (M,), 'inconst_ratio',
+        'pred_idx', 'pred_score', 'pred_pose', and device 'uv_dev'."""
+        out = self.fetch_scores(self.score_hypotheses_async(data, obj_id=obj_id))
+        if fetch_uv:
+            out["uv"] = out["uv_dev"].cpu().numpy()[: len(data["pose_hypos"])]
+        return out
+
+    def fetch_uv(self, out: dict, index: int) -> np.ndarray:
+        """The projected uv of one hypothesis (for ICP cropping)."""
+        return out["uv_dev"][index].cpu().numpy()

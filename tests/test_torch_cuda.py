@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+This file imports no JAX, so it runs on a machine with PyTorch and CUDA
+alone (without the JAX-side conftest):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tests marked `cuda` skip without a card: a CUDA kernel has no CPU mode.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ossid_code_torch.ops import conv as tconv
+from ossid_code_torch.ops import sa_fused as tsa
+
+torch.set_num_threads(2)
+
+
+def _sa_inputs(rng, m, n, cf, s, k):
+    pts = rng.normal(0, 0.3, (m, n, 3 + cf)).astype(np.float32)
+    cidx = rng.choice(n, s, replace=False).astype(np.int32)
+    gidx = rng.integers(0, n, (s, k)).astype(np.int32)
+    return pts, cidx, gidx
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers launch or raise; the CPU path is chosen by the
+    dispatcher from the tensor's device only."""
+    x = torch.zeros(1, 4, 4, 8)
+    with pytest.raises(ValueError):
+        tconv.dw_corr3x3_cuda(x, torch.zeros(1, 3, 3, 8))
+    with pytest.raises(ValueError):
+        tsa.sa_mlp_max_cuda(torch.zeros(1, 8, 3), torch.zeros(1, 8, 8),
+                            torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4, dtype=torch.int32),
+                            [torch.zeros(11, 64), torch.zeros(64, 64), torch.zeros(64, 128)],
+                            [torch.zeros(64), torch.zeros(64), torch.zeros(128)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 29, 39, 640), (1, 240, 320, 64), (3, 5, 7, 12)])
+def test_dw_corr3x3_cuda_matches_plain(cuda, shape):
+    b, h, w, c = shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1, h, w, c, device="cuda", generator=g).expand(b, h, w, c)
+    k = torch.randn(b, 3, 3, c, device="cuda", generator=g)
+    with torch.inference_mode():
+        got = tconv.dw_corr3x3_cuda(x, k)
+        want = tconv.depthwise_corr_plain(x, k, 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,cf,k", [((64, 64, 128), 8, 64), ((128, 128, 256), 128, 64),
+                                         ((64, 64, 128), 8, 13)])
+def test_sa_mlp_max_cuda_matches_plain(cuda, widths, cf, k):
+    rng = np.random.default_rng(7)
+    pts, cidx, gidx = _sa_inputs(rng, 3, 200, cf, 37, k)
+    dims = (3 + cf,) + widths
+    Ws = [torch.from_numpy(rng.normal(0, 0.2, (dims[i], dims[i + 1])).astype(np.float32)).cuda()
+          for i in range(3)]
+    bs = [torch.from_numpy(rng.normal(0, 0.2, dims[i + 1]).astype(np.float32)).cuda() for i in range(3)]
+    p = torch.from_numpy(pts).cuda()
+    args = (p[..., :3], p[..., 3:], torch.from_numpy(cidx).cuda(), torch.from_numpy(gidx).cuda(), Ws, bs)
+    with torch.inference_mode():
+        got = tsa.sa_mlp_max_cuda(*args)
+        want = tsa.sa_mlp_max_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_serving_path_launches_the_kernels(cuda):
+    """A small DtoidModel detect launches kernel 1 twice (stem, correlation
+    head); a ZephyrModel score call launches kernel 2 twice (SA1, SA2); the
+    results agree with the same models on the CPU."""
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+
+    cfg = default_config()
+    cfg.model.img_h, cfg.model.img_w, cfg.model.densenet_blocks = 128, 160, (2, 2, 2)
+    rng = np.random.default_rng(8)
+    batch = {"img": rng.integers(0, 256, (128, 160, 3), dtype=np.uint8), "obj_id": 1,
+             "limg": rng.uniform(0, 1, (4, 124, 124, 3)).astype(np.float32),
+             "lmask": (rng.uniform(0, 1, (4, 124, 124)) > 0.5).astype(np.float32)}
+    gpu, cpu = DtoidModel(cfg, seed=0, device=cuda), DtoidModel(cfg, seed=0, device="cpu")
+    before = tconv.dw_corr3x3_cuda.launches
+    det = gpu.forward_test_time(batch)
+    assert tconv.dw_corr3x3_cuda.launches - before == 2
+    np.testing.assert_allclose(det["heat_map"], cpu.forward_test_time(batch)["heat_map"],
+                               rtol=1e-3, atol=1e-3)
+
+    pts = rng.normal(0, 0.05, (300, 3)).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (20, 1, 1))
+    poses[:, 2, 3] = rng.uniform(0.8, 1.2, 20)
+    data = {"img": batch["img"], "depth": (rng.uniform(0.8, 1.3, (128, 160)) * 1000).astype(np.uint16),
+            "cam_K": np.array([[150.0, 0, 80], [0, 150.0, 64], [0, 0, 1]], np.float32),
+            "model_points": pts, "model_colors": rng.uniform(0, 1, (300, 3)).astype(np.float32),
+            "model_normals": np.tile(np.array([[0, 0, -1.0]], np.float32), (300, 1)),
+            "pose_hypos": poses}
+    zg = ZephyrModel(num_points=512, seed=0, need_uv=False, device=cuda)
+    zc = ZephyrModel(num_points=512, seed=0, need_uv=False, device="cpu")
+    before = tsa.sa_mlp_max_cuda.launches
+    got = zg.score_hypotheses(data, obj_id=1)
+    assert tsa.sa_mlp_max_cuda.launches - before == 2
+    np.testing.assert_allclose(got["scores"], zc.score_hypotheses(data, obj_id=1)["scores"],
+                               rtol=1e-4, atol=1e-4)
