@@ -7,8 +7,10 @@ Phases, each of which exits non-zero on failure:
   1. print the card (nvidia-smi name and power limit) and build every CUDA
      kernel from ossid_code_torch/csrc (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version at the shapes the
-     serving path gives it, and time kernel, plain version and (where one
-     PyTorch call computes the same function) the library call;
+     serving path gives it and at inputs that reach its edges, and time
+     kernel, plain version and (where one PyTorch call computes the same
+     function) the library call; sa_mlp_max's bound is the TF32
+     tensor-core one, with its 3-pass floor and the FP32-pipe bound beside;
   3. serve frames at full width through the port's entry points: DtoidModel
      (480x640, DenseNet-121 12/24/16, T=10 templates) forward_test_time, then
      FakeHypoGen, then ZephyrModel(num_points=512) score_hypotheses on 100
@@ -44,10 +46,12 @@ NUM_POINTS = 512
 DW_TOL = 1e-5   # 9-term sums in another order than cuDNN's
 SA_TOL = 1e-4   # 3 chained layers of up to 131-term sums, another order
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# HBM bytes/s and FP32 flop/s outside the tensor cores; the card's own name
-# and power limit are printed beside every run
+# HBM bytes/s, FP32 flop/s outside the tensor cores, dense TF32 flop/s on
+# the tensor cores; the card's own name and power limit are printed beside
+# every run
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 SLEEP_CYCLES = 20_000_000  # ~10 ms of a 1.98 GHz SM clock: longer than enqueueing one timed run
 
 
@@ -77,6 +81,18 @@ def cuda_ms(torch, fn, reps: int = 10, launches: int = 20) -> float:
     return float(np.median(times))
 
 
+def host_ms(torch, fn, calls: int = 50) -> float:
+    """Host-clock time of one fn() call over `calls` calls in a row, then a
+    sync: for a chain of small launches, the host's cost of issuing them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
 def profile_call(torch, fn) -> dict:
     """One call of fn under torch.profiler: the host-clock wall time, the
     device's busy time (sum of its kernels and copies, one stream) and the
@@ -101,8 +117,8 @@ def profile_call(torch, fn) -> dict:
             "top_kernels_ms": [(name[:70], ms) for name, ms in top]}
 
 
-def bound_ms(bytes_moved: float, flops: float):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound_ms(bytes_moved: float, flops: float, flops_per_s: float = FP32_FLOPS):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -136,6 +152,28 @@ def dw_corr_cases(torch, device):
     ]
 
 
+def dw_corr_edge_cases(torch, device):
+    """Shapes off the main path that reach the kernel's edges: a W that is
+    not a multiple of the run length (4), k broadcast with stride 0 over B,
+    one column, C = 4."""
+    g = torch.Generator(device=device).manual_seed(3)
+    r = lambda *shape: torch.randn(*shape, device=device, generator=g)
+    return [
+        ("W 39, k stride 0 over B", r(1, 6, 39, 64).expand(3, 6, 39, 64), r(1, 3, 3, 64).expand(3, 3, 3, 64)),
+        ("W 7, both per sample", r(2, 5, 7, 12), r(2, 3, 3, 12)),
+        ("W 1, C 4", r(3, 4, 1, 4), r(3, 3, 3, 4)),
+        ("W 322, k stride 0 over B", r(2, 3, 322, 64), r(1, 3, 3, 64).expand(2, 3, 3, 64)),
+    ]
+
+
+def check_dw_corr_edges(torch, conv, cases):
+    errs = []
+    for label, x, k in cases:
+        errs.append(check_close(torch, f"dw_corr3x3 ({label})", conv.dw_corr3x3_cuda(x, k),
+                                conv.depthwise_corr_plain(x, k, 1), DW_TOL))
+    return max(errs)
+
+
 def measure_dw_corr(torch, F, conv, cases):
     rows = []
     for label, x, k in cases:
@@ -157,9 +195,17 @@ def measure_dw_corr(torch, F, conv, cases):
     return rows
 
 
+def sa_flops(m, s, k, dims):
+    return 2.0 * m * s * k * sum(dims[i] * dims[i + 1] for i in range(3))
+
+
 def measure_sa(torch, sa, zephyr, prep):
     """Kernel 2 at its two main-path stages, on the prepared object's real
-    grouping indices and the scorer's folded weights, at the M = 128 bucket."""
+    grouping indices and the scorer's folded weights, at the M = 128 bucket.
+    bound_ms is the TF32 tensor-core bound (the kernel's 3 passes make
+    three times that its floor); the FP32-pipe bound is reported beside,
+    and the time the wrapper spends packing the weights (pack_sa_weights)
+    on each call, on the device and on the host clock."""
     g = torch.Generator(device=zephyr.device).manual_seed(2)
     m = 128
     point_x = torch.randn(m, NUM_POINTS, 11, device=zephyr.device, generator=g) * 0.05
@@ -178,10 +224,12 @@ def measure_sa(torch, sa, zephyr, prep):
         err = check_close(torch, f"sa_mlp_max ({label})", got, want, SA_TOL)
         s, k = gidx.shape
         dims = [3 + fx.shape[2]] + [w.shape[1] for w in Ws]
-        flops = 2.0 * m * s * k * sum(dims[i] * dims[i + 1] for i in range(3))
+        flops = sa_flops(m, s, k, dims)
         nbytes = (unique_bytes(x3) + unique_bytes(fx) + 4 * (cidx.numel() + gidx.numel())
                   + sum(4 * (w.numel() + b.numel()) for w, b in zip(Ws, bs)) + 4 * got.numel())
-        bnd, by = bound_ms(nbytes, flops)
+        bnd, by = bound_ms(nbytes, flops, TF32_FLOPS)
+        layout = sa.SA_LAYOUT[tuple(dims[1:])]
+        pack = lambda: sa.pack_sa_weights(Ws, fx.shape[2], *layout)
         rows.append({
             "shape": f"{label}: (M={m}, S={s}, k={k}, Cin={dims[0]}) -> {dims[1:]}",
             "max_abs_err": err,
@@ -189,19 +237,61 @@ def measure_sa(torch, sa, zephyr, prep):
             "plain_ms": cuda_ms(torch, lambda: sa.sa_mlp_max_plain(*args), reps=10),
             "library_ms": None,
             "bound_ms": bnd, "bound_by": by,
-            "tf32_bound_ms": flops / 495e12 * 1e3, "gflop": flops / 1e9,
+            "three_pass_floor_ms": 3 * flops / TF32_FLOPS * 1e3,
+            "fp32_pipe_bound_ms": flops / FP32_FLOPS * 1e3, "gflop": flops / 1e9,
+            "pack_ms": cuda_ms(torch, pack), "pack_host_ms": host_ms(torch, pack),
         })
     return rows
 
 
-def summary(name, source, replaces, launches, rows):
+def check_sa_edges(torch, sa, device):
+    """Inputs that reach the kernel's edges, against the plain version:
+    k = 13 and 29 (padding rows in every tile), odd group counts (a partial
+    last tile, and more tiles than blocks), and weights whose layer-3 outputs
+    are mostly negative (W3 shifted down, b3 up): relu hits zero on the real
+    rows while a padding row, relu(b) of the chain, would win the max if it
+    were not masked; the case checks that it would."""
+    rng = np.random.default_rng(9)
+    errs = []
+    # (widths, cf, M, S, k, mean of W3, mean of b3)
+    for widths, cf, m, s, k, w3, b3 in (((64, 64, 128), 8, 3, 37, 13, -0.1, 0.3),
+                                        ((128, 128, 256), 128, 3, 37, 13, -0.05, 0.3),
+                                        ((64, 64, 128), 8, 5, 301, 64, 0.0, 0.0),
+                                        ((128, 128, 256), 128, 5, 301, 29, -0.05, 0.3),
+                                        ((64, 64, 128), 8, 1, 1, 1, 0.0, 0.0)):
+        n = max(200, s)
+        pts = torch.from_numpy(rng.normal(0, 0.3, (m, n, 3 + cf)).astype(np.float32)).to(device)
+        cidx = torch.from_numpy(rng.choice(n, s, replace=False).astype(np.int32)).to(device)
+        gidx = torch.from_numpy(rng.integers(0, n, (s, k)).astype(np.int32)).to(device)
+        dims = (3 + cf,) + widths
+        Ws = [torch.from_numpy(rng.normal(w3 * (i == 2), 0.2, (dims[i], dims[i + 1]))
+                               .astype(np.float32)).to(device) for i in range(3)]
+        bs = [torch.from_numpy(rng.normal(b3 * (i == 2), 0.2, dims[i + 1]).astype(np.float32)).to(device)
+              for i in range(3)]
+        args = (pts[..., :3], pts[..., 3:], cidx, gidx, Ws, bs)
+        want = sa.sa_mlp_max_plain(*args)
+        label = f"widths {widths}, M={m}, S={s}, k={k}, W3 mean {w3}, b3 mean {b3}"
+        if w3:
+            x, pad = sa._grouped(*args[:4]), torch.zeros(dims[0], device=device)
+            for w, b in zip(Ws, bs):
+                pre = torch.matmul(x, w) + b
+                x, pad = torch.relu(pre), torch.relu(torch.matmul(pad, w) + b)
+            negative = float((pre < 0).float().mean())
+            if negative < 0.5 or not bool((pad > want).any()):
+                fail(f"sa_mlp_max edge case ({label}): layer 3 {negative:.2f} negative, "
+                     f"padding row wins nowhere")
+        errs.append(check_close(torch, f"sa_mlp_max ({label})", sa.sa_mlp_max_cuda(*args), want, SA_TOL))
+    return max(errs)
+
+
+def summary(name, source, replaces, launches, rows, edge_err, bound_peak):
     worst = max(rows, key=lambda r: r["bound_ms"])
     total = lambda key: None if rows[0][key] is None else sum(r[key] for r in rows)
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "launches": launches, "max_abs_err": max([r["max_abs_err"] for r in rows] + [edge_err]),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-        "bound_by": worst["bound_by"], "library_ms": total("library_ms"),
+        "bound_by": worst["bound_by"], "bound_peak": bound_peak, "library_ms": total("library_ms"),
         "per_call": rows,
     }
 
@@ -334,7 +424,8 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output")
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; precision float32, TF32 off "
-          f"(cuDNN and matmul); peaks used for bounds: {HBM_BYTES_PER_S / 1e12} TB/s, {FP32_FLOPS / 1e12} TFLOP/s FP32")
+          f"(cuDNN and matmul); peaks used for bounds: {HBM_BYTES_PER_S / 1e12} TB/s, "
+          f"{FP32_FLOPS / 1e12} TFLOP/s FP32, {TF32_FLOPS / 1e12} TFLOP/s TF32")
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -358,13 +449,21 @@ def main() -> int:
     prep = zephyr.prepare_object(scene["obj_id"], scene["model_points"], scene["model_colors"],
                                  scene["model_normals"])
     with torch.inference_mode():
-        dw_rows = measure_dw_corr(torch, F, conv, dw_corr_cases(torch, device))
+        dw_edge_err = check_dw_corr_edges(torch, conv, dw_corr_edge_cases(torch, device))
+        sa_edge_err = check_sa_edges(torch, sa, device)
+        print(f"edge cases agree: dw_corr3x3 max abs err {dw_edge_err:.3g}, "
+              f"sa_mlp_max max abs err {sa_edge_err:.3g}")
+        dw_cases = dw_corr_cases(torch, device)
+        dw_rows = measure_dw_corr(torch, F, conv, dw_cases)
         sa_rows = measure_sa(torch, sa, zephyr, prep)
     for label, rows in (("dw_corr3x3", dw_rows), ("sa_mlp_max", sa_rows)):
         for r in rows:
+            extra = (f"; 3-pass floor {r['three_pass_floor_ms']:.4f} ms, FP32-pipe bound "
+                     f"{r['fp32_pipe_bound_ms']:.4f} ms; weight packing {r['pack_ms']:.4f} ms "
+                     f"device, {r['pack_host_ms']:.4f} ms host" if "fp32_pipe_bound_ms" in r else "")
             print(f"{label} {r['shape']}: err {r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
 
     # -- 3. serve full-width frames through the port's entry points ----------
     serve_frame(dtoid, zephyr, FakeHypoGen, scene, frames[0])  # warm-up: templates, cuDNN plans
@@ -405,9 +504,11 @@ def main() -> int:
 
     kernels = [
         summary("dw_corr3x3", "ossid_code_torch/csrc/dw_corr3x3.cu",
-                "ossid_code_tpu/ops/pallas_kernels.py:49", dw_launches, dw_rows),
+                "ossid_code_tpu/ops/pallas_kernels.py:49", dw_launches, dw_rows, dw_edge_err,
+                f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"),
         summary("sa_mlp_max", "ossid_code_torch/csrc/sa_mlp_max.cu",
-                "ossid_code_tpu/ops/sa_fused.py:85", sa_launches, sa_rows),
+                "ossid_code_tpu/ops/sa_fused.py:85", sa_launches, sa_rows, sa_edge_err,
+                f"TF32 tensor cores {TF32_FLOPS / 1e12} TFLOP/s"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -74,12 +74,17 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     return logs
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+def library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed, with
+    each entry point's ctypes signature, {name: (argtypes, restype)}, set
+    once when it is loaded."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_target(CSRC_DIR / f"{name}.cu")))
+        for fn, (argtypes, restype) in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
 

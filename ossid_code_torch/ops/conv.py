@@ -39,6 +39,10 @@ def _inner_contiguous(t: torch.Tensor) -> bool:
     return t.stride(3) == 1 and (w == 1 or t.stride(2) == c) and (h == 1 or t.stride(1) == w * c)
 
 
+_SIGNATURES = {"dw_corr3x3_f32": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                                  + [ctypes.c_longlong] * 2 + [ctypes.c_void_p], ctypes.c_int)}
+
+
 def dw_corr3x3_cuda(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Kernel 1: 3x3 / padding-1 depthwise correlation on the card.
 
@@ -62,11 +66,8 @@ def dw_corr3x3_cuda(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     if (x.data_ptr() % 16 or kernel.data_ptr() % 16 or xs % 4 or ks % 4):
         raise ValueError("dw_corr3x3_cuda needs 16-byte aligned rows")
     out = torch.empty((b, h, w, c), device=x.device, dtype=torch.float32)
-    fn = library("dw_corr3x3").dw_corr3x3_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, c, xs, ks,
-             stream_ptr(x.device))
+    err = library("dw_corr3x3", _SIGNATURES).dw_corr3x3_f32(
+        x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, c, xs, ks, stream_ptr(x.device))
     check(err, "dw_corr3x3_f32")
     dw_corr3x3_cuda.launches += 1
     return out

@@ -8,20 +8,23 @@ members: (M hypotheses, S centres) groups -> (M, S, C_out).
 
 `sa_mlp_max` dispatches by tensor device: a CPU tensor takes the plain
 version (gather, three matmuls, max), a CUDA tensor the hand-written kernel
-`csrc/sa_mlp_max.cu`, which gathers inside the kernel and never writes the
-(M, S, k, Cin) grouped tensor to memory (or the wrapper raises).
+`csrc/sa_mlp_max.cu` (or the wrapper raises), which gathers inside the
+kernel, never writes the (M, S, k, Cin) grouped tensor to memory, and runs
+the three layers on the tensor cores in 3xTF32 from weights that
+`pack_sa_weights` splits and lays out.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from ossid_code_torch.kernels.build import check, library, stream_ptr
 
 EPS = 1e-5  # BatchNorm epsilon of the JAX package (flax default)
-_KERNEL_WIDTHS = ((64, 64, 128), (128, 128, 256))
 _MAX_GROUP = 64
 
 
@@ -54,14 +57,99 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"sa_mlp_max_cuda: {name} must be (M, N, C) with unit channel stride")
 
 
+_NMAX = 128  # widest wgmma N: layer 3 runs in parts of at most this many columns
+# (K1, KS) of the kernel's instance for each width set: layer-1 depth (3 + Cf
+# padded to a multiple of 8) and K-slice depth of the packed weights. The
+# library reports its own (sa_mlp_max_layout); the wrapper checks that the two
+# agree before it launches.
+SA_LAYOUT = {(64, 64, 128): (16, 32), (128, 128, 256): (136, 32)}
+# K order of layers 2 and 3 within each group of 8: the kernel feeds the
+# previous layer's accumulator fragment straight in as the A fragment, whose
+# k = tig is column 2 tig and k = tig + 4 is column 2 tig + 1.
+_PERM8 = np.array([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value, ties away from zero (PTX
+    cvt.rna.tf32.f32): add half a unit of the 10-bit mantissa to the bit
+    pattern, clear the 13 low bits."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def sa_slices(widths, k1: int, ks: int) -> list[tuple[int, int, int, int, int]]:
+    """The packed weights' slices in the kernel's order: (layer, n0, rows,
+    k0, kc). Layer 1 is K1 deep in KS slices (the last may be shorter),
+    layers 2 and 3 are C1 and C2 deep; layer 3 runs in parts of <= 128
+    columns."""
+    c1, c2, c3 = widths
+    np3 = min(c3, _NMAX)
+    out = [(0, 0, c1, k0, min(ks, k1 - k0)) for k0 in range(0, k1, ks)]
+    out += [(1, 0, c2, k0, ks) for k0 in range(0, c1, ks)]
+    out += [(2, n0, np3, k0, ks) for n0 in range(0, c3, np3) for k0 in range(0, c2, ks)]
+    return out
+
+
+def _w_row(layer: int, k: np.ndarray, cf: int) -> np.ndarray:
+    """Row of W_layer that logical depth index k of the packed W^T holds; -1
+    for padding. Layer 1's input row is [feats (cf), xyz - centre (3), 0...],
+    W1's rows are [xyz (3), feats (cf)]."""
+    if layer == 0:
+        return np.where(k < cf, k + 3, np.where(k < cf + 3, k - cf, -1))
+    return 8 * (k // 8) + _PERM8[k % 8]
+
+
+_PACK_INDEX: dict = {}
+
+
+def _pack_index(widths, cf: int, k1: int, ks: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(src, is_lo): packed position -> index into cat(W1, W2, W3 flattened,
+    [0]) (the last entry for padding), and whether it holds the lo part.
+    Within a slice the hi block (rows x kc) comes first, then the lo block,
+    each in wgmma core matrices of 8 rows x 4 k (128 contiguous bytes),
+    K-adjacent core matrices 128 B apart, N-adjacent ones kc / 4 * 128 B."""
+    key = (tuple(widths), cf, k1, ks, str(device))
+    if key not in _PACK_INDEX:
+        cins = (3 + cf,) + tuple(widths[:2])
+        base = np.cumsum([0] + [cin * c for cin, c in zip(cins, widths)])
+        zero = base[-1]
+        src, is_lo = [], []
+        for layer, n0, rows, k0, kc in sa_slices(widths, k1, ks):
+            ng, kg, r8, c4 = np.meshgrid(np.arange(rows // 8), np.arange(kc // 4), np.arange(8),
+                                         np.arange(4), indexing="ij")
+            n = (n0 + 8 * ng + r8).ravel()
+            wrow = _w_row(layer, k0 + 4 * kg.ravel() + c4.ravel(), cf)
+            idx = np.where(wrow >= 0, base[layer] + wrow * widths[layer] + n, zero)
+            src += [idx, idx]
+            is_lo += [np.zeros(idx.size, bool), np.ones(idx.size, bool)]
+        _PACK_INDEX[key] = (torch.from_numpy(np.concatenate(src)).to(device),
+                            torch.from_numpy(np.concatenate(is_lo)).to(device))
+    return _PACK_INDEX[key]
+
+
+def pack_sa_weights(Ws, cf: int, k1: int, ks: int) -> torch.Tensor:
+    """The folded weights W_i (Cin_i, C_i) of one SA stage as the kernel reads
+    them: W^T split into TF32 hi and lo (hi + lo = W within 2^-21 relative),
+    padded with exact zeros to the layer-1 depth k1, in K-slices ks deep of
+    wgmma core matrices (see _pack_index). One flat float32 tensor on the
+    weights' device."""
+    widths = tuple(w.shape[1] for w in Ws)
+    src, is_lo = _pack_index(widths, cf, k1, ks, Ws[0].device)
+    flat = torch.cat([w.reshape(-1) for w in Ws] + [Ws[0].new_zeros(1)])
+    v = flat[src]
+    hi = tf32_round(v)
+    return torch.where(is_lo, tf32_round(v - hi), hi)
+
+
 def sa_mlp_max_cuda(xyz, feats, center_idx, group_idx, Ws, bs) -> torch.Tensor:
-    """Kernel 2: one SA stage on the card.
+    """Kernel 2: one SA stage on the card, 3xTF32 on the tensor cores.
 
     xyz (M, N, 3) and feats (M, N, Cf) float32, any row and hypothesis strides
     with unit channel stride (views into one point tensor are fine);
     center_idx (S,), group_idx (S, k) integer indices into N, k <= 64;
-    Ws 3 x (Cin_i, C_i), bs 3 x (C_i,) with widths (64, 64, 128) or
-    (128, 128, 256). Returns a contiguous (M, S, C3) float32 tensor."""
+    Ws 3 x (Cin_i, C_i), bs 3 x (C_i,) with widths (64, 64, 128) (Cf <= 13)
+    or (128, 128, 256) (Cf <= 133). Returns a contiguous (M, S, C3) float32
+    tensor."""
     dev = xyz.device
     tensors = (xyz, feats, center_idx, group_idx, *Ws, *bs)
     if not all(t.is_cuda and t.device == dev for t in tensors):
@@ -80,36 +168,55 @@ def sa_mlp_max_cuda(xyz, feats, center_idx, group_idx, Ws, bs) -> torch.Tensor:
     if center_idx.shape != (s,) or not 1 <= k <= _MAX_GROUP:
         raise ValueError(f"center_idx {tuple(center_idx.shape)} / group_idx {tuple(group_idx.shape)}")
     widths = tuple(w.shape[1] for w in Ws)
-    if widths not in _KERNEL_WIDTHS:
-        raise ValueError(f"sa_mlp_max_cuda has no instance for widths {widths}")
+    layout = SA_LAYOUT.get(widths)
+    if layout is None or 3 + cf > layout[0]:
+        raise ValueError(f"sa_mlp_max_cuda has no instance for widths {widths} with {cf} features")
+    if _layout(_lib(), widths) != layout:
+        raise RuntimeError(f"csrc/sa_mlp_max.cu lays out (K1, KS) = {_layout(_lib(), widths)} for "
+                           f"widths {widths}, SA_LAYOUT says {layout}")
     cins = (3 + cf,) + widths[:2]
-    Ws = [w.contiguous() for w in Ws]
-    bs = [b.contiguous() for b in bs]
     for w, b, cin, cout in zip(Ws, bs, cins, widths):
         if w.shape != (cin, cout) or b.shape != (cout,):
             raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} != ({cin}, {cout})")
-        if w.data_ptr() % 16 or b.data_ptr() % 16:
-            raise ValueError("sa_mlp_max_cuda needs 16-byte aligned weights")
+    packed = pack_sa_weights(Ws, cf, *layout)
+    bs = [b.contiguous() for b in bs]
+    if any(b.data_ptr() % 16 for b in bs):
+        raise ValueError("sa_mlp_max_cuda needs 16-byte aligned biases")
     cidx = center_idx.to(torch.int32).contiguous()
     gidx = group_idx.to(torch.int32).contiguous()
     out = torch.empty((m, s, widths[2]), device=dev, dtype=torch.float32)
-
-    fn = library("sa_mlp_max").sa_mlp_max_f32
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [vp, ll, ll, vp, ll, ll, ci, vp, vp, ci, ci, ci, ci, ci, ci,
-                   vp, vp, vp, vp, vp, vp, vp, vp]
-    fn.restype = ci
-    err = fn(xyz.data_ptr(), xyz.stride(0), xyz.stride(1),
-             feats.data_ptr(), feats.stride(0), feats.stride(1), cf,
-             cidx.data_ptr(), gidx.data_ptr(), m, s, k, *widths,
-             Ws[0].data_ptr(), bs[0].data_ptr(), Ws[1].data_ptr(), bs[1].data_ptr(),
-             Ws[2].data_ptr(), bs[2].data_ptr(), out.data_ptr(), stream_ptr(dev))
-    check(err, "sa_mlp_max_f32")
+    vec4 = int(feats.data_ptr() % 16 == 0 and all(v % 4 == 0 for v in (feats.stride(0), feats.stride(1), cf)))
+    err = _lib().sa_mlp_max_tf32(
+        xyz.data_ptr(), xyz.stride(0), xyz.stride(1),
+        feats.data_ptr(), feats.stride(0), feats.stride(1), cf, vec4,
+        cidx.data_ptr(), gidx.data_ptr(), m, s, k, *widths, packed.data_ptr(),
+        bs[0].data_ptr(), bs[1].data_ptr(), bs[2].data_ptr(), out.data_ptr(), stream_ptr(dev))
+    check(err, "sa_mlp_max_tf32")
     sa_mlp_max_cuda.launches += 1
     return out
 
 
 sa_mlp_max_cuda.launches = 0
+
+
+_vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {"sa_mlp_max_tf32": ([_vp, _ll, _ll, _vp, _ll, _ll, _ci, _ci, _vp, _vp, _ci, _ci, _ci,
+                                    _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp], _ci),
+               "sa_mlp_max_layout": ([_ci, _ci, _ci, ctypes.POINTER(_ci), ctypes.POINTER(_ci)], _ci)}
+
+
+def _lib() -> ctypes.CDLL:
+    return library("sa_mlp_max", _SIGNATURES)
+
+
+@functools.cache
+def _layout(lib: ctypes.CDLL, widths: tuple[int, int, int]) -> tuple[int, int] | None:
+    """(K1, KS) of the library's kernel instance for `widths`, None if it has
+    none."""
+    k1, ks = _ci(), _ci()
+    if lib.sa_mlp_max_layout(*widths, ctypes.byref(k1), ctypes.byref(ks)) != 0:
+        return None
+    return k1.value, ks.value
 
 
 def sa_mlp_max(xyz, feats, center_idx, group_idx, Ws, bs) -> torch.Tensor:

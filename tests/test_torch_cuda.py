@@ -48,12 +48,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(10, 29, 39, 640), (1, 240, 320, 64), (3, 5, 7, 12)])
-def test_dw_corr3x3_cuda_matches_plain(cuda, shape):
+def test_sa_layout_is_the_kernels(cuda):
+    """The packed layout that the wrapper and the CPU tests use is the one
+    the library's kernel instances read; other widths have no instance."""
+    lib = tsa._lib()
+    for widths, layout in tsa.SA_LAYOUT.items():
+        assert tsa._layout(lib, widths) == layout
+    assert tsa._layout(lib, (32, 32, 64)) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k_broadcast", [((10, 29, 39, 640), False), ((1, 240, 320, 64), False),
+                                               ((3, 5, 7, 12), False), ((4, 6, 322, 64), True),
+                                               ((3, 4, 1, 4), True)])
+def test_dw_corr3x3_cuda_matches_plain(cuda, shape, k_broadcast):
+    """x broadcast over B (stride 0) as at the correlation head; k per sample
+    or broadcast (stride 0) as at the stem; W = 39, 7, 322, 1 are not
+    multiples of the kernel's run length 4."""
     b, h, w, c = shape
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(1, h, w, c, device="cuda", generator=g).expand(b, h, w, c)
-    k = torch.randn(b, 3, 3, c, device="cuda", generator=g)
+    if k_broadcast:
+        k = torch.randn(1, 3, 3, c, device="cuda", generator=g).expand(b, 3, 3, c)
+    else:
+        k = torch.randn(b, 3, 3, c, device="cuda", generator=g)
     with torch.inference_mode():
         got = tconv.dw_corr3x3_cuda(x, k)
         want = tconv.depthwise_corr_plain(x, k, 1)
@@ -62,20 +80,37 @@ def test_dw_corr3x3_cuda_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("widths,cf,k", [((64, 64, 128), 8, 64), ((128, 128, 256), 128, 64),
-                                         ((64, 64, 128), 8, 13)])
-def test_sa_mlp_max_cuda_matches_plain(cuda, widths, cf, k):
+@pytest.mark.parametrize("widths,cf,m,n,s,k,w3,b3", [
+    ((64, 64, 128), 8, 3, 200, 37, 64, 0.0, 0.0),          # 111 groups: a partial last tile
+    ((128, 128, 256), 128, 3, 200, 37, 64, 0.0, 0.0),
+    ((64, 64, 128), 8, 3, 200, 37, 13, 0.0, 0.0),          # k = 13: padding rows
+    ((64, 64, 128), 8, 128, 512, 512, 64, 0.0, 0.0),       # SA1 at the scorer's size
+    ((128, 128, 256), 128, 128, 512, 128, 64, 0.0, 0.0),   # SA2 at the scorer's size
+    ((64, 64, 128), 8, 3, 200, 37, 13, -0.1, 0.3),         # layer 3 mostly negative
+    ((128, 128, 256), 128, 5, 301, 301, 29, -0.05, 0.3),
+])
+def test_sa_mlp_max_cuda_matches_plain(cuda, widths, cf, m, n, s, k, w3, b3):
+    """The 3xTF32 tensor-core kernel against the float32 plain version. With
+    W3 shifted down and b3 up, relu zeroes most real rows of layer 3 while a
+    padding row (relu of the biases through the chain) would win the max
+    somewhere if it were not masked."""
     rng = np.random.default_rng(7)
-    pts, cidx, gidx = _sa_inputs(rng, 3, 200, cf, 37, k)
+    pts, cidx, gidx = _sa_inputs(rng, m, n, cf, s, k)
     dims = (3 + cf,) + widths
-    Ws = [torch.from_numpy(rng.normal(0, 0.2, (dims[i], dims[i + 1])).astype(np.float32)).cuda()
+    Ws = [torch.from_numpy(rng.normal(w3 * (i == 2), 0.2, (dims[i], dims[i + 1])).astype(np.float32)).cuda()
           for i in range(3)]
-    bs = [torch.from_numpy(rng.normal(0, 0.2, dims[i + 1]).astype(np.float32)).cuda() for i in range(3)]
+    bs = [torch.from_numpy(rng.normal(b3 * (i == 2), 0.2, dims[i + 1]).astype(np.float32)).cuda()
+          for i in range(3)]
     p = torch.from_numpy(pts).cuda()
     args = (p[..., :3], p[..., 3:], torch.from_numpy(cidx).cuda(), torch.from_numpy(gidx).cuda(), Ws, bs)
     with torch.inference_mode():
         got = tsa.sa_mlp_max_cuda(*args)
         want = tsa.sa_mlp_max_plain(*args)
+        if w3:
+            pad = torch.zeros(dims[0], device="cuda")
+            for w, b in zip(Ws, bs):
+                pad = torch.relu(pad @ w + b)
+            assert (pad > want).any()
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
