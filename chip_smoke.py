@@ -5,7 +5,9 @@
 
 Phases, each of which exits non-zero on failure:
   1. print the card (nvidia-smi name and power limit) and build every CUDA
-     kernel from ossid_code_torch/csrc (one nvcc per source, in parallel);
+     kernel from ossid_code_torch/csrc (one nvcc per source, in parallel)
+     and the loop's host libraries from native/ppf.cpp and
+     native/rasterizer.cpp (g++);
   2. hold each kernel against its plain PyTorch version at the shapes the
      serving path gives it and at inputs that reach its edges, and time
      kernel, plain version and (where one PyTorch call computes the same
@@ -18,7 +20,22 @@ Phases, each of which exits non-zero on failure:
      and 2 per score call; then one detect and one score call run under
      torch.profiler (device busy time, idle share, the kernels that take it);
   4. run the first frame again through the plain path on the CPU with the
-     same weights and compare.
+     same weights and compare;
+  5. hold the backward of dw_corr3x3 (dx: kernel 1 on the output gradient
+     with the taps turned; dk: kernel 3, csrc/dw_corr3x3_bwd.cu) against its
+     plain version at the finetune's shapes and at edge inputs, check that
+     dk is bitwise repeatable, and time both against their bounds, the
+     plain versions and cuDNN's convolution_backward;
+  6. run the online loop (loop/online_learning.py) on a synthetic world of
+     8 frames at 480x640 with 2 objects (16 targets) under the bench's
+     gating profile: 256 hypotheses from native PPF, device ICP of the top
+     24, a 256-px depth crop, oracle labels, always the DTOID mask, and a
+     float32 finetune at batch 8 every 8 buffered targets; the launch
+     counts must be those the schedule implies;
+  7. run one finetune step at full width (batch 2) on the card and through
+     the plain path on the CPU from the same weights and compare the loss,
+     the gradients leaf by leaf, the parameters after the step and the
+     BatchNorm running statistics.
 Weights are random, from fixed seeds. The whole run is in float32 with TF32
 off for cuDNN convolutions and cuBLAS matmuls (main path and comparisons).
 
@@ -45,6 +62,37 @@ N_HYPOS = 100
 NUM_POINTS = 512
 DW_TOL = 1e-5   # 9-term sums in another order than cuDNN's
 SA_TOL = 1e-4   # 3 chained layers of up to 131-term sums, another order
+# backward of dw_corr3x3, relative to the reference's largest magnitude:
+# dx sums 9 terms, dk sums H * W terms in another order
+DX_TOL = 1e-5
+DK_TOL = 1e-4
+LOOP_FRAMES = 8          # x 2 objects = 16 targets
+LOOP_HYPOS = 256         # the bench's gating profile (bench.py:300-304)
+REFINE_TOP = 24
+DEPTH_CROP = 256
+FINETUNE_INTERVAL = 8    # the gating profile's 32, cut so 16 targets give 2 events
+FINETUNE_BATCH = 8
+# one step on the card against the CPU. Loss and BatchNorm statistics:
+# relative to the largest magnitude. Gradients, leaf by leaf: the L2 norm of
+# the difference over the L2 norm of the CPU gradient. At full width the
+# float32 gradients of this network are noisy: on an H100 the CPU's own
+# float32 gradients read up to 0.029 against a float64 CPU run, the card's
+# 0.035 against the CPU's; half the batch, dk or dx doubled, or a dk of the
+# first sample only read 1.1 or more (tools/step_gradients.py prints these).
+# A leaf whose largest CPU gradient is below STEP_GRAD_NOISE of the largest
+# over all leaves is at float32 rounding level (float32's epsilon is 1.2e-7)
+# and is left out. Parameters after Adam's first step (each element moves by
+# about lr times the sign of its gradient): held to STEP_PARAM_TOL where the
+# CPU gradient (weight decay included) exceeds twice its leaf's largest
+# card-CPU gradient difference, so both devices step the same way there.
+STEP_LOSS_TOL = 1e-4
+STEP_STAT_TOL = 1e-4
+STEP_GRAD_TOL = 0.1
+STEP_GRAD_NOISE = 1e-6
+STEP_PARAM_TOL = 1e-5
+ROW_KEYS = ("obj_id", "pred_pose", "pred_score", "pred_err", "pred_add01d", "pred_mask_visib",
+            "pred_iou_visib", "dtoid_bbox", "dtoid_score", "time_dtoid", "time_finetune",
+            "use_dtoid_mask", "finetune")
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # HBM bytes/s, FP32 flop/s outside the tensor cores, dense TF32 flop/s on
 # the tensor cores; the card's own name and power limit are printed beside
@@ -108,7 +156,8 @@ def profile_call(torch, fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a user annotation's device range spans kernels counted on their own
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -199,17 +248,17 @@ def sa_flops(m, s, k, dims):
     return 2.0 * m * s * k * sum(dims[i] * dims[i + 1] for i in range(3))
 
 
-def measure_sa(torch, sa, zephyr, prep):
+def measure_sa(torch, sa, zephyr, prep, m):
     """Kernel 2 at its two main-path stages, on the prepared object's real
-    grouping indices and the scorer's folded weights, at the M = 128 bucket.
+    grouping indices and the scorer's folded weights, at the M = m bucket
+    (128: serving's 100 hypotheses; 256: the gating profile's).
     bound_ms is the TF32 tensor-core bound (the kernel's 3 passes make
     three times that its floor); the FP32-pipe bound is reported beside,
     and the time the wrapper spends packing the weights (pack_sa_weights)
     on each call, on the device and on the host clock."""
     g = torch.Generator(device=zephyr.device).manual_seed(2)
-    m = 128
     point_x = torch.randn(m, NUM_POINTS, 11, device=zephyr.device, generator=g) * 0.05
-    _, _, _, sa1c, sa1g, sa2c, sa2g = prep
+    _, _, _, sa1c, sa1g, sa2c, sa2g = prep[:7]
     mods = zephyr.net.SA_modules
     stages = []
     xyz, feats = point_x[..., :3], point_x[..., 3:]
@@ -401,6 +450,271 @@ def perturb_heads(net, seed):
                 conv.bias.fill_(bias)
 
 
+def dw_bwd_cases(torch, device):
+    """The finetune's two calls of the backward (per-sample x and k, batch 8)
+    and edge inputs: B = 1 with C = 4, W = 13 (not a multiple of the run
+    length 8) with k broadcast over B, and x broadcast over B. Each case is
+    (label, x, k, dout); a broadcast input is a stride-0 expand."""
+    g = torch.Generator(device=device).manual_seed(4)
+    r = lambda *shape: torch.randn(*shape, device=device, generator=g)
+    return [
+        ("correlation head", r(8, 29, 39, 640), r(8, 3, 3, 640), r(8, 29, 39, 640)),
+        ("image-encoder stem", r(8, 240, 320, 64), r(8, 3, 3, 64), r(8, 240, 320, 64)),
+        ("B 1, C 4", r(1, 5, 7, 4), r(1, 3, 3, 4), r(1, 5, 7, 4)),
+        ("W 13, k stride 0 over B", r(3, 6, 13, 12), r(1, 3, 3, 12).expand(3, 3, 3, 12), r(3, 6, 13, 12)),
+        ("W 39, x stride 0 over B", r(1, 6, 39, 64).expand(4, 6, 39, 64), r(4, 3, 3, 64), r(4, 6, 39, 64)),
+    ]
+
+
+def rel_err(torch, got, want):
+    torch.cuda.synchronize()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def check_dw_bwd(torch, conv, label, x, k, dout):
+    """depthwise_corr's gradients on the card (DwCorr3x3: kernel 1 for dx,
+    kernel 3 for dk) against the plain version's autograd. A broadcast
+    input's gradient is the sum over B, taken by autograd's expand."""
+    b, h, w, c = dout.shape
+    leaves = [t[:1].detach().clone() if t.stride(0) == 0 and b > 1 else t.detach().clone()
+              for t in (x, k)]
+    grads = []
+    for fn in (conv.depthwise_corr, conv.depthwise_corr_plain):
+        xl, kl = (t.clone().requires_grad_(True) for t in leaves)
+        out = fn(xl.expand(b, h, w, c), kl.expand(b, 3, 3, c), 1)
+        grads.append(torch.autograd.grad(out, (xl, kl), dout))
+    (dx, dk), (want_dx, want_dk) = grads
+    ex, ek = rel_err(torch, dx, want_dx), rel_err(torch, dk, want_dk)
+    if ex > DX_TOL or ek > DK_TOL:
+        fail(f"dw_corr3x3 backward ({label}): relative error dx {ex:.3g} (tol {DX_TOL}), "
+             f"dk {ek:.3g} (tol {DK_TOL})")
+    return ex, ek
+
+
+def measure_dw_bwd(torch, conv, cases):
+    """dx (kernel 1 on dout with the taps turned) and dk (kernel 3) on their
+    own at the finetune's shapes: errors against the plain versions, dk's
+    bitwise repeatability over 3 runs, device times, bounds (each input read
+    once, each output written once, over the HBM rate) and cuDNN's
+    convolution_backward of the grouped conv for the same gradients."""
+    rows = []
+    for label, x, k, dout in cases:
+        b, h, w, c = dout.shape
+        dk = conv.dw_corr3x3_dk_cuda(x, dout)
+        dx = conv.dw_corr3x3_dx_cuda(dout, k)
+        ek = rel_err(torch, dk, conv.dw_corr3x3_dk_plain(x, dout))
+        ex = rel_err(torch, dx, conv.depthwise_corr_plain(dout, k.flip(1, 2), 1))
+        if ex > DX_TOL or ek > DK_TOL:
+            fail(f"dw_corr3x3 backward ({label}): relative error dx {ex:.3g}, dk {ek:.3g}")
+        repeatable = all(torch.equal(conv.dw_corr3x3_dk_cuda(x, dout), dk) for _ in range(3))
+        if not repeatable:
+            fail(f"dw_corr3x3 dk ({label}) is not bitwise repeatable")
+        xi = x.permute(0, 3, 1, 2).reshape(1, b * c, h, w).contiguous()
+        ki = k.permute(0, 3, 1, 2).reshape(b * c, 1, 3, 3).contiguous()
+        gi = dout.permute(0, 3, 1, 2).reshape(1, b * c, h, w).contiguous()
+        lib = lambda mask: torch.ops.aten.convolution_backward(
+            gi, xi, ki, None, [1, 1], [1, 1], [1, 1], False, [0, 0], b * c, mask)
+        dk_bound, dk_by = bound_ms(unique_bytes(x) + unique_bytes(dout) + dk.numel() * 4,
+                                   18.0 * dout.numel())
+        dx_bound, _ = bound_ms(unique_bytes(dout) + unique_bytes(k) + dx.numel() * 4,
+                               18.0 * dout.numel())
+        rows.append({
+            "shape": f"x {tuple(x.shape)}{' (stride 0 over B)' if x.stride(0) == 0 and b > 1 else ''}, "
+                     f"dout {tuple(dout.shape)}",
+            "max_abs_err": float((dk - conv.dw_corr3x3_dk_plain(x, dout)).abs().max()),
+            "dk_rel_err": ek, "dx_rel_err": ex, "dk_bitwise_repeatable": repeatable,
+            "ms": cuda_ms(torch, lambda: conv.dw_corr3x3_dk_cuda(x, dout)),
+            "plain_ms": cuda_ms(torch, lambda: conv.dw_corr3x3_dk_plain(x, dout)),
+            "library_ms": cuda_ms(torch, lambda: lib([False, True, False])),
+            "bound_ms": dk_bound, "bound_by": dk_by,
+            "dx_ms": cuda_ms(torch, lambda: conv.dw_corr3x3_dx_cuda(dout, k)),
+            "dx_plain_ms": cuda_ms(torch, lambda: conv.depthwise_corr_plain(dout, k.flip(1, 2), 1)),
+            "dx_library_ms": cuda_ms(torch, lambda: lib([True, False, False])),
+            "dx_bound_ms": dx_bound,
+        })
+    return rows
+
+
+def loop_world(root, cfg):
+    """The port's synthetic BOP world at 480x640 (the JAX bench's world,
+    bench.py:77-110): LOOP_FRAMES frames of 2 objects, 10-view template
+    grids, precomputed results (GT + noise, score 50) for the loaders."""
+    import pickle
+
+    from ossid_code_torch.data.bop import BopDataset, BopDatasetArgs
+    from ossid_code_torch.data.synthetic import (
+        default_objects, make_synthetic_bop, make_template_grid, make_zephyr_results_pkl,
+    )
+
+    make_synthetic_bop(root, n_frames=LOOP_FRAMES, img_h=480, img_w=640)
+    make_template_grid(os.path.join(root, "grid"), default_objects(), n_views=10)
+    d = cfg.dataset
+    d.bop_root, d.test_dataset_name, d.grid_root = root, "synth", os.path.join(root, "grid")
+    d.n_local_test, d.load_zephyr_result = N_TEMPLATES, True
+    d.cache_frames = d.proc_cache_frames = 4 * LOOP_FRAMES
+    d.zephyr_result_path = os.path.join(root, "zr.pkl")
+    bop = BopDataset(BopDatasetArgs(bop_root=root, dataset_name="synth"))
+    make_zephyr_results_pkl(d.zephyr_result_path, bop, score=50.0)
+    with open(d.zephyr_result_path, "rb") as f:
+        zr_list = pickle.load(f)
+    return bop, zr_list
+
+
+def hypo_gens(bop):
+    """The bench's PPF matcher settings (bench.py:136-148), native/ppf.cpp."""
+    from ossid_code_torch.hypo.ppf import PPFModelMeters
+
+    return {oid: PPFModelMeters(bop.getObjPath(oid), ModelSamplingDist=0.04, scene_sampling_dist=0.05,
+                                ref_pt_rate=0.25, max_poses=LOOP_HYPOS) for oid in bop.obj_ids}
+
+
+def run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens):
+    """The synchronous loop under the gating profile; returns its rows and
+    the host-clock wall time of the run (results fetched every frame)."""
+    import argparse
+
+    from ossid_code_torch.data.dtoid_bop import get_dataloaders
+    from ossid_code_torch.loop.online_learning import OnlineLearningLoop
+
+    args = argparse.Namespace(
+        dataset_name="synth", exp_name="chip_smoke", use_dtoid_segmask=False,
+        ignore_dtoid_mask=False, always_dtoid_mask=True, use_oracle_gt=True,
+        use_sift_hypos=False, use_maskrcnn=False, finetune_interval=FINETUNE_INTERVAL,
+        finetune_warmup=0, finetune_epochs=1, finetune_reset=False,
+        finetune_batch_size=FINETUNE_BATCH, non_cum=False, save_each=False, raw_dtoid=False,
+        no_finetune=False, fast=True, zephyr_depth_crop=DEPTH_CROP, yuv_transfer=False)
+    train_loader, _, test_loader = get_dataloaders(cfg, zr_list)
+    test_loader.dataset.sortTargets()
+    train_ds = train_loader.dataset
+    train_ds.clearTargets()
+    zr = {(r["obj_id"], r["scene_id"], r["im_id"]): dict(r) for r in zr_list}
+    train_ds.zephyr_results = dict(zr)
+    loop = OnlineLearningLoop(args, cfg, dtoid, bop, train_ds, test_loader, zr,
+                              zephyr_model=zephyr, hypo_gens=gens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = loop.run(progress=False)
+    torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0, loop
+
+
+def finetune_batch(rng, b):
+    """A float finetune batch at full width (the feed of train_step)."""
+    ann = np.full((b, 1, 5), -1.0, np.float32)
+    for i in range(b):
+        x1, y1 = rng.uniform(0, 500), rng.uniform(0, 340)
+        ann[i, 0] = [x1, y1, x1 + rng.uniform(60, 140), y1 + rng.uniform(60, 140), 1]
+    return {
+        "img": rng.uniform(0, 1, (b, 480, 640, 3)).astype(np.float32),
+        "limg": rng.uniform(0, 1, (b, 124, 124, 3)).astype(np.float32),
+        "lmask": (rng.uniform(0, 1, (b, 124, 124, 1)) > 0.4).astype(np.float32),
+        "gimg": rng.uniform(0, 1, (b, 124, 124, 3)).astype(np.float32),
+        "gmask": (rng.uniform(0, 1, (b, 124, 124, 1)) > 0.4).astype(np.float32),
+        "bbox_gt": ann,
+        "heatmap": rng.uniform(0, 1, (b, 29, 39, 1)).astype(np.float32),
+        "mask": (rng.uniform(0, 1, (b, 480, 640, 1)) > 0.8).astype(np.float32),
+    }
+
+
+def time_train_step(torch, dtoid, rng, steps: int = 3) -> float:
+    """Host-clock ms of one train_step_u8 at batch FINETUNE_BATCH, the
+    replay feed the loop uses, after one warm-up step, synchronised."""
+    b = FINETUNE_BATCH
+    batch = finetune_batch(rng, b)
+    feed = {"img_u8": torch.from_numpy((batch["img"] * 255).astype(np.uint8)).cuda(),
+            "mask_bits": np.packbits(batch["mask"].reshape(b, -1) > 0, axis=1, bitorder="little"),
+            "limg_u8": (batch["limg"] * 255).astype(np.uint8), "lmask_u8": batch["lmask"].astype(np.uint8),
+            "gimg_u8": (batch["gimg"] * 255).astype(np.uint8), "gmask_u8": batch["gmask"].astype(np.uint8),
+            "bbox_gt": batch["bbox_gt"], "heatmap": batch["heatmap"]}
+    dtoid.train_step_u8(feed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        dtoid.train_step_u8(feed)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def check_loop(rows, n_frames, launches, expected):
+    if len(rows) != n_frames:
+        fail(f"the loop returned {len(rows)} rows for {n_frames} targets")
+    for r in rows:
+        missing = [k for k in ROW_KEYS if k not in r]
+        if missing:
+            fail(f"a loop row lacks {missing}")
+        if not np.isfinite(r["pred_pose"]).all():
+            fail(f"a picked (refined) pose is not finite: {r['pred_pose']}")
+    if sum(r["finetune"] for r in rows) < 2:
+        fail(f"{sum(r['finetune'] for r in rows)} finetune events, expected at least 2")
+    if launches != expected:
+        fail(f"loop launches {launches} differ from the schedule's {expected}")
+
+
+def grad_errors(grads, ref):
+    """Leaf by leaf, the L2 norm of grads - ref over that of ref, for the
+    leaves above float32 rounding level (STEP_GRAD_NOISE). Returns
+    {leaf: error} and the names of the leaves left out."""
+    scale = max(float(g.abs().max()) for g in ref.values())
+    errs, dropped = {}, []
+    for name, want in ref.items():
+        if float(want.abs().max()) < STEP_GRAD_NOISE * scale:
+            dropped.append(name)
+        else:
+            errs[name] = float((grads[name] - want).norm() / want.norm())
+    return errs, dropped
+
+
+def compare_step(torch, dtoid_gpu, dtoid_cpu, batch):
+    """One float32 train step on the card and on the CPU from the same
+    weights and fresh optimizer state (see the STEP_* tolerances)."""
+    out = {}
+    before = {name: p.detach().double().clone() for name, p in dtoid_cpu.net.named_parameters()}
+    losses = [float(m.train_step(batch)["loss"]) for m in (dtoid_gpu, dtoid_cpu)]
+    out["loss_gpu"], out["loss_cpu"] = losses
+    out["loss_rel_err"] = abs(losses[0] - losses[1]) / abs(losses[1])
+    if out["loss_rel_err"] > STEP_LOSS_TOL:
+        fail(f"finetune step loss GPU {losses[0]} vs CPU {losses[1]}")
+    g_cpu = {name: p.grad.double() for name, p in dtoid_cpu.net.named_parameters()}
+    g_gpu = {name: p.grad.double().cpu() for name, p in dtoid_gpu.net.named_parameters()}
+    errs, dropped = grad_errors(g_gpu, g_cpu)
+    worst = max(errs, key=errs.get)
+    out.update(grad_leaves=len(errs), grad_leaves_at_rounding_level=dropped,
+               grad_max_rel_l2_err=errs[worst], grad_worst_leaf=worst,
+               grad_median_rel_l2_err=float(np.median(list(errs.values()))))
+    if errs[worst] > STEP_GRAD_TOL:
+        fail(f"gradient of {worst} differs between card and CPU by {errs[worst]:.3g} (relative L2, "
+             f"tol {STEP_GRAD_TOL})")
+    group = dtoid_cpu.optimizer.param_groups[0]
+    wd = group["weight_decay"]
+    gpu_params = dict(dtoid_gpu.net.named_parameters())
+    n_par = n_held = 0
+    worst_param = 0.0
+    for name, p in dtoid_cpu.net.named_parameters():
+        n_par += p.numel()
+        if name in dropped:
+            continue
+        delta = float((g_gpu[name] - g_cpu[name]).abs().max())
+        held = (g_cpu[name] + wd * before[name]).abs() > 2.0 * delta
+        d = (gpu_params[name].detach().cpu().double() - p.detach().double()).abs()[held]
+        n_held += d.numel()
+        if d.numel():
+            worst_param = max(worst_param, float(d.max()))
+    out.update(params=n_par, params_held=n_held, param_max_abs_err=worst_param)
+    if worst_param > STEP_PARAM_TOL:
+        fail(f"parameters after one step differ by {worst_param:.3g} where both devices' gradients "
+             f"agree in sign (tol {STEP_PARAM_TOL})")
+    worst_stat = 0.0
+    sd_gpu, sd_cpu = dtoid_gpu.state_dict(), dtoid_cpu.state_dict()
+    for name, buf in dtoid_cpu.net.named_buffers():
+        if buf.dtype.is_floating_point:
+            d = float((sd_gpu[name].cpu() - sd_cpu[name]).abs().max())
+            worst_stat = max(worst_stat, d / max(float(sd_cpu[name].abs().max()), 1e-30))
+    out["stat_max_rel_err"] = worst_stat
+    if worst_stat > STEP_STAT_TOL:
+        fail(f"BatchNorm running statistics after one step differ by {worst_stat:.3g} (relative)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -422,7 +736,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; precision float32, TF32 off "
           f"(cuDNN and matmul); peaks used for bounds: {HBM_BYTES_PER_S / 1e12} TB/s, "
           f"{FP32_FLOPS / 1e12} TFLOP/s FP32, {TF32_FLOPS / 1e12} TFLOP/s TF32")
@@ -430,7 +744,10 @@ def main() -> int:
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
     logs = build.build()
-    print(f"built {[s.name for s in build.sources()]} in {time.perf_counter() - t0:.1f} s")
+    for lib in ("ppf", "rasterizer"):
+        build.build_native(lib)
+    print(f"built {[s.name for s in build.sources()]} and native/ppf.cpp, native/rasterizer.cpp "
+          f"in {time.perf_counter() - t0:.1f} s")
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -455,7 +772,7 @@ def main() -> int:
               f"sa_mlp_max max abs err {sa_edge_err:.3g}")
         dw_cases = dw_corr_cases(torch, device)
         dw_rows = measure_dw_corr(torch, F, conv, dw_cases)
-        sa_rows = measure_sa(torch, sa, zephyr, prep)
+        sa_rows = measure_sa(torch, sa, zephyr, prep, 128) + measure_sa(torch, sa, zephyr, prep, 256)
     for label, rows in (("dw_corr3x3", dw_rows), ("sa_mlp_max", sa_rows)):
         for r in rows:
             extra = (f"; 3-pass floor {r['three_pass_floor_ms']:.4f} ms, FP32-pipe bound "
@@ -502,16 +819,107 @@ def main() -> int:
     cmp = compare_with_cpu(det, scored, det_cpu, scored_cpu)
     print(f"GPU vs CPU plain path on frame 1 ({time.perf_counter() - t0:.1f} s): {json.dumps(cmp)}")
 
+    # -- 5. the backward of dw_corr3x3 against its plain version -----------
+    bwd_cases = dw_bwd_cases(torch, device)
+    bwd_errs = [check_dw_bwd(torch, conv, *case) for case in bwd_cases]
+    print(f"dw_corr3x3 backward through autograd agrees: worst relative error "
+          f"dx {max(e[0] for e in bwd_errs):.3g} (tol {DX_TOL}), dk {max(e[1] for e in bwd_errs):.3g} "
+          f"(tol {DK_TOL})")
+    with torch.inference_mode():
+        bwd_rows = measure_dw_bwd(torch, conv, bwd_cases[:2])
+        bwd_edge_rows = measure_dw_bwd(torch, conv, bwd_cases[2:])
+    for r in bwd_rows + bwd_edge_rows:
+        print(f"dw_corr3x3 backward {r['shape']}: dk rel err {r['dk_rel_err']:.3g}, bitwise repeatable "
+              f"{r['dk_bitwise_repeatable']}, dk {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, cuDNN "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']}); dx rel err "
+              f"{r['dx_rel_err']:.3g}, dx {r['dx_ms']:.4f} ms (plain {r['dx_plain_ms']:.4f}, cuDNN "
+              f"{r['dx_library_ms']:.4f}, bound {r['dx_bound_ms']:.4f})")
+    bwd_edge_err = max(r["max_abs_err"] for r in bwd_edge_rows)
+
+    # -- 6. the online loop at full width ---------------------------------------
+    import tempfile
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    cfg_loop = default_config()
+    with tempfile.TemporaryDirectory(prefix="ossid_world_") as root:
+        t0 = time.perf_counter()
+        bop, zr_list = loop_world(root, cfg_loop)
+        gens = hypo_gens(bop)
+        print(f"loop world: {LOOP_FRAMES} frames 480x640 x {len(bop.obj_ids)} objects in "
+              f"{time.perf_counter() - t0:.1f} s; hypotheses: native PPF")
+        dtoid_loop = DtoidModel(cfg_loop, seed=1, device=device)
+        perturb_heads(dtoid_loop.net, 2)
+        zephyr_loop = ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0,
+                                  need_uv=False, refine_top=REFINE_TOP, device=device)
+        step_ms = time_train_step(torch, dtoid_loop, np.random.default_rng(5))
+        dtoid_loop.reset_optimizer()
+        # warm-up of the refined score program (solver and cuBLAS handles)
+        warm = FakeHypoGen(n_hypos=LOOP_HYPOS, seed=0)
+        zephyr_loop.score_hypotheses(dict(scene, img=frames[0], pose_hypos=warm.find_surface_model(
+            scene["model_points"] + np.array([0.0, 0.0, 0.9], np.float32))[0]), obj_id="warm-up")
+        torch.cuda.reset_peak_memory_stats()
+        counters = (conv.dw_corr3x3_cuda, conv.dw_corr3x3_dx_cuda, conv.dw_corr3x3_dk_cuda,
+                    sa.sa_mlp_max_cuda)
+        for c in counters:
+            c.launches = 0
+        rows, wall_s, loop = run_loop(torch, dtoid_loop, zephyr_loop, cfg_loop, bop, zr_list, gens)
+        loop_launches = tuple(c.launches for c in counters)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        # the same loop again under torch.profiler (device busy time and the
+        # kernels that take it), after the launch counts were read
+        loop_profile = profile_call(torch, lambda: run_loop(torch, dtoid_loop, zephyr_loop, cfg_loop,
+                                                            bop, zr_list, gens))
+    n_steps = sum(len(ep) for logs in loop.finetune_logs for ep in logs)
+    n_scored = sum(r["n_hypos"] > 0 for r in rows)
+    expected = (2 * len(rows) + 2 * n_steps, 2 * n_steps, 2 * n_steps, 2 * n_scored)
+    check_loop(rows, 2 * LOOP_FRAMES, loop_launches, expected)
+    events = [r["time_finetune"] for r in rows if r["finetune"]]
+    frame_ms = [round((r["time_iter"] + r["time_complete"]) * 1e3, 2) for r in rows]
+    loop_stats = {
+        "frames": len(rows), "wall_s": wall_s, "frames_per_s": len(rows) / wall_s,
+        "frame_ms": frame_ms, "hypotheses": [int(r["n_hypos"]) for r in rows],
+        "finetune_events": len(events), "finetune_event_ms": [e * 1e3 for e in events],
+        "train_steps": n_steps, "train_step_ms_in_loop": sum(events) * 1e3 / max(n_steps, 1),
+        "train_step_ms_b8": step_ms, "detect_ms": [r["time_dtoid"] * 1e3 for r in rows],
+        "score_ms": [None if r["time_zephyr"] is None else r["time_zephyr"] * 1e3 for r in rows],
+        "ppf_ms": [None if r["time_ppf"] is None else r["time_ppf"] * 1e3 for r in rows],
+        "label_ms": [r["time_label"] * 1e3 for r in rows],
+        "launches": dict(zip(("dw_corr3x3", "dw_corr3x3_dx", "dw_corr3x3_dk", "sa_mlp_max"),
+                             loop_launches)),
+        "peak_memory_gib": peak_gib,
+        "pred_add01d": float(np.mean([r["pred_add01d"] for r in rows])),
+    }
+    print(f"loop: {json.dumps(loop_stats)}")
+    print(f"profile loop (a second pass): {json.dumps(loop_profile)}")
+    batch8 = finetune_batch(np.random.default_rng(7), FINETUNE_BATCH)
+    print(f"profile train step (batch {FINETUNE_BATCH}, float feed): "
+          f"{json.dumps(profile_call(torch, lambda: dtoid_loop.train_step(batch8)))}")
+
+    # -- 7. one finetune step, card against the CPU plain path --------------------
+    t0 = time.perf_counter()
+    dtoid_step = DtoidModel(cfg, seed=3, device=device)
+    perturb_heads(dtoid_step.net, 4)
+    dtoid_step_cpu = DtoidModel(cfg, seed=3, device="cpu")
+    dtoid_step_cpu.load_state_dict({k: v.cpu() for k, v in dtoid_step.state_dict().items()})
+    step_cmp = compare_step(torch, dtoid_step, dtoid_step_cpu, finetune_batch(np.random.default_rng(6), 2))
+    print(f"finetune step GPU vs CPU plain path, batch 2 at 480x640 "
+          f"({time.perf_counter() - t0:.1f} s): {json.dumps(step_cmp)}")
+
     kernels = [
         summary("dw_corr3x3", "ossid_code_torch/csrc/dw_corr3x3.cu",
-                "ossid_code_tpu/ops/pallas_kernels.py:49", dw_launches, dw_rows, dw_edge_err,
+                "ossid_code_tpu/ops/pallas_kernels.py:49", loop_launches[0], dw_rows, dw_edge_err,
                 f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"),
+        dict(summary("dw_corr3x3_bwd", "ossid_code_torch/csrc/dw_corr3x3_bwd.cu",
+                     "ossid_code_tpu/ops/conv.py:15 (the gradient JAX takes through XLA's grouped "
+                     "conv; no Pallas kernel)", loop_launches[2], bwd_rows, bwd_edge_err,
+                     f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"),
+             dx_launches=loop_launches[1]),
         summary("sa_mlp_max", "ossid_code_torch/csrc/sa_mlp_max.cu",
-                "ossid_code_tpu/ops/sa_fused.py:85", sa_launches, sa_rows, sa_edge_err,
+                "ossid_code_tpu/ops/sa_fused.py:85", loop_launches[3], sa_rows, sa_edge_err,
                 f"TF32 tensor cores {TF32_FLOPS / 1e12} TFLOP/s"),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,13 +1,15 @@
 """Config tree and DTOID model defaults (copy of ossid_code_tpu/core/config.py).
 
 A `Config` is a recursive attribute dict that round-trips YAML. The defaults
-mirror the reference's conf/model/dtoid.yaml; the TPU-only knobs of the JAX
-package (bf16 inference, packed single-buffer fetch) are not read by the port.
+mirror the reference's conf/model/dtoid.yaml and conf/dataset/dtoid_bop.yaml;
+the TPU-only knobs of the JAX package (bf16 inference, packed single-buffer
+fetch) are not read by the port.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 
 
 class Config(dict):
@@ -102,7 +104,40 @@ def dtoid_model_config() -> Config:
     )
 
 
+def dtoid_bop_dataset_config() -> Config:
+    """The dataset group (ref conf/dataset/dtoid_bop.yaml); the roots come
+    from BOP_DATASETS_ROOT / OSSID_GRID_ROOT or are set by the caller."""
+    return Config(
+        name="dtoid_bop",
+        bop_root=os.environ.get("BOP_DATASETS_ROOT", ""),
+        grid_root=os.environ.get("OSSID_GRID_ROOT", ""),
+        use_provided_template=False,
+        test_dataset_name="lmo",
+        train_dataset_name=None,
+        load_zephyr_result=False,
+        zephyr_result_path=None,
+        zephyr_filter_key="score",
+        zephyr_filter_threshold=20,
+        zephyr_results_percent=1.0,
+        keep_aspect_ratio=True,
+        shorter_length=480,
+        heatmap_var=1.5,
+        heatmap_shorter_length=29,
+        ttt_sampling=False,
+        train_local_template_sample_from=1,
+        n_local_test=10,
+        img_h=480,
+        img_w=640,
+        heatmap_h=29,
+        heatmap_w=39,
+        n_classes=15,
+    )
+
+
 def default_config() -> Config:
-    """The model group of the JAX package's default config (the dataset and
-    training groups belong to later slices of the port)."""
-    return Config(model=dtoid_model_config(), seed=42)
+    return Config(
+        dataset=dtoid_bop_dataset_config(),
+        model=dtoid_model_config(),
+        train=Config(batch_size=4, num_workers=0, val_shuffle=False, n_epochs=100),
+        seed=42,
+    )

@@ -1,0 +1,69 @@
+"""The DTOID finetune optimizer: optax's `chain(add_decayed_weights(wd),
+amsgrad(lr))`, as the JAX package's `make_optimizer` builds it.
+
+It is not `torch.optim.Adam(amsgrad=True, weight_decay=wd)`: optax keeps the
+running maximum of the bias-corrected second moment, torch the maximum of the
+raw moment, corrected afterwards; the two part from the second step on
+(ROADMAP section 3). Per parameter p with gradient g, at step n:
+
+    g  = g + wd * p
+    mu = (1 - b1) * g + b1 * mu
+    nu = (1 - b2) * g^2 + b2 * nu
+    nu_max = max(nu_max, nu / (1 - b2^n))
+    p  = p - lr * (mu / (1 - b1^n)) / (sqrt(nu_max) + eps)
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class OptaxAmsgrad(torch.optim.Optimizer):
+    def __init__(self, params, lr: float = 1e-4, weight_decay: float = 1e-6, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """One step over all parameters with a gradient, in a few multi-tensor
+        (`torch._foreach_*`) launches per group: a loop of small ops per
+        parameter costs a launch per op and parameter. Each elementwise op is
+        the formula's, in its order."""
+        if closure is not None:
+            raise ValueError("OptaxAmsgrad.step takes no closure")
+        for group in self.param_groups:
+            lr, wd, b1, b2, eps = (group[k] for k in ("lr", "weight_decay", "b1", "b2", "eps"))
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["count"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                    st["nu_max"] = torch.zeros_like(p)
+                st["count"] += 1
+            n = self.state[params[0]]["count"]
+            if any(self.state[p]["count"] != n for p in params):
+                raise RuntimeError("OptaxAmsgrad steps all parameters of a group together")
+            mus, nus, nu_max = ([self.state[p][k] for p in params] for k in ("mu", "nu", "nu_max"))
+            g = torch._foreach_add([p.grad for p in params], torch._foreach_mul(params, wd))
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, torch._foreach_mul(g, 1.0 - b1))
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_mul_(g2, 1.0 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, g2)
+            torch._foreach_maximum_(nu_max, torch._foreach_div(nus, 1.0 - b2 ** n))
+            denom = torch._foreach_sqrt(nu_max)
+            torch._foreach_add_(denom, eps)
+            upd = torch._foreach_div(torch._foreach_div(mus, 1.0 - b1 ** n), denom)
+            torch._foreach_mul_(upd, lr)
+            torch._foreach_sub_(params, upd)
+        return None
+
+
+def make_optimizer(params, learning_rate: float = 1e-4, weight_decay: float = 1e-6) -> OptaxAmsgrad:
+    """Adam with amsgrad and coupled L2, by optax's rule (see module doc)."""
+    return OptaxAmsgrad(params, lr=learning_rate, weight_decay=weight_decay)

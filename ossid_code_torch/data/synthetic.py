@@ -1,0 +1,348 @@
+"""Synthetic mini BOP dataset + template grids (test fixture / hermetic e2e).
+
+The reference has no test suite and can only be exercised against the real
+LM-O/YCB-V downloads (SURVEY.md §4). This module fills that gap: it writes a
+miniature, fully BOP-format-compliant dataset (rgb/depth/masks/scene_gt/
+targets/models) rendered with the in-repo rasterizer, plus DTOID-style
+template grids (vid2rot.pkl + %04d_color.png/_xyz.npy/_mask.npy, the format of
+ref datasets/template_dataset.py:41-96) and a precomputed "zephyr results"
+pickle like the one the online loop preloads (ref
+scripts/online_learning.py:246-248). The whole online loop then runs
+hermetically with no real datasets.
+
+The port's copy of the parts of ossid_code_tpu/data/synthetic.py that build
+the online loop's world: PNGs are written by utils/png.py, so the files hold
+the JAX writer's pixels and arrays, compressed differently.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+
+import numpy as np
+from scipy.spatial.transform import Rotation
+
+from ossid_code_torch.render.mesh import (
+    Mesh, make_box_mesh, make_icosphere, make_wedge_mesh, save_ply,
+)
+from ossid_code_torch.render.rasterizer import render_depth
+from ossid_code_torch.render.visib import estimate_visib_mask_gt
+from ossid_code_torch.utils.png import write_png
+
+
+def default_objects() -> dict[int, Mesh]:
+    """Two ASYMMETRIC objects with mm-scale vertices (BOP model convention).
+
+    Asymmetric on purpose: plain boxes/spheres admit rigid self-symmetries, so
+    depth-only hypothesis generation cannot contain an ADD-correct orientation
+    and every pose metric saturates at chance — real BOP objects (and these)
+    are geometrically identifiable."""
+    return {
+        1: make_wedge_mesh(85, 62, 45, taper=0.55, shear=0.35, color=(0.85, 0.3, 0.2)),
+        2: make_wedge_mesh(70, 48, 55, taper=0.4, shear=-0.25, color=(0.2, 0.45, 0.85)),
+    }
+
+
+def _clutter_meshes(rng) -> list[Mesh]:
+    """Unannotated distractor geometry (clutter is never a target)."""
+    return [
+        make_icosphere(28, subdiv=1, color=(0.6, 0.6, 0.6)),
+        make_box_mesh(55, 40, 30, color=(0.5, 0.4, 0.35)),
+        make_box_mesh(35, 35, 65, color=(0.35, 0.5, 0.45)),
+    ]
+
+
+def _look_at_rotation(direction: np.ndarray) -> np.ndarray:
+    """Rotation R (cam axes in world) for a camera at -direction looking at origin."""
+    z = direction / np.linalg.norm(direction)
+    up = np.array([0.0, 0.0, 1.0]) if abs(z[2]) < 0.95 else np.array([0.0, 1.0, 0.0])
+    x = np.cross(up, z)
+    x /= np.linalg.norm(x)
+    y = np.cross(z, x)
+    return np.stack([x, y, z], axis=0)  # world->cam
+
+
+def make_synthetic_bop(
+    root: str,
+    dataset_name: str = "synth",
+    n_frames: int = 8,
+    img_h: int = 240,
+    img_w: int = 320,
+    objects: dict[int, Mesh] | None = None,
+    seed: int = 0,
+    layout: str = "spread",
+    n_clutter: int = 0,
+    n_scenes: int = 1,
+    max_per_frame: int | None = None,
+) -> str:
+    """Write a BOP dataset under <root>/<dataset_name>; returns its path.
+
+    layout="spread" keeps objects separated in x (the easy fixture);
+    layout="cluttered" packs them into two depth rows with overlapping image
+    positions so back-row objects are partially occluded (LM-O-like, ≥30%
+    occlusion on a subset of frames). n_clutter adds unannotated distractor
+    meshes that occlude and add scene structure but are never targets.
+    n_scenes > 1 writes several scenes (independent layouts) — one per camera
+    stream in the multi-stream serving demos. max_per_frame places a random
+    subset of the object set in each frame (targets list only the placed
+    objects) so large object sets stay inside the camera frustum."""
+    rng = np.random.default_rng(seed)
+    objects = objects or default_objects()
+    ds = os.path.join(root, dataset_name)
+    os.makedirs(os.path.join(ds, "models"), exist_ok=True)
+
+    f = 1.2 * max(img_h, img_w)
+    K = np.array([[f, 0, img_w / 2], [0, f, img_h / 2], [0, 0, 1.0]])
+    with open(os.path.join(ds, "camera.json"), "w") as fp:
+        json.dump(
+            {"fx": K[0, 0], "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2],
+             "width": img_w, "height": img_h, "depth_scale": 1.0},
+            fp,
+        )
+
+    models_info = {}
+    for oid, mesh in objects.items():
+        save_ply(os.path.join(ds, "models", f"obj_{oid:06d}.ply"), mesh)
+        ext = mesh.vertices.max(0) - mesh.vertices.min(0)
+        diam = float(np.linalg.norm(mesh.vertices.max(0) - mesh.vertices.min(0)))
+        models_info[str(oid)] = {
+            "diameter": diam,
+            "min_x": float(mesh.vertices[:, 0].min()), "size_x": float(ext[0]),
+            "min_y": float(mesh.vertices[:, 1].min()), "size_y": float(ext[1]),
+            "min_z": float(mesh.vertices[:, 2].min()), "size_z": float(ext[2]),
+        }
+    with open(os.path.join(ds, "models", "models_info.json"), "w") as fp:
+        json.dump(models_info, fp)
+
+    clutter = _clutter_meshes(rng) if n_clutter else []
+    targets = []
+    for scene_id in range(n_scenes):
+        scene_dir = os.path.join(ds, "test", f"{scene_id:06d}")
+        for sub in ("rgb", "depth", "mask", "mask_visib"):
+            os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+        _write_scene(
+            scene_dir, scene_id, objects, clutter, n_frames, img_h, img_w, K,
+            layout, n_clutter, rng, targets, max_per_frame=max_per_frame,
+        )
+    with open(os.path.join(ds, "test_targets_bop19.json"), "w") as fp:
+        json.dump(targets, fp)
+    return ds
+
+
+def _write_scene(scene_dir, scene_id, objects, clutter, n_frames, img_h, img_w,
+                 K, layout, n_clutter, rng, targets, max_per_frame=None):
+    scene_camera, scene_gt, scene_gt_info = {}, {}, {}
+    for im_id in range(n_frames):
+        frame_objects = objects
+        if max_per_frame is not None and len(objects) > max_per_frame:
+            pick = rng.permutation(sorted(objects))[:max_per_frame]
+            frame_objects = {int(oid): objects[int(oid)] for oid in pick}
+        obj_poses = {}
+        n_obj = len(frame_objects)
+        if layout == "cluttered":
+            # two depth rows with overlapping image-space positions: the back
+            # row peeks out between (and behind) front-row objects
+            order = [int(o) for o in rng.permutation(list(frame_objects))]
+            for slot, oid in enumerate(order):
+                front = slot % 2 == 0
+                n_row = (n_obj + 1) // 2 if front else n_obj // 2
+                col = slot // 2 - (n_row - 1) / 2
+                R = Rotation.random(random_state=int(rng.integers(1 << 30))).as_matrix()
+                t = np.array([
+                    col * 0.105 + rng.uniform(-0.02, 0.02) + (0 if front else 0.05),
+                    rng.uniform(-0.035, 0.035),
+                    rng.uniform(0.44, 0.5) if front else rng.uniform(0.54, 0.66),
+                ])
+                pose = np.eye(4)
+                pose[:3, :3] = R
+                pose[:3, 3] = t
+                obj_poses[oid] = pose
+        else:
+            # place every object at a random pose; keep them separated in x
+            for slot, oid in enumerate(frame_objects):
+                R = Rotation.random(random_state=int(rng.integers(1 << 30))).as_matrix()
+                t = np.array(
+                    [
+                        (slot - (n_obj - 1) / 2) * 0.12 + rng.uniform(-0.01, 0.01),
+                        rng.uniform(-0.03, 0.03),
+                        rng.uniform(0.45, 0.6),
+                    ]
+                )
+                pose = np.eye(4)
+                pose[:3, :3] = R
+                pose[:3, 3] = t
+                obj_poses[oid] = pose
+
+        # render each object separately (mm -> m vertices)
+        renders = {}
+        for oid, mesh in frame_objects.items():
+            d, c = render_depth(
+                mesh.vertices / 1000.0, mesh.faces, K, obj_poses[oid], img_h, img_w,
+                colors=mesh.colors,
+            )
+            renders[oid] = (d, c)
+
+        # composite with z-buffer + gray background at 2 m
+        depth = np.full((img_h, img_w), 2.0, np.float32)
+        color = np.full((img_h, img_w, 3), 0.45, np.float32)
+        noise = rng.normal(0, 0.02, (img_h, img_w, 3)).astype(np.float32)
+        color = np.clip(color + noise, 0, 1)
+        for oid, (d, c) in renders.items():
+            closer = (d > 0) & (d < depth)
+            depth[closer] = d[closer]
+            color[closer] = c[closer]
+        # unannotated clutter occludes targets and clutters PPF's scene cloud
+        for ci in range(n_clutter):
+            cm = clutter[ci % len(clutter)]
+            cpose = np.eye(4)
+            cpose[:3, :3] = Rotation.random(
+                random_state=int(rng.integers(1 << 30))).as_matrix()
+            cpose[:3, 3] = [rng.uniform(-0.22, 0.22), rng.uniform(-0.1, 0.1),
+                            rng.uniform(0.5, 0.75)]
+            d, c = render_depth(cm.vertices / 1000.0, cm.faces, K, cpose,
+                                img_h, img_w, colors=cm.colors)
+            closer = (d > 0) & (d < depth)
+            depth[closer] = d[closer]
+            color[closer] = c[closer]
+
+        write_png(
+            os.path.join(scene_dir, "rgb", f"{im_id:06d}.png"),
+            (color * 255).round().astype(np.uint8),
+        )
+        write_png(
+            os.path.join(scene_dir, "depth", f"{im_id:06d}.png"),
+            (depth * 1000).round().astype(np.uint16),
+        )
+
+        cam_entry = {"cam_K": K.reshape(-1).tolist(), "depth_scale": 1.0}
+        scene_camera[str(im_id)] = cam_entry
+        gt_list, info_list = [], []
+        for gi, (oid, pose) in enumerate(obj_poses.items()):
+            d, _ = renders[oid]
+            mask_full = (d > 0).astype(np.uint8) * 255
+            visib = estimate_visib_mask_gt(depth, d, 0.015).astype(np.uint8) * 255
+            write_png(os.path.join(scene_dir, "mask", f"{im_id:06d}_{gi:06d}.png"), mask_full)
+            write_png(
+                os.path.join(scene_dir, "mask_visib", f"{im_id:06d}_{gi:06d}.png"), visib
+            )
+            gt_list.append(
+                {
+                    "obj_id": oid,
+                    "cam_R_m2c": pose[:3, :3].reshape(-1).tolist(),
+                    "cam_t_m2c": (pose[:3, 3] * 1000.0).tolist(),
+                }
+            )
+            px_count = int((mask_full > 0).sum())
+            visib_count = int((visib > 0).sum())
+            info_list.append(
+                {
+                    "px_count_all": px_count,
+                    "px_count_visib": visib_count,
+                    "visib_fract": visib_count / max(px_count, 1),
+                }
+            )
+            targets.append({"obj_id": oid, "scene_id": scene_id, "im_id": im_id,
+                            "inst_count": 1})
+        scene_gt[str(im_id)] = gt_list
+        scene_gt_info[str(im_id)] = info_list
+
+    for name, obj in (
+        ("scene_camera.json", scene_camera),
+        ("scene_gt.json", scene_gt),
+        ("scene_gt_info.json", scene_gt_info),
+    ):
+        with open(os.path.join(scene_dir, name), "w") as fp:
+            json.dump(obj, fp)
+
+
+def make_template_grid(
+    grid_root: str,
+    objects: dict[int, Mesh],
+    n_views: int = 16,
+    size: int = 124,
+    obj_id_offset: int = 0,
+    seed: int = 0,
+):
+    """Render a viewpoint grid per object in the reference's own-template
+    format (ref datasets/template_dataset.py:41-96): <grid_root>/vid2rot.pkl +
+    <grid_root>/%06d/%04d_color.png,_xyz.npy,_mask.npy."""
+    os.makedirs(grid_root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    # view directions: repeatable quasi-uniform sphere sampling
+    dirs = rng.normal(size=(n_views, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+
+    vid2rot = {}
+    rots = []
+    for vid, d in enumerate(dirs):
+        R = _look_at_rotation(d)
+        vid2rot[vid] = R
+        rots.append(R)
+    with open(os.path.join(grid_root, "vid2rot.pkl"), "wb") as fp:
+        pickle.dump(vid2rot, fp)
+    # full 4x4 per-object view poses are written alongside (vid2pose_<oid>.pkl);
+    # the rotation-only vid2rot is the reference's format
+    # (ref datasets/template_dataset.py:43-50)
+
+    for oid, mesh in objects.items():
+        odir = os.path.join(grid_root, f"{oid + obj_id_offset:06d}")
+        os.makedirs(odir, exist_ok=True)
+        verts_m = mesh.vertices / 1000.0
+        diam = float(np.linalg.norm(verts_m.max(0) - verts_m.min(0)))
+        dist = diam * 1.6
+        f = size * dist / (1.15 * diam)
+        K = np.array([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1.0]])
+        vid2pose = {}
+        for vid in range(n_views):
+            pose = np.eye(4)
+            pose[:3, :3] = vid2rot[vid]
+            pose[:3, 3] = [0, 0, dist]
+            vid2pose[vid] = pose.copy()
+            depth, color = render_depth(
+                verts_m, mesh.faces, K, pose, size, size, colors=mesh.colors
+            )
+            mask = (depth > 0).astype(np.float32)
+            # xyz map in the camera frame
+            u, v = np.meshgrid(np.arange(size), np.arange(size))
+            x = (u - K[0, 2]) * depth / K[0, 0]
+            y = (v - K[1, 2]) * depth / K[1, 1]
+            xyz = np.stack([x, y, depth], -1).astype(np.float32)
+            write_png(
+                os.path.join(odir, f"{vid:04d}_color.png"),
+                (color * 255).round().astype(np.uint8),
+            )
+            np.save(os.path.join(odir, f"{vid:04d}_xyz.npy"), xyz)
+            np.save(os.path.join(odir, f"{vid:04d}_mask.npy"), mask)
+        with open(os.path.join(odir, "vid2pose.pkl"), "wb") as fp:
+            pickle.dump(vid2pose, fp)
+    return grid_root
+
+
+def make_zephyr_results_pkl(
+    path: str, bop_dataset, noise_t: float = 0.003, score: float = 50.0, seed: int = 0
+):
+    """Precomputed pose-verification results for every target, GT + noise —
+    the stand-in for the zephyr result pickles the reference ships and preloads
+    (ref scripts/online_learning.py:246-248,367-378)."""
+    rng = np.random.default_rng(seed)
+    results = []
+    for t in bop_dataset.targets:
+        data = bop_dataset.getDataByIds(t["obj_id"], t["scene_id"], t["im_id"])
+        pose = data["mat_gt"].copy()
+        pose[:3, 3] += rng.normal(0, noise_t, 3)
+        results.append(
+            {
+                "obj_id": t["obj_id"],
+                "scene_id": t["scene_id"],
+                "im_id": t["im_id"],
+                "score": score,
+                "pred_pose": pose,
+                "pred_mask_visib": np.asarray(data["mask_gt_visib"]) > 0,
+            }
+        )
+    with open(path, "wb") as fp:
+        pickle.dump(results, fp)
+    return path

@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ossid_code_torch.models.batchnorm import BatchNorm2d
+
 GROWTH = 32
 BN_SIZE = 4
 
@@ -28,9 +30,9 @@ BN_SIZE = 4
 class DenseLayer(nn.Module):
     def __init__(self, cin: int):
         super().__init__()
-        self.norm1 = nn.BatchNorm2d(cin)
+        self.norm1 = BatchNorm2d(cin)
         self.conv1 = nn.Conv2d(cin, BN_SIZE * GROWTH, 1, bias=False)
-        self.norm2 = nn.BatchNorm2d(BN_SIZE * GROWTH)
+        self.norm2 = BatchNorm2d(BN_SIZE * GROWTH)
         self.conv2 = nn.Conv2d(BN_SIZE * GROWTH, GROWTH, 3, padding=1, bias=False)
 
     def forward(self, x):
@@ -55,7 +57,7 @@ class DenseBlock(nn.Module):
 class Transition(nn.Module):
     def __init__(self, cin: int, cout: int, pool_stride: int = 2):
         super().__init__()
-        self.norm = nn.BatchNorm2d(cin)
+        self.norm = BatchNorm2d(cin)
         self.conv = nn.Conv2d(cin, cout, 1, bias=False)
         self.pool_stride = pool_stride
 
@@ -68,7 +70,7 @@ def stem() -> nn.Sequential:
 
 
 def early() -> nn.Sequential:
-    return nn.Sequential(nn.BatchNorm2d(64), nn.ReLU(), nn.MaxPool2d(3, 2, 1),
+    return nn.Sequential(BatchNorm2d(64), nn.ReLU(), nn.MaxPool2d(3, 2, 1),
                          DenseBlock(64, 6))
 
 
@@ -81,7 +83,7 @@ def late(block_config: Sequence[int] = (12, 24, 16)) -> nn.Sequential:
         block = DenseBlock(width, n)
         layers.append(block)
         c = block.out_channels
-    layers.append(nn.BatchNorm2d(c))
+    layers.append(BatchNorm2d(c))
     seq = nn.Sequential(*layers)
     seq.out_channels = c
     return seq

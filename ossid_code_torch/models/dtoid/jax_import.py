@@ -1,13 +1,16 @@
-"""Carry DTOID weights from the JAX package into the port.
+"""Carry DTOID weights and BatchNorm statistics between the JAX package and
+the port.
 
 `dtoid_from_jax(params, batch_stats)` takes the JAX package's nested dicts of
 numpy arrays (as `jax.device_get(model.params)` gives them) and returns a
 state_dict, under the reference's torch key names, that `DtoidNetwork` loads
-with strict=True. Conversions: conv kernels HWIO -> OIHW; BatchNorm
-scale/bias/mean/var -> weight/bias/running_mean/running_var (flax momentum
-0.9 is torch momentum 0.1; BatchNorm's num_batches_tracked is filled in by
-the loader). The key tables are this package's own copy of the JAX package's
-export tables, with the DenseNet block repeats read from the tree.
+with strict=True; `dtoid_to_jax(state_dict)` is the inverse, to numpy, so a
+trained port model can be compared with the JAX one leaf by leaf.
+Conversions: conv kernels HWIO <-> OIHW; BatchNorm scale/bias/mean/var <->
+weight/bias/running_mean/running_var (flax momentum 0.9 is torch momentum
+0.1; BatchNorm's num_batches_tracked is filled in by the loader). The key
+tables are this package's own copy of the JAX package's export tables, with
+the DenseNet block repeats read from the tree.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ def _n_layers(tree: dict, path: str) -> int:
     return sum(1 for k in node if k.startswith("denselayer"))
 
 
-def _dense_entries(params: dict, p: str = "image_feature_extractor"):
+def _dense_entries(n_layers, p: str = "image_feature_extractor"):
+    """n_layers(torch block prefix, JAX block path) -> number of dense layers."""
     f = "image_feature_extractor"
     out = [
         (f"{p}.backdense_0.0", f"{f}/stem/conv0", "conv"),
@@ -36,7 +40,7 @@ def _dense_entries(params: dict, p: str = "image_feature_extractor"):
         (f"{p}.backdense_2.5", f"{f}/late/denseblock4"),
     )
     for tb, fb in blocks:
-        for i in range(1, _n_layers(params, fb) + 1):
+        for i in range(1, n_layers(tb, fb) + 1):
             for sub, kind in (("norm1", "bn"), ("conv1", "conv"), ("norm2", "bn"), ("conv2", "conv")):
                 out.append((f"{tb}.denselayer{i}.{sub}", f"{fb}/denselayer{i}/{sub}", kind))
     for tname, fname in ((f"{p}.backdense_2.0", f"{f}/late/transition1"),
@@ -100,14 +104,17 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32))
 
 
+def _entries(n_layers):
+    return (_dense_entries(n_layers)
+            + _squeeze_entries("template_feature_extractor_global", True)
+            + _squeeze_entries("template_feature_extractor", False)
+            + _correlation_entries() + _head_entries())
+
+
 def dtoid_from_jax(params: dict, batch_stats: dict) -> dict:
     """JAX DTOID params + batch_stats (numpy) -> port state_dict (torch, CPU)."""
-    entries = (_dense_entries(params)
-               + _squeeze_entries("template_feature_extractor_global", True)
-               + _squeeze_entries("template_feature_extractor", False)
-               + _correlation_entries() + _head_entries())
     sd = {}
-    for tkey, fpath, kind in entries:
+    for tkey, fpath, kind in _entries(lambda tb, fb: _n_layers(params, fb)):
         node = _get(params, fpath)
         if kind == "bn":
             stats = _get(batch_stats, fpath)
@@ -120,3 +127,34 @@ def dtoid_from_jax(params: dict, batch_stats: dict) -> dict:
             if "bias" in node:
                 sd[f"{tkey}.bias"] = _t(node["bias"])
     return sd
+
+
+def _put(tree: dict, path: str, leaf: dict) -> None:
+    node = tree
+    for p in path.split("/"):
+        node = node.setdefault(p, {})
+    node.update(leaf)
+
+
+def dtoid_to_jax(sd: dict) -> tuple[dict, dict]:
+    """Port state_dict -> (params, batch_stats), nested dicts of float32
+    numpy arrays in the JAX package's layout."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in sd.items()}
+
+    def n_layers(tb, fb):
+        n = 0
+        while f"{tb}.denselayer{n + 1}.norm1.weight" in sd:
+            n += 1
+        return n
+
+    params, stats = {}, {}
+    for tkey, fpath, kind in _entries(n_layers):
+        if kind == "bn":
+            _put(params, fpath, {"scale": sd[f"{tkey}.weight"], "bias": sd[f"{tkey}.bias"]})
+            _put(stats, fpath, {"mean": sd[f"{tkey}.running_mean"], "var": sd[f"{tkey}.running_var"]})
+        else:
+            leaf = {"kernel": np.transpose(sd[f"{tkey}.weight"], (2, 3, 1, 0))}
+            if f"{tkey}.bias" in sd:
+                leaf["bias"] = sd[f"{tkey}.bias"]
+            _put(params, fpath, leaf)
+    return params, stats

@@ -1,11 +1,13 @@
-"""DtoidModel: the host-side DTOID inference wrapper (counterpart of the
-inference surface of ossid_code_tpu/models/dtoid/module.py).
+"""DtoidModel: the host-side DTOID wrapper (counterpart of
+ossid_code_tpu/models/dtoid/module.py).
 
-It holds the network, the anchor grid and a per-object template-feature
-cache that stays on the device. `detect_async` launches the whole serving
-path for one frame (CUDA launches return before the device finishes);
-`fetch_detections` copies the results to the host and builds the
-reference-schema dict. The finetune step belongs to a later slice of the port.
+It holds the network, the anchor grid, the finetune optimizer and a
+per-object template-feature cache that stays on the device. `detect_async`
+launches the whole serving path for one frame (CUDA launches return before
+the device finishes); `fetch_detections` copies the results to the host and
+builds the reference-schema dict. `train_step` / `train_step_u8` run one
+float32 finetune step (forward in train mode, `dtoid_losses`, backward, the
+optax-rule optimizer of core/optim.py); the bf16 step is not ported.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from ossid_code_torch.core.optim import make_optimizer
 from ossid_code_torch.device import resolve_device
 from ossid_code_torch.models.dtoid.anchors import generate_anchor_grid
+from ossid_code_torch.models.dtoid.losses import dtoid_losses
 from ossid_code_torch.models.dtoid.network import DtoidNetwork, imagenet_normalize
 
 
@@ -37,6 +41,7 @@ class DtoidModel:
         self.net.reset_parameters(torch.Generator().manual_seed(seed))
         self.net.to(device=self.device, memory_format=torch.channels_last).eval()
         self.anchors = torch.from_numpy(generate_anchor_grid(*self.feat_size)).to(self.device)
+        self.optimizer = make_optimizer(self.net.parameters(), m.learning_rate, m.weight_decay)
 
         # per-object template features, device-resident
         self.template_feature_cache: dict[Any, tuple] = {}
@@ -45,12 +50,67 @@ class DtoidModel:
 
     # ------------------------------------------------------------- weights
     def state_dict(self) -> dict:
-        return self.net.state_dict()
+        """A copy of the weights and BatchNorm statistics (the training step
+        updates the live tensors in place)."""
+        return {k: v.detach().clone() for k, v in self.net.state_dict().items()}
 
     def load_state_dict(self, sd: dict) -> None:
         self.net.load_state_dict(sd, strict=True)
         self.weights_version += 1
         self.clear_cache()
+
+    # ------------------------------------------------------------ training
+    def reset_optimizer(self) -> None:
+        """Fresh optimizer state (ref online_learning.py:520-528)."""
+        m = self.cfg.model
+        self.optimizer = make_optimizer(self.net.parameters(), m.learning_rate, m.weight_decay)
+
+    def _on_device(self, batch: dict) -> dict:
+        return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))).to(self.device)
+                for k, v in batch.items()}
+
+    def train_step(self, batch: dict) -> dict:
+        """One finetune step on a batch of float [0, 1] images: 'img'
+        (B, H, W, 3), 'limg', 'lmask', 'gimg', 'gmask' (B, h, w, 3 | 1),
+        'bbox_gt' (B, G, 5), 'heatmap' (B, fh, fw, 1), 'mask' (B, H, W, 1).
+        Returns the loss terms as device scalars (no host sync)."""
+        b = {k: t.to(torch.float32) for k, t in self._on_device(batch).items()}
+        m = self.cfg.model
+        self.net.train()
+        try:
+            out = self.net(b["img"], b["limg"], b["lmask"], b["gimg"], b["gmask"])
+            loss, metrics = dtoid_losses(out, b, self.anchors, lam_seg=m.lam_seg,
+                                         lam_center=m.lam_center, lam_cls=m.lam_cls,
+                                         lam_reg=m.lam_reg)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self.optimizer.step()
+        finally:
+            self.net.eval()
+        self.weights_version += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def train_step_u8(self, batch: dict) -> dict:
+        """train_step over compact inputs, expanded on the device: 'img_u8'
+        (B, H, W, 3) uint8, 'mask_bits' (B, H*W/8) uint8 of little-endian
+        bit-packed mask, 'limg_u8' / 'gimg_u8' uint8 templates, 'lmask_u8' /
+        'gmask_u8' 0/1 uint8, 'bbox_gt', 'heatmap'. u8 / 255 is what the host
+        path's process_data gives at native resolution."""
+        dev = self._on_device(batch)
+        img_h, img_w = self.img_size
+        img = dev["img_u8"].to(torch.float32) / 255.0
+        shifts = torch.arange(8, dtype=torch.uint8, device=self.device)
+        bits = (dev["mask_bits"][..., None] >> shifts) & 1
+        return self.train_step({
+            "img": img,
+            "limg": dev["limg_u8"].to(torch.float32) / 255.0,
+            "lmask": dev["lmask_u8"].to(torch.float32),
+            "gimg": dev["gimg_u8"].to(torch.float32) / 255.0,
+            "gmask": dev["gmask_u8"].to(torch.float32),
+            "bbox_gt": dev["bbox_gt"],
+            "heatmap": dev["heatmap"],
+            "mask": bits.to(torch.float32).reshape(img.shape[0], img_h, img_w, 1),
+        })
 
     # ----------------------------------------------------------- inference
     def clear_cache(self) -> None:

@@ -16,6 +16,11 @@ loads with strict=True.
     subtraction branches fused to 512 channels, a center heat map and a
     5-stage segmentation decoder.
   * ClassificationHead / RegressionHead — RetinaNet-style heads, 24 anchors.
+
+`DtoidNetwork.forward` is the training forward (one local and one global
+template per image); with the module in train mode its BatchNorms use batch
+statistics and update their running statistics by flax's rule
+(models/batchnorm.py).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ossid_code_torch.models.backbones import densenet, squeezenet
+from ossid_code_torch.models.batchnorm import BatchNorm2d
 from ossid_code_torch.ops.conv import avg_pool, depthwise_corr
 from ossid_code_torch.ops.nms import nms_topk, topk_stable
 from ossid_code_torch.ops.resize import resize_bilinear, resize_nearest, upsample_nearest
@@ -88,8 +94,8 @@ class TemplateEncoderLocal(nn.Module):
         self.backbone_0 = squeezenet.stem()
         self.backbone_1 = squeezenet.early()
         self.backbone_2 = squeezenet.late()
-        self.norm_1 = nn.BatchNorm2d(128)
-        self.norm_2 = nn.BatchNorm2d(512)
+        self.norm_1 = BatchNorm2d(128)
+        self.norm_2 = BatchNorm2d(512)
 
     def features(self, t4: torch.Tensor) -> torch.Tensor:
         x1 = self.backbone_1(self.backbone_0(t4))
@@ -107,9 +113,9 @@ class TemplateEncoderGlobal(TemplateEncoderLocal):
     def __init__(self):
         super().__init__()
         self.final_conv_1 = _conv(640, 128, 3)
-        self.final_norm_1 = nn.BatchNorm2d(128)
+        self.final_norm_1 = BatchNorm2d(128)
         self.final_conv_2 = _conv(128, 64, 3)
-        self.final_norm_2 = nn.BatchNorm2d(64)
+        self.final_norm_2 = BatchNorm2d(64)
 
     def features(self, t4: torch.Tensor) -> torch.Tensor:
         xf = super().features(t4)
@@ -126,7 +132,7 @@ class ImageEncoder(nn.Module):
         self.backdense_1 = densenet.early()
         self.backdense_2 = densenet.late(densenet_blocks)
         self.c1 = _conv(self.backdense_2.out_channels, 640, 1)
-        self.n1 = nn.BatchNorm2d(640)
+        self.n1 = BatchNorm2d(640)
 
     def features(self, image: torch.Tensor, global_kernel: torch.Tensor) -> torch.Tensor:
         """image NCHW channels_last; global_kernel NHWC (1 or B, 3, 3, 64)."""
@@ -189,17 +195,17 @@ class CorrelationHead(nn.Module):
     def __init__(self, img_size=(480, 640)):
         super().__init__()
         self.img_size = tuple(img_size)
-        self.c1, self.n1 = _conv(640, 640, 3), nn.BatchNorm2d(640)
-        self.c2, self.n2 = _conv(640, 640, 3), nn.BatchNorm2d(640)
+        self.c1, self.n1 = _conv(640, 640, 3), BatchNorm2d(640)
+        self.c2, self.n2 = _conv(640, 640, 3), BatchNorm2d(640)
         for name in ("dot", "dot3x3", "sub"):
             self.add_module(f"corr_conv_{name}", _conv(640, 256, 3, 1))
-            self.add_module(f"norm_corr_{name}", nn.BatchNorm2d(256))
-        self.cf, self.nf = _conv(768, 512, 3, 1), nn.BatchNorm2d(512)
+            self.add_module(f"norm_corr_{name}", BatchNorm2d(256))
+        self.cf, self.nf = _conv(768, 512, 3, 1), BatchNorm2d(512)
         self.corr_conv_heatmap = _conv(512, 1, 1)
         widths = (512, 256, 128, 64, 32, 16)
         for i in range(1, 6):
             self.add_module(f"s{i}", _conv(widths[i - 1], widths[i], 3, 1))
-            self.add_module(f"ns{i}", nn.BatchNorm2d(widths[i]))
+            self.add_module(f"ns{i}", BatchNorm2d(widths[i]))
         self.seg_final = _conv(16, 1, 3, 1)
 
     def reset_output(self):
@@ -285,6 +291,26 @@ class DtoidNetwork(nn.Module):
         lecun_init_(self, generator)
         for head in (self.classification, self.regression, self.correlation_model):
             head.reset_output()
+
+    def forward(self, image: torch.Tensor, limg: torch.Tensor, lmask: torch.Tensor,
+                gimg: torch.Tensor, gmask: torch.Tensor) -> dict:
+        """The training forward. All images in [0, 1], NHWC: image (B, H, W, 3),
+        limg (B, h, w, 3), lmask (B, h, w, 1), gimg / gmask likewise.
+        Returns classifications (B, N, 2), regressions (B, N, 4), heat_map
+        (B, fh, fw, 1) and seg_logits (B, H, W, 1)."""
+        l4 = torch.cat([imagenet_normalize(limg), lmask], -1)
+        g4 = torch.cat([imagenet_normalize(gimg), gmask], -1)
+        gfeat = self.template_feature_extractor_global(g4)
+        feat = _cl(self.image_feature_extractor.features(_cl(_nchw(imagenet_normalize(image))), gfeat))
+        lfeat = self.template_feature_extractor.features(_cl(_nchw(l4)))
+        xcors, heatmap = self.correlation_model.correlate(feat, lfeat)
+        seg_logits = self.correlation_model.decode_seg(xcors)
+        return {
+            "classifications": self.classification(xcors),
+            "regressions": self.regression(xcors),
+            "heat_map": _nhwc(heatmap),
+            "seg_logits": _nhwc(seg_logits),
+        }
 
     def compute_template_local(self, t4: torch.Tensor) -> torch.Tensor:
         return self.template_feature_extractor(t4)

@@ -7,10 +7,12 @@ hypotheses padded to a power-of-two bucket; it blurs the image, assembles
 per-point features on the device and scores every hypothesis with
 PointNet2SSG. Hypotheses whose free-space-violation ratio reaches
 `inconst_ratio_th` score -inf (the reference's pre-network pruning).
-Per-object state (cloud, colours, normals, grouping indices) is prepared once
-and kept on the device: grouping is rigid-invariant, so FPS and ball query
-never run per frame. Device ICP (`refine_top > 0`) and training belong to
-later slices of the port.
+Per-object state (cloud, colours, normals, grouping indices, the denser ICP
+cloud) is prepared once and kept on the device: grouping is rigid-invariant,
+so FPS and ball query never run per frame. With `refine_top > 0` the first
+`refine_top` hypotheses are refined by device ICP (ops/icp_device.py) against
+the depth before they are scored, and the refined rows replace them where
+they are valid. Training the scorer belongs to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -24,6 +26,12 @@ from ossid_code_torch.device import resolve_device
 from ossid_code_torch.models.dtoid.network import lecun_init_
 from ossid_code_torch.models.zephyr.features import DIM_POINT, assemble_score_features
 from ossid_code_torch.models.zephyr.pointnet2 import PointNet2SSG
+from ossid_code_torch.ops.icp_device import batched_icp, sample_valid_points
+
+
+# device ICP of the refined hypotheses (the JAX package's defaults)
+REFINE_MAX_DIST = 0.01
+REFINE_ITERS = 16
 
 
 def _bucket(m: int, minimum: int = 64) -> int:
@@ -75,16 +83,14 @@ def _blur5(img: torch.Tensor) -> torch.Tensor:
 
 class ZephyrModel:
     def __init__(self, num_points: int = 512, inconst_ratio_th: float = 100.0, seed: int = 0,
-                 need_uv: bool = True, refine_top: int = 0, rank_blend: float = 0.0,
-                 align_feats: bool = False, device: str | torch.device | None = None):
-        if refine_top > 0:
-            raise NotImplementedError(
-                "refine_top > 0 needs device ICP (ops/icp_device.py), which is not "
-                "ported yet: ROADMAP.md, 'Still to port', item 1")
+                 need_uv: bool = True, refine_top: int = 0, rank_blend: float = 0.0, align_feats: bool = False,
+                 device: str | torch.device | None = None):
         self.device = resolve_device(device)
         self.num_points = num_points
         self.inconst_ratio_th = inconst_ratio_th
         self.need_uv = need_uv
+        # device ICP of the first refine_top hypotheses before scoring
+        self.refine_top = int(refine_top)
         # blended ranking weight of the geometric alignment statistic in _pick
         # (0 = argmax of the net score); host-side only
         self.rank_blend = float(rank_blend)
@@ -128,18 +134,30 @@ class ZephyrModel:
         sa1g = _ball_np(c1, centered, 0.2, min(64, self.num_points))
         sa2c = _fps_np(c1, sa2_n)
         sa2g = _ball_np(c1[sa2c], c1, 0.4, 64)
+        # ICP cloud: denser than the scoring cloud when num_points is small
+        ridx = np.linspace(0, n - 1, min(384, n)).round().astype(int)
 
         prep = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in (pts, cols, nrms, sa1c.astype(np.int32), sa1g.astype(np.int32),
-                               sa2c.astype(np.int32), sa2g.astype(np.int32)))
+                               sa2c.astype(np.int32), sa2g.astype(np.int32),
+                               points[ridx], normals[ridx]))
         self._objects[obj_id] = prep
         return prep
 
     # -------------------------------------------------------- score program
     def _score(self, img_u8, depth_u16, depth_origin, cam_K, pts, cols, nrms,
-               sa1c, sa1g, sa2c, sa2g, poses, valid):
+               sa1c, sa1g, sa2c, sa2g, ricp_pts, ricp_nrms, poses, valid):
         img = _blur5(img_u8.to(torch.float32) / 255.0)
         depth = depth_u16.to(torch.float32) / 1000.0
+        refined = None
+        if self.refine_top > 0:
+            k = min(self.refine_top, poses.shape[0])
+            scene_pts, scene_ok = sample_valid_points(depth, cam_K, origin=depth_origin, k=4096)
+            refined = batched_icp(poses[:k], ricp_pts, scene_pts, scene_ok,
+                                  max_dist=REFINE_MAX_DIST, iters=REFINE_ITERS,
+                                  model_normals=ricp_nrms)
+            refined = torch.where(valid[:k, None, None], refined, poses[:k])
+            poses = torch.cat([refined, poses[k:]], 0)
         point_x, uv, inconst = assemble_score_features(
             img, depth, cam_K, pts, cols, nrms, poses, return_uv=self.need_uv,
             depth_origin=depth_origin, packed_sample=True)
@@ -153,7 +171,8 @@ class ZephyrModel:
         raw = self.net(point_x, static_idx).to(torch.float32)
         neg_inf = torch.full_like(raw, float("-inf"))
         ok = valid & (inconst < self.inconst_ratio_th)
-        return torch.where(ok, raw, neg_inf), torch.where(valid, raw, neg_inf), uv, inconst, align_stat
+        return (torch.where(ok, raw, neg_inf), torch.where(valid, raw, neg_inf), uv, inconst,
+                align_stat, refined)
 
     # ----------------------------------------------------------------- API
     @torch.inference_mode()
@@ -174,7 +193,10 @@ class ZephyrModel:
                                    data["model_normals"])
 
         img = data["img"]
-        if not (hasattr(img, "dtype") and img.dtype == np.uint8):
+        if isinstance(img, torch.Tensor):  # a uint8 frame already on the device
+            if img.dtype != torch.uint8:
+                raise TypeError(f"a device frame must be uint8, got {img.dtype}")
+        elif not (hasattr(img, "dtype") and img.dtype == np.uint8):
             img = (np.clip(np.asarray(img), 0, 1) * 255).astype(np.uint8)
         depth = data["depth"]
         if not (hasattr(depth, "dtype") and depth.dtype == np.uint16):
@@ -182,15 +204,15 @@ class ZephyrModel:
         origin = np.asarray(data.get("depth_origin", (0, 0)), np.int32)
 
         def dev(a, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(a))
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
             return t.to(self.device, dtype=dtype)
 
-        scores, raw, uv, inconst, align_stat = self._score(
+        scores, raw, uv, inconst, align_stat, refined = self._score(
             dev(img), dev(depth.astype(np.int32)), dev(origin),
             dev(np.asarray(data["cam_K"], np.float32)), *prep,
             dev(poses_p), dev(valid))
         return {"dev": (scores, raw, inconst, align_stat), "uv_dev": uv,
-                "poses": poses, "m": m}
+                "poses": poses, "m": m, "refined_dev": refined}
 
     def _pick(self, scores_np: np.ndarray, stat_np: np.ndarray) -> int:
         """Winning hypothesis: argmax of the net score, or with rank_blend of
@@ -208,7 +230,9 @@ class ZephyrModel:
 
     def fetch_scores(self, handle: dict, fetched=None) -> dict:
         """Wait for the score outputs and build the result dict ('scores',
-        'align_stat', 'inconst_ratio', 'pred_idx/score/pose', device 'uv_dev')."""
+        'align_stat', 'inconst_ratio', 'pred_idx/score/pose', device 'uv_dev').
+        With refinement, 'pred_pose' is the refined pose that was scored, and
+        'refined' holds the refined rows (refine_top, 4, 4)."""
         poses, m = handle["poses"], handle["m"]
         scores_np, raw_np, inconst_np, stat_np = (
             fetched if fetched is not None else [t.cpu().numpy() for t in handle["dev"]])
@@ -221,6 +245,12 @@ class ZephyrModel:
             # the raw network scores so the caller always gets a pose
             scores_np = raw_np[:m]
         idx = int(self._pick(scores_np, stat_np)) if m else -1
+        pred_pose = poses[idx] if m else np.eye(4)
+        refined = handle.get("refined_dev")
+        if refined is not None:
+            refined = refined.cpu().numpy()
+            if 0 <= idx < len(refined):
+                pred_pose = refined[idx]
         return {
             "scores": scores_np,
             "align_stat": stat_np,
@@ -228,7 +258,8 @@ class ZephyrModel:
             "uv_dev": handle["uv_dev"],
             "pred_idx": idx,
             "pred_score": float(scores_np[idx]) if m else -np.inf,
-            "pred_pose": poses[idx] if m else np.eye(4),
+            "pred_pose": pred_pose,
+            "refined": refined,
         }
 
     def score_hypotheses(self, data: dict, obj_id=None, fetch_uv: bool = False) -> dict:

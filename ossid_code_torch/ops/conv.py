@@ -3,9 +3,12 @@
 tensors, as the JAX package's do.
 
 `depthwise_corr` dispatches by tensor device for the 3x3 / padding-1 case: a
-CPU tensor takes the plain PyTorch version, a CUDA tensor the hand-written
-kernel `csrc/dw_corr3x3.cu` (or the wrapper raises). There is no other
-switch and no fallback.
+CPU tensor takes the plain PyTorch version (whose autograd is PyTorch's), a
+CUDA tensor the autograd Function `DwCorr3x3`, whose forward is the
+hand-written kernel `csrc/dw_corr3x3.cu` and whose backward is that kernel
+again on the output gradient with the taps turned by 180 degrees (dx) and
+the reduction kernel `csrc/dw_corr3x3_bwd.cu` (dk). The wrappers raise on
+what their kernels do not take. There is no other switch and no fallback.
 """
 
 from __future__ import annotations
@@ -24,10 +27,20 @@ def depthwise_corr_plain(x: torch.Tensor, kernel: torch.Tensor, padding: int = 0
     batch folds into the channels and one grouped conv runs B*C groups."""
     b, h, w, c = x.shape
     kh, kw = kernel.shape[1], kernel.shape[2]
-    xi = x.permute(0, 3, 1, 2).reshape(1, b * c, h, w)
-    k = kernel.permute(0, 3, 1, 2).reshape(b * c, 1, kh, kw)
+    # contiguous first: a stride-0 (broadcast) batch is materialised
+    xi = x.permute(0, 3, 1, 2).contiguous().reshape(1, b * c, h, w)
+    k = kernel.permute(0, 3, 1, 2).contiguous().reshape(b * c, 1, kh, kw)
     out = F.conv2d(xi, k, groups=b * c, padding=padding)
     return out.reshape(b, c, out.shape[2], out.shape[3]).permute(0, 2, 3, 1)
+
+
+def dw_corr3x3_dk_plain(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 3: dk[b, i, j, c] = sum over (y, x) of
+    xpad[b, y + i, x + j, c] * dout[b, y, x, c], nine shifted products."""
+    _, h, w, _ = dout.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    taps = [(xp[:, i:i + h, j:j + w] * dout).sum((1, 2)) for i in range(3) for j in range(3)]
+    return torch.stack(taps, 1).reshape(dout.shape[0], 3, 3, dout.shape[3])
 
 
 def _batch_stride(t: torch.Tensor) -> int:
@@ -41,6 +54,37 @@ def _inner_contiguous(t: torch.Tensor) -> bool:
 
 _SIGNATURES = {"dw_corr3x3_f32": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p], ctypes.c_int)}
+_BWD_SIGNATURES = {
+    "dw_corr3x3_dk_chunks": ([ctypes.c_int] * 3, ctypes.c_int),
+    "dw_corr3x3_dk_f32": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                          + [ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int),
+}
+
+
+def _check_operands(what: str, x: torch.Tensor, other: torch.Tensor, other_shape: tuple) -> None:
+    if not (x.is_cuda and other.is_cuda and x.device == other.device):
+        raise ValueError(f"{what} needs both tensors on one CUDA device")
+    if x.dtype != torch.float32 or other.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32")
+    if other.shape != other_shape:
+        raise ValueError(f"{what}: shape {tuple(other.shape)} does not fit x {tuple(x.shape)}")
+    if x.shape[3] % 4:
+        raise ValueError(f"{what} needs C % 4 == 0, got C={x.shape[3]}")
+    if not (_inner_contiguous(x) and _inner_contiguous(other)):
+        raise ValueError(f"{what} needs (H, W, C) contiguous in both tensors")
+    if x.data_ptr() % 16 or other.data_ptr() % 16 or _batch_stride(x) % 4 or _batch_stride(other) % 4:
+        raise ValueError(f"{what} needs 16-byte aligned rows")
+
+
+def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str) -> torch.Tensor:
+    b, h, w, c = x.shape
+    _check_operands(what, x, kernel, (b, 3, 3, c))
+    out = torch.empty((b, h, w, c), device=x.device, dtype=torch.float32)
+    err = library("dw_corr3x3", _SIGNATURES).dw_corr3x3_f32(
+        x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, c,
+        _batch_stride(x), _batch_stride(kernel), stream_ptr(x.device))
+    check(err, what)
+    return out
 
 
 def dw_corr3x3_cuda(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -48,40 +92,73 @@ def dw_corr3x3_cuda(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
     x (B, H, W, C) with (H, W, C) contiguous and any batch stride (0 for a
     broadcast); kernel (B, 3, 3, C) likewise. Returns a contiguous
-    (B, H, W, C) float32 tensor. Raises on what the kernel does not take."""
-    if not (x.is_cuda and kernel.is_cuda and x.device == kernel.device):
-        raise ValueError("dw_corr3x3_cuda needs both tensors on one CUDA device")
-    if x.dtype != torch.float32 or kernel.dtype != torch.float32:
-        raise TypeError("dw_corr3x3_cuda takes float32")
+    (B, H, W, C) float32 tensor. Raises on what the kernel does not take.
+    It records no gradient: `depthwise_corr` is the differentiable entry."""
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
-        raise RuntimeError("dw_corr3x3_cuda has no backward; run under torch.inference_mode()")
-    b, h, w, c = x.shape
-    if kernel.shape != (b, 3, 3, c):
-        raise ValueError(f"kernel shape {tuple(kernel.shape)} does not fit x {tuple(x.shape)}")
-    if c % 4:
-        raise ValueError(f"dw_corr3x3_cuda needs C % 4 == 0, got C={c}")
-    if not (_inner_contiguous(x) and _inner_contiguous(kernel)):
-        raise ValueError("dw_corr3x3_cuda needs (H, W, C) contiguous in x and kernel")
-    xs, ks = _batch_stride(x), _batch_stride(kernel)
-    if (x.data_ptr() % 16 or kernel.data_ptr() % 16 or xs % 4 or ks % 4):
-        raise ValueError("dw_corr3x3_cuda needs 16-byte aligned rows")
-    out = torch.empty((b, h, w, c), device=x.device, dtype=torch.float32)
-    err = library("dw_corr3x3", _SIGNATURES).dw_corr3x3_f32(
-        x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, c, xs, ks, stream_ptr(x.device))
-    check(err, "dw_corr3x3_f32")
+        raise RuntimeError("dw_corr3x3_cuda records no gradient; call depthwise_corr")
+    out = _launch_dw_corr3x3(x, kernel, "dw_corr3x3_cuda")
     dw_corr3x3_cuda.launches += 1
     return out
 
 
+def dw_corr3x3_dx_cuda(dout: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """dx of kernel 1: kernel 1 on dout (B, H, W, C), contiguous, with the
+    taps of kernel (B, 3, 3, C) turned by 180 degrees."""
+    flipped = kernel.flip(1, 2).contiguous()
+    out = _launch_dw_corr3x3(dout, flipped, "dw_corr3x3_dx_cuda")
+    dw_corr3x3_dx_cuda.launches += 1
+    return out
+
+
+def dw_corr3x3_dk_cuda(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """Kernel 3: dk (B, 3, 3, C) of kernel 1, the sum over H * W of the padded
+    x window times dout, in a fixed order (bitwise repeatable). x as kernel 1
+    takes it (any batch stride); dout contiguous (B, H, W, C). The gradient
+    is per sample even where k was broadcast: autograd's expand sums it."""
+    b, h, w, c = x.shape
+    if not dout.is_contiguous():
+        raise ValueError("dw_corr3x3_dk_cuda needs a contiguous dout")
+    _check_operands("dw_corr3x3_dk_cuda", x, dout, (b, h, w, c))
+    lib = library("dw_corr3x3_bwd", _BWD_SIGNATURES)
+    partial = torch.empty((b, lib.dw_corr3x3_dk_chunks(h, w, c), 9, c), device=x.device,
+                          dtype=torch.float32)
+    dk = torch.empty((b, 3, 3, c), device=x.device, dtype=torch.float32)
+    err = lib.dw_corr3x3_dk_f32(x.data_ptr(), dout.data_ptr(), partial.data_ptr(), dk.data_ptr(),
+                                b, h, w, c, _batch_stride(x), stream_ptr(x.device))
+    check(err, "dw_corr3x3_dk_f32")
+    dw_corr3x3_dk_cuda.launches += 1
+    return dk
+
+
 dw_corr3x3_cuda.launches = 0
+dw_corr3x3_dx_cuda.launches = 0
+dw_corr3x3_dk_cuda.launches = 0
+
+
+class DwCorr3x3(torch.autograd.Function):
+    """3x3 / padding-1 depthwise correlation on the card with its gradient:
+    forward kernel 1; backward kernel 1 on dout for dx, kernel 3 for dk."""
+
+    @staticmethod
+    def forward(ctx, x, kernel):
+        ctx.save_for_backward(x, kernel)
+        return dw_corr3x3_cuda(x, kernel)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, kernel = ctx.saved_tensors
+        dout = dout.contiguous()
+        dx = dw_corr3x3_dx_cuda(dout, kernel) if ctx.needs_input_grad[0] else None
+        dk = dw_corr3x3_dk_cuda(x, dout) if ctx.needs_input_grad[1] else None
+        return dx, dk
 
 
 def depthwise_corr(x: torch.Tensor, kernel: torch.Tensor, padding: int = 0) -> torch.Tensor:
     """Per-sample depthwise cross-correlation, NHWC (ref DTOID's
-    conv2d_dw_group). The 3x3 / padding-1 case on a CUDA tensor launches
-    kernel 1; on a CPU tensor it runs the plain version."""
+    conv2d_dw_group). The 3x3 / padding-1 case on a CUDA tensor goes through
+    `DwCorr3x3` (kernels 1 and 3); on a CPU tensor it runs the plain version."""
     if padding == 1 and kernel.shape[1] == 3 and kernel.shape[2] == 3 and x.is_cuda:
-        return dw_corr3x3_cuda(x, kernel)
+        return DwCorr3x3.apply(x, kernel)
     if x.is_cuda:
         raise ValueError("on the card depthwise_corr takes only the 3x3 / padding-1 case")
     return depthwise_corr_plain(x, kernel, padding)

@@ -79,6 +79,57 @@ def test_dw_corr3x3_cuda_matches_plain(cuda, shape, k_broadcast):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _dw_plain_grads(x, k, dout):
+    """dx, dk of the plain version by PyTorch's autograd (x and k expanded
+    to dout's batch: a broadcast input gets its gradient summed over B)."""
+    b, h, w, c = dout.shape
+    xl = x.detach().clone().requires_grad_(True)
+    kl = k.detach().clone().requires_grad_(True)
+    out = tconv.depthwise_corr_plain(xl.expand(b, h, w, c), kl.expand(b, 3, 3, c), 1)
+    return torch.autograd.grad(out, (xl, kl), dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,x_broadcast,k_broadcast", [
+    ((8, 29, 39, 640), False, False),    # finetune: correlation head
+    ((8, 240, 320, 64), False, False),   # finetune: image-encoder stem
+    ((1, 5, 7, 4), False, False),        # B = 1, C = 4
+    ((3, 6, 13, 12), False, True),       # W = 13, not a multiple of the run length 8; k broadcast
+    ((4, 6, 39, 64), True, False),       # x broadcast (as at detect's correlation head)
+])
+def test_dw_corr3x3_backward_matches_plain(cuda, shape, x_broadcast, k_broadcast):
+    """depthwise_corr's gradients on the card (kernel 1 for dx, kernel 3 for
+    dk) against the plain version's autograd, relative to the reference's
+    largest magnitude: 1e-5 for dx (9-term sums), 1e-4 for dk (H*W-term sums
+    in another order). A broadcast input's gradient is the sum over B."""
+    b, h, w, c = shape
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(1 if x_broadcast else b, h, w, c, device="cuda", generator=g)
+    k = torch.randn(1 if k_broadcast else b, 3, 3, c, device="cuda", generator=g)
+    dout = torch.randn(b, h, w, c, device="cuda", generator=g)
+    xg = x.clone().requires_grad_(True)
+    kg = k.clone().requires_grad_(True)
+    before = (tconv.dw_corr3x3_dx_cuda.launches, tconv.dw_corr3x3_dk_cuda.launches)
+    out = tconv.depthwise_corr(xg.expand(b, h, w, c), kg.expand(b, 3, 3, c), 1)
+    dx, dk = torch.autograd.grad(out, (xg, kg), dout)
+    assert (tconv.dw_corr3x3_dx_cuda.launches - before[0], tconv.dw_corr3x3_dk_cuda.launches - before[1]) == (1, 1)
+    want_dx, want_dk = _dw_plain_grads(x, k, dout)
+    torch.cuda.synchronize()
+    assert float((dx - want_dx).abs().max()) <= 1e-5 * float(want_dx.abs().max())
+    assert float((dk - want_dk).abs().max()) <= 1e-4 * float(want_dk.abs().max())
+
+
+@pytest.mark.cuda
+def test_dw_corr3x3_dk_is_bitwise_repeatable(cuda):
+    """Kernel 3 reduces in a fixed order without atomics."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(8, 240, 320, 64, device="cuda", generator=g)
+    dout = torch.randn(8, 240, 320, 64, device="cuda", generator=g)
+    first = tconv.dw_corr3x3_dk_cuda(x, dout)
+    for _ in range(3):
+        assert torch.equal(tconv.dw_corr3x3_dk_cuda(x, dout), first)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("widths,cf,m,n,s,k,w3,b3", [
     ((64, 64, 128), 8, 3, 200, 37, 64, 0.0, 0.0),          # 111 groups: a partial last tile
@@ -86,6 +137,8 @@ def test_dw_corr3x3_cuda_matches_plain(cuda, shape, k_broadcast):
     ((64, 64, 128), 8, 3, 200, 37, 13, 0.0, 0.0),          # k = 13: padding rows
     ((64, 64, 128), 8, 128, 512, 512, 64, 0.0, 0.0),       # SA1 at the scorer's size
     ((128, 128, 256), 128, 128, 512, 128, 64, 0.0, 0.0),   # SA2 at the scorer's size
+    ((64, 64, 128), 8, 256, 512, 512, 64, 0.0, 0.0),       # SA1 at the gating bucket M = 256
+    ((128, 128, 256), 128, 256, 512, 128, 64, 0.0, 0.0),   # SA2 at M = 256
     ((64, 64, 128), 8, 3, 200, 37, 13, -0.1, 0.3),         # layer 3 mostly negative
     ((128, 128, 256), 128, 5, 301, 301, 29, -0.05, 0.3),
 ])

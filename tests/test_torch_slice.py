@@ -102,7 +102,8 @@ def test_serving_slice_matches_jax():
     assert tscore["pred_idx"] == jscore["pred_idx"]
 
 
-_BANNED = {"jax", "jaxlib", "flax", "optax", "ossid_code_tpu"}
+# JAX and the JAX package, and the image libraries the card's machine lacks
+_BANNED = {"jax", "jaxlib", "flax", "optax", "ossid_code_tpu", "cv2", "imageio", "PIL"}
 
 
 def _imports(path: Path):

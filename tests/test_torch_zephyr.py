@@ -161,8 +161,25 @@ def test_score_hypotheses_parity(th):
 
 
 def test_refine_top_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmod.ZephyrModel(num_points=128, refine_top=4, device="cpu")
+    """refine_top is ported now: the score program with device ICP of the
+    first 4 hypotheses gives JAX's refined poses (1e-4) and scores (2e-4)."""
+    from ossid_code_tpu.models.zephyr.module import ZephyrModel
+
+    rng = np.random.default_rng(6)
+    jz = ZephyrModel(num_points=128, seed=0, need_uv=False, refine_top=4)
+    params, stats = _randomize(_np_tree(jz.params), _np_tree(jz.batch_stats), rng)
+    jz.load_state_dict({"params": params, "batch_stats": stats})
+    tz = tmod.ZephyrModel(num_points=128, seed=0, need_uv=False, refine_top=4, device="cpu")
+    tz.load_state_dict(pointnet2_from_jax(params, stats))
+    d = _scene(rng)
+    handle = jz.score_hypotheses_async(d, obj_id=7)
+    want = jz.fetch_scores(handle)
+    got = tz.fetch_scores(tz.score_hypotheses_async(d, obj_id=7))
+    np.testing.assert_allclose(got["refined"], np.asarray(jax.device_get(handle["refined_dev"])),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["scores"], want["scores"], **TOL)
+    assert got["pred_idx"] == want["pred_idx"]
+    np.testing.assert_allclose(got["pred_pose"], want["pred_pose"], rtol=0, atol=1e-4)
 
 
 def test_fake_hypo_gen_is_a_copy():
