@@ -13,33 +13,45 @@ Phases, each of which exits non-zero on failure:
      kernel, plain version and (where one PyTorch call computes the same
      function) the library call; sa_mlp_max's bound is the TF32
      tensor-core one, with its 3-pass floor and the FP32-pipe bound beside;
+     the same for the bf16 instances 1b (dw-corr) and 2b (sa_mlp_max, bound
+     by dense BF16 tensor cores), against their plain bf16 versions;
   3. serve frames at full width through the port's entry points: DtoidModel
      (480x640, DenseNet-121 12/24/16, T=10 templates) forward_test_time, then
      FakeHypoGen, then ZephyrModel(num_points=512) score_hypotheses on 100
      hypotheses; the kernels' launch counters must show 2 launches per detect
      and 2 per score call; then one detect and one score call run under
      torch.profiler (device busy time, idle share, the kernels that take it);
+     3b. the same frames and hypotheses in bf16 (bf16_infer and
+     ZephyrModel(bf16=True), the same weights): 2 launches of 1b per detect
+     and of 2b per score call and none of a float32 kernel, the JAX
+     package's bf16 criteria against the float32 results, and a profile;
   4. run the first frame again through the plain path on the CPU with the
-     same weights and compare;
+     same weights and compare (and its bf16 scores with the CPU's bf16);
   5. hold the backward of dw_corr3x3 (dx: kernel 1 on the output gradient
      with the taps turned; dk: kernel 3, csrc/dw_corr3x3_bwd.cu) against its
      plain version at the finetune's shapes and at edge inputs, check that
      dk is bitwise repeatable, and time both against their bounds, the
-     plain versions and cuDNN's convolution_backward;
+     plain versions and cuDNN's convolution_backward; then the same for the
+     bf16 instances (dx: 1b; dk: 3b);
   6. run the online loop (loop/online_learning.py) on a synthetic world of
      8 frames at 480x640 with 2 objects (16 targets) under the bench's
      gating profile: 256 hypotheses from native PPF, device ICP of the top
      24, a 256-px depth crop, oracle labels, always the DTOID mask, and a
-     float32 finetune at batch 8 every 8 buffered targets; the launch
-     counts must be those the schedule implies;
+     finetune at batch 8 every 8 buffered targets, once with float32 steps
+     and once with bf16_finetune (the bench's default); the launch counts of
+     every kernel instance must be those the schedule implies;
   7. run one finetune step at full width (batch 2) on the card and through
      the plain path on the CPU from the same weights and compare the loss,
      the gradients leaf by leaf, the parameters after the step and the
-     BatchNorm running statistics.
-Weights are random, from fixed seeds. The whole run is in float32 with TF32
-off for cuDNN convolutions and cuBLAS matmuls (main path and comparisons).
+     BatchNorm running statistics; 7b. one bf16_finetune step against the
+     card's own float32 step from the same weights (batch 8): the loss, the
+     gradients leaf by leaf, float32 master state, and the loss falling
+     over 3 bf16 steps.
+Weights are random, from fixed seeds. The float32 paths run with TF32 off
+for cuDNN convolutions and cuBLAS matmuls (main path and comparisons).
 
-Before the last line it prints a `kernels` JSON line; the last line is
+Before the last line it prints a `kernels` JSON line (six kernel instances);
+the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or without the ossid_code_torch package beside it, it exits
 non-zero and prints no result.
@@ -100,6 +112,42 @@ ROW_KEYS = ("obj_id", "pred_pose", "pred_score", "pred_err", "pred_add01d", "pre
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+# bf16: the largest relative size of one rounding step (8 significant bits). A
+# bf16 kernel and its plain version sum in float32 in other orders, so a sum
+# near a rounding midpoint may round to either neighbour: each bf16 kernel is
+# held to one step (dw-corr, dx; dk also 1e-4 of the largest magnitude for
+# its float32 order) or two (sa_mlp_max: a flipped layer-1 or layer-2 value
+# moves the next layers) of the largest magnitude, with at most 1% of the
+# elements more than one step of their own magnitude apart.
+BF16_STEP = 2.0 ** -7
+# bf16 serving against the float32 serving on the same weights and frames:
+# the JAX package's criteria for its bf16 detect (tests/test_dtoid.py:204-236).
+# The scorer, which the JAX package gives no bf16 criterion: every bf16 score
+# within BF16_SCORE_TOL of the largest float32 score magnitude, and the bf16
+# pick's float32 score within BF16_SCORE_TOL of the float32 pick's. The
+# scorer's random head scores near 0 (|score| <= 0.006), so its bf16 scores
+# sit several percent of the largest from its float32 ones: on an H100 the
+# three served frames read 0.104 and a pick 0.034 below the float32 pick;
+# the CPU plain path read 0.030-0.042 on poses from the same frames' boxes
+# and 0.100 at a centred anchor, where the card's bf16 scores were 0.033
+# from the CPU's. The limit is twice the largest reading. Phase 4 holds the
+# card's bf16 scores against the CPU plain path's to the same limit.
+BF16_TOP10_TOL = 0.05
+BF16_SEG_AGREE = 0.98
+BF16_SCORE_TOL = 0.2
+# one bf16 step against the card's float32 step from the same weights, batch
+# 8 at full width: the first-step loss within 5% (the JAX package's own
+# criterion, tests/test_dtoid.py:250-282), and the gradients leaf by leaf,
+# the L2 norm of the difference over that of the float32 step's. At random
+# weights most of this network's bf16 gradient is rounding noise: on an H100
+# the sound bf16 step reads 0.775 median, 1.173 at the 90th percentile and
+# 1.80 at most over 549 leaves (twice, bit for bit in those statistics); half
+# the batch reads 1.40 / 1.755, dk (3b) doubled 0.867 / 1.532, dx (1b)
+# doubled 1.067 / 1.521 (tools/step_gradients.py --bf16). The check holds
+# the 90th percentile, the statistic that parts sound runs from all three.
+STEP16_LOSS_TOL = 0.05
+STEP16_GRAD_P90_TOL = 1.35
 SLEEP_CYCLES = 20_000_000  # ~10 ms of a 1.98 GHz SM clock: longer than enqueueing one timed run
 
 
@@ -188,6 +236,29 @@ def check_close(torch, name, got, want, tol):
     return err
 
 
+def check_bf16(torch, name, got, want, steps=1.0, floor=0.0, share=0.01):
+    """A bf16 kernel against its plain bf16 version (see BF16_STEP): every
+    element within `steps` bf16 steps (plus `floor`) of the largest
+    magnitude, at most `share` of them more than one step of their own
+    magnitude (plus `floor`) apart. Returns the largest absolute error."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    err, scale = (g - w).abs(), float(w.abs().max())
+    worst = float(err.max())
+    off = float((err > BF16_STEP * w.abs() + floor * scale).float().mean())
+    if worst > (steps * BF16_STEP + floor) * scale or off > share:
+        fail(f"{name}: bf16 kernel disagrees with its plain version, max abs err {worst:.3g} of "
+             f"{scale:.3g}, {off:.3g} of the elements beyond one bf16 step")
+    return worst
+
+
+def as_bf16(t):
+    """t in bf16; a stride-0 broadcast over the batch stays a broadcast."""
+    if t.shape[0] > 1 and t.stride(0) == 0:
+        return t[:1].bfloat16().expand(t.shape)
+    return t.bfloat16()
+
+
 def dw_corr_cases(torch, device):
     """The two main-path calls of kernel 1: the correlation head (image
     feature broadcast over T) and the image-encoder stem."""
@@ -201,38 +272,47 @@ def dw_corr_cases(torch, device):
     ]
 
 
-def dw_corr_edge_cases(torch, device):
+def dw_corr_edge_cases(torch, device, bf16=False):
     """Shapes off the main path that reach the kernel's edges: a W that is
     not a multiple of the run length (4), k broadcast with stride 0 over B,
-    one column, C = 4."""
+    one column, C = 4 (bf16: C = 8, one vector; and 16 for 12)."""
     g = torch.Generator(device=device).manual_seed(3)
     r = lambda *shape: torch.randn(*shape, device=device, generator=g)
-    return [
+    c1, c2 = (16, 8) if bf16 else (12, 4)
+    cases = [
         ("W 39, k stride 0 over B", r(1, 6, 39, 64).expand(3, 6, 39, 64), r(1, 3, 3, 64).expand(3, 3, 3, 64)),
-        ("W 7, both per sample", r(2, 5, 7, 12), r(2, 3, 3, 12)),
-        ("W 1, C 4", r(3, 4, 1, 4), r(3, 3, 3, 4)),
+        ("W 7, both per sample", r(2, 5, 7, c1), r(2, 3, 3, c1)),
+        (f"W 1, C {c2}", r(3, 4, 1, c2), r(3, 3, 3, c2)),
         ("W 322, k stride 0 over B", r(2, 3, 322, 64), r(1, 3, 3, 64).expand(2, 3, 3, 64)),
     ]
+    return [(label, as_bf16(x), as_bf16(k)) for label, x, k in cases] if bf16 else cases
 
 
-def check_dw_corr_edges(torch, conv, cases):
+def dw_check(torch, bf16):
+    """The agreement check of kernel 1 (float32, DW_TOL) or 1b (bf16, one step)."""
+    if bf16:
+        return lambda name, got, want: check_bf16(torch, name, got, want)
+    return lambda name, got, want: check_close(torch, name, got, want, DW_TOL)
+
+
+def check_dw_corr_edges(torch, conv, cases, check):
     errs = []
     for label, x, k in cases:
-        errs.append(check_close(torch, f"dw_corr3x3 ({label})", conv.dw_corr3x3_cuda(x, k),
-                                conv.depthwise_corr_plain(x, k, 1), DW_TOL))
+        errs.append(check(f"dw_corr3x3 ({label})", conv.dw_corr3x3_cuda(x, k), conv.depthwise_corr_plain(x, k, 1)))
     return max(errs)
 
 
-def measure_dw_corr(torch, F, conv, cases):
+def measure_dw_corr(torch, F, conv, cases, check):
     rows = []
     for label, x, k in cases:
         b, h, w, c = x.shape
         got = conv.dw_corr3x3_cuda(x, k)
         want = conv.depthwise_corr_plain(x, k, 1)
-        err = check_close(torch, f"dw_corr3x3 ({label})", got, want, DW_TOL)
+        err = check(f"dw_corr3x3 ({label})", got, want)
         xi = x.permute(0, 3, 1, 2).reshape(1, b * c, h, w).contiguous()
         ki = k.permute(0, 3, 1, 2).reshape(b * c, 1, 3, 3).contiguous()
-        bnd, by = bound_ms(unique_bytes(x) + unique_bytes(k) + got.numel() * 4, 18.0 * got.numel())
+        bnd, by = bound_ms(unique_bytes(x) + unique_bytes(k) + got.numel() * got.element_size(),
+                           18.0 * got.numel())
         rows.append({
             "shape": f"x {tuple(x.shape)}{' (stride 0 over B)' if x.stride(0) == 0 and b > 1 else ''}, k {tuple(k.shape)}",
             "max_abs_err": err,
@@ -248,58 +328,71 @@ def sa_flops(m, s, k, dims):
     return 2.0 * m * s * k * sum(dims[i] * dims[i + 1] for i in range(3))
 
 
-def measure_sa(torch, sa, zephyr, prep, m):
-    """Kernel 2 at its two main-path stages, on the prepared object's real
-    grouping indices and the scorer's folded weights, at the M = m bucket
-    (128: serving's 100 hypotheses; 256: the gating profile's).
-    bound_ms is the TF32 tensor-core bound (the kernel's 3 passes make
-    three times that its floor); the FP32-pipe bound is reported beside,
-    and the time the wrapper spends packing the weights (pack_sa_weights)
-    on each call, on the device and on the host clock."""
+def measure_sa(torch, sa, zephyr, prep, m, bf16=False):
+    """Kernel 2 (or 2b) at its two main-path stages, on the prepared
+    object's real grouping indices and the scorer's folded weights (cast to
+    bf16 for 2b, as the bf16 scorer casts them), at the M = m bucket (128:
+    serving's 100 hypotheses; 256: the gating profile's). bound_ms is the
+    TF32 (2b: dense bf16) tensor-core bound; for kernel 2 the 3-pass floor
+    and the FP32-pipe bound are reported beside, and the time the wrapper
+    spends packing the weights on each call, on the device and the host
+    clock."""
+    dt = torch.bfloat16 if bf16 else torch.float32
     g = torch.Generator(device=zephyr.device).manual_seed(2)
-    point_x = torch.randn(m, NUM_POINTS, 11, device=zephyr.device, generator=g) * 0.05
+    point_x = (torch.randn(m, NUM_POINTS, 11, device=zephyr.device, generator=g) * 0.05).to(dt)
     _, _, _, sa1c, sa1g, sa2c, sa2g = prep[:7]
     mods = zephyr.net.SA_modules
+    folded = [[w.to(dt) for w in Ws] + list(bs) for Ws, bs in (mods[i].mlps[0].folded() for i in range(2))]
     stages = []
     xyz, feats = point_x[..., :3], point_x[..., 3:]
-    stages.append(("SA1", xyz, feats, sa1c, sa1g, *mods[0].mlps[0].folded()))
+    stages.append(("SA1", xyz, feats, sa1c, sa1g, folded[0][:3], folded[0][3:]))
     f1 = sa.sa_mlp_max_cuda(xyz, feats, sa1c, sa1g, *stages[0][5:])
-    stages.append(("SA2", xyz[:, sa1c.long()].contiguous(), f1, sa2c, sa2g, *mods[1].mlps[0].folded()))
+    stages.append(("SA2", xyz[:, sa1c.long()].contiguous(), f1, sa2c, sa2g, folded[1][:3], folded[1][3:]))
     rows = []
     for label, x3, fx, cidx, gidx, Ws, bs in stages:
         args = (x3, fx, cidx, gidx, Ws, bs)
         got = sa.sa_mlp_max_cuda(*args)
         want = sa.sa_mlp_max_plain(*args)
-        err = check_close(torch, f"sa_mlp_max ({label})", got, want, SA_TOL)
+        if bf16:
+            err = check_bf16(torch, f"sa_mlp_max bf16 ({label})", got, want, steps=2.0)
+        else:
+            err = check_close(torch, f"sa_mlp_max ({label})", got, want, SA_TOL)
         s, k = gidx.shape
         dims = [3 + fx.shape[2]] + [w.shape[1] for w in Ws]
         flops = sa_flops(m, s, k, dims)
         nbytes = (unique_bytes(x3) + unique_bytes(fx) + 4 * (cidx.numel() + gidx.numel())
-                  + sum(4 * (w.numel() + b.numel()) for w, b in zip(Ws, bs)) + 4 * got.numel())
-        bnd, by = bound_ms(nbytes, flops, TF32_FLOPS)
-        layout = sa.SA_LAYOUT[tuple(dims[1:])]
-        pack = lambda: sa.pack_sa_weights(Ws, fx.shape[2], *layout)
-        rows.append({
+                  + sum(w.numel() * w.element_size() + 4 * b.numel() for w, b in zip(Ws, bs))
+                  + got.numel() * got.element_size())
+        bnd, by = bound_ms(nbytes, flops, BF16_FLOPS if bf16 else TF32_FLOPS)
+        if bf16:
+            pack = lambda: sa.pack_sa_weights_bf16(Ws, fx.shape[2], sa.SA_LAYOUT_BF16[tuple(dims[1:])])
+        else:
+            pack = lambda: sa.pack_sa_weights(Ws, fx.shape[2], *sa.SA_LAYOUT[tuple(dims[1:])])
+        row = {
             "shape": f"{label}: (M={m}, S={s}, k={k}, Cin={dims[0]}) -> {dims[1:]}",
             "max_abs_err": err,
             "ms": cuda_ms(torch, lambda: sa.sa_mlp_max_cuda(*args)),
             "plain_ms": cuda_ms(torch, lambda: sa.sa_mlp_max_plain(*args), reps=10),
             "library_ms": None,
-            "bound_ms": bnd, "bound_by": by,
-            "three_pass_floor_ms": 3 * flops / TF32_FLOPS * 1e3,
-            "fp32_pipe_bound_ms": flops / FP32_FLOPS * 1e3, "gflop": flops / 1e9,
+            "bound_ms": bnd, "bound_by": by, "gflop": flops / 1e9,
             "pack_ms": cuda_ms(torch, pack), "pack_host_ms": host_ms(torch, pack),
-        })
+        }
+        if not bf16:
+            row.update(three_pass_floor_ms=3 * flops / TF32_FLOPS * 1e3,
+                       fp32_pipe_bound_ms=flops / FP32_FLOPS * 1e3)
+        rows.append(row)
     return rows
 
 
-def check_sa_edges(torch, sa, device):
+def check_sa_edges(torch, sa, device, bf16=False):
     """Inputs that reach the kernel's edges, against the plain version:
     k = 13 and 29 (padding rows in every tile), odd group counts (a partial
     last tile, and more tiles than blocks), and weights whose layer-3 outputs
     are mostly negative (W3 shifted down, b3 up): relu hits zero on the real
     rows while a padding row, relu(b) of the chain, would win the max if it
-    were not masked; the case checks that it would."""
+    were not masked; the case checks that it would. bf16: the same inputs
+    cast (biases stay float32), against kernel 2b."""
+    dt = torch.bfloat16 if bf16 else torch.float32
     rng = np.random.default_rng(9)
     errs = []
     # (widths, cf, M, S, k, mean of W3, mean of b3)
@@ -309,27 +402,29 @@ def check_sa_edges(torch, sa, device):
                                         ((128, 128, 256), 128, 5, 301, 29, -0.05, 0.3),
                                         ((64, 64, 128), 8, 1, 1, 1, 0.0, 0.0)):
         n = max(200, s)
-        pts = torch.from_numpy(rng.normal(0, 0.3, (m, n, 3 + cf)).astype(np.float32)).to(device)
+        pts = torch.from_numpy(rng.normal(0, 0.3, (m, n, 3 + cf)).astype(np.float32)).to(device, dt)
         cidx = torch.from_numpy(rng.choice(n, s, replace=False).astype(np.int32)).to(device)
         gidx = torch.from_numpy(rng.integers(0, n, (s, k)).astype(np.int32)).to(device)
         dims = (3 + cf,) + widths
         Ws = [torch.from_numpy(rng.normal(w3 * (i == 2), 0.2, (dims[i], dims[i + 1]))
-                               .astype(np.float32)).to(device) for i in range(3)]
+                               .astype(np.float32)).to(device, dt) for i in range(3)]
         bs = [torch.from_numpy(rng.normal(b3 * (i == 2), 0.2, dims[i + 1]).astype(np.float32)).to(device)
               for i in range(3)]
         args = (pts[..., :3], pts[..., 3:], cidx, gidx, Ws, bs)
         want = sa.sa_mlp_max_plain(*args)
-        label = f"widths {widths}, M={m}, S={s}, k={k}, W3 mean {w3}, b3 mean {b3}"
+        label = f"{'bf16, ' if bf16 else ''}widths {widths}, M={m}, S={s}, k={k}, W3 mean {w3}, b3 mean {b3}"
         if w3:
-            x, pad = sa._grouped(*args[:4]), torch.zeros(dims[0], device=device)
+            x, pad = sa._grouped(*args[:4]), torch.zeros(dims[0], device=device, dtype=dt)
             for w, b in zip(Ws, bs):
-                pre = torch.matmul(x, w) + b
-                x, pad = torch.relu(pre), torch.relu(torch.matmul(pad, w) + b)
+                pre = torch.matmul(x.float(), w.float()) + b
+                x, pad = sa.dense_relu(x, w, b), sa.dense_relu(pad, w, b)
             negative = float((pre < 0).float().mean())
             if negative < 0.5 or not bool((pad > want).any()):
                 fail(f"sa_mlp_max edge case ({label}): layer 3 {negative:.2f} negative, "
                      f"padding row wins nowhere")
-        errs.append(check_close(torch, f"sa_mlp_max ({label})", sa.sa_mlp_max_cuda(*args), want, SA_TOL))
+        got = sa.sa_mlp_max_cuda(*args)
+        errs.append(check_bf16(torch, f"sa_mlp_max ({label})", got, want, steps=2.0) if bf16
+                    else check_close(torch, f"sa_mlp_max ({label})", got, want, SA_TOL))
     return max(errs)
 
 
@@ -450,20 +545,24 @@ def perturb_heads(net, seed):
                 conv.bias.fill_(bias)
 
 
-def dw_bwd_cases(torch, device):
+def dw_bwd_cases(torch, device, bf16=False):
     """The finetune's two calls of the backward (per-sample x and k, batch 8)
     and edge inputs: B = 1 with C = 4, W = 13 (not a multiple of the run
     length 8) with k broadcast over B, and x broadcast over B. Each case is
-    (label, x, k, dout); a broadcast input is a stride-0 expand."""
+    (label, x, k, dout); a broadcast input is a stride-0 expand. bf16: the
+    same in bf16 with C = 8 and 16 for 4 and 12 (dx runs kernel 1b, whose
+    vectors are 8 channels)."""
     g = torch.Generator(device=device).manual_seed(4)
     r = lambda *shape: torch.randn(*shape, device=device, generator=g)
-    return [
+    c1, c2 = (8, 16) if bf16 else (4, 12)
+    cases = [
         ("correlation head", r(8, 29, 39, 640), r(8, 3, 3, 640), r(8, 29, 39, 640)),
         ("image-encoder stem", r(8, 240, 320, 64), r(8, 3, 3, 64), r(8, 240, 320, 64)),
-        ("B 1, C 4", r(1, 5, 7, 4), r(1, 3, 3, 4), r(1, 5, 7, 4)),
-        ("W 13, k stride 0 over B", r(3, 6, 13, 12), r(1, 3, 3, 12).expand(3, 3, 3, 12), r(3, 6, 13, 12)),
+        (f"B 1, C {c1}", r(1, 5, 7, c1), r(1, 3, 3, c1), r(1, 5, 7, c1)),
+        ("W 13, k stride 0 over B", r(3, 6, 13, c2), r(1, 3, 3, c2).expand(3, 3, 3, c2), r(3, 6, 13, c2)),
         ("W 39, x stride 0 over B", r(1, 6, 39, 64).expand(4, 6, 39, 64), r(4, 3, 3, 64), r(4, 6, 39, 64)),
     ]
+    return [(label, *map(as_bf16, ts)) for label, *ts in cases] if bf16 else cases
 
 
 def rel_err(torch, got, want):
@@ -471,10 +570,13 @@ def rel_err(torch, got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-def check_dw_bwd(torch, conv, label, x, k, dout):
+def check_dw_bwd(torch, conv, label, x, k, dout, tols=(DX_TOL, DK_TOL)):
     """depthwise_corr's gradients on the card (DwCorr3x3: kernel 1 for dx,
-    kernel 3 for dk) against the plain version's autograd. A broadcast
-    input's gradient is the sum over B, taken by autograd's expand."""
+    kernel 3 for dk; 1b and 3b in bf16) against the plain version's
+    autograd, relative to the largest magnitude, within tols (dx, dk). A
+    broadcast input's gradient is the sum over B, taken by autograd's
+    expand."""
+    dx_tol, dk_tol = tols
     b, h, w, c = dout.shape
     leaves = [t[:1].detach().clone() if t.stride(0) == 0 and b > 1 else t.detach().clone()
               for t in (x, k)]
@@ -485,18 +587,20 @@ def check_dw_bwd(torch, conv, label, x, k, dout):
         grads.append(torch.autograd.grad(out, (xl, kl), dout))
     (dx, dk), (want_dx, want_dk) = grads
     ex, ek = rel_err(torch, dx, want_dx), rel_err(torch, dk, want_dk)
-    if ex > DX_TOL or ek > DK_TOL:
-        fail(f"dw_corr3x3 backward ({label}): relative error dx {ex:.3g} (tol {DX_TOL}), "
-             f"dk {ek:.3g} (tol {DK_TOL})")
+    if ex > dx_tol or ek > dk_tol:
+        fail(f"dw_corr3x3 backward ({label}): relative error dx {ex:.3g} (tol {dx_tol}), "
+             f"dk {ek:.3g} (tol {dk_tol})")
     return ex, ek
 
 
-def measure_dw_bwd(torch, conv, cases):
-    """dx (kernel 1 on dout with the taps turned) and dk (kernel 3) on their
-    own at the finetune's shapes: errors against the plain versions, dk's
-    bitwise repeatability over 3 runs, device times, bounds (each input read
-    once, each output written once, over the HBM rate) and cuDNN's
-    convolution_backward of the grouped conv for the same gradients."""
+def measure_dw_bwd(torch, conv, cases, tols=(DX_TOL, DK_TOL)):
+    """dx (kernel 1 on dout with the taps turned) and dk (kernel 3), or 1b
+    and 3b in bf16, on their own at the finetune's shapes: errors against
+    the plain versions, dk's bitwise repeatability over 3 runs, device
+    times, bounds (each input read once, each output written once, over the
+    HBM rate) and cuDNN's convolution_backward of the grouped conv for the
+    same gradients."""
+    dx_tol, dk_tol = tols
     rows = []
     for label, x, k, dout in cases:
         b, h, w, c = dout.shape
@@ -504,7 +608,7 @@ def measure_dw_bwd(torch, conv, cases):
         dx = conv.dw_corr3x3_dx_cuda(dout, k)
         ek = rel_err(torch, dk, conv.dw_corr3x3_dk_plain(x, dout))
         ex = rel_err(torch, dx, conv.depthwise_corr_plain(dout, k.flip(1, 2), 1))
-        if ex > DX_TOL or ek > DK_TOL:
+        if ex > dx_tol or ek > dk_tol:
             fail(f"dw_corr3x3 backward ({label}): relative error dx {ex:.3g}, dk {ek:.3g}")
         repeatable = all(torch.equal(conv.dw_corr3x3_dk_cuda(x, dout), dk) for _ in range(3))
         if not repeatable:
@@ -514,9 +618,9 @@ def measure_dw_bwd(torch, conv, cases):
         gi = dout.permute(0, 3, 1, 2).reshape(1, b * c, h, w).contiguous()
         lib = lambda mask: torch.ops.aten.convolution_backward(
             gi, xi, ki, None, [1, 1], [1, 1], [1, 1], False, [0, 0], b * c, mask)
-        dk_bound, dk_by = bound_ms(unique_bytes(x) + unique_bytes(dout) + dk.numel() * 4,
+        dk_bound, dk_by = bound_ms(unique_bytes(x) + unique_bytes(dout) + dk.numel() * dk.element_size(),
                                    18.0 * dout.numel())
-        dx_bound, _ = bound_ms(unique_bytes(dout) + unique_bytes(k) + dx.numel() * 4,
+        dx_bound, _ = bound_ms(unique_bytes(dout) + unique_bytes(k) + dx.numel() * dx.element_size(),
                                18.0 * dout.numel())
         rows.append({
             "shape": f"x {tuple(x.shape)}{' (stride 0 over B)' if x.stride(0) == 0 and b > 1 else ''}, "
@@ -715,6 +819,104 @@ def compare_step(torch, dtoid_gpu, dtoid_cpu, batch):
     return out
 
 
+def drive_loop(torch, conv, sa, dtoid, zephyr, cfg, bop, zr_list, gens):
+    """One counted run of the loop, every launch counter at 0 just before
+    and read just after, then a second pass under torch.profiler. Returns
+    (rows, wall s, loop, launches {kernel: count}, peak GiB, profile)."""
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"dw_corr3x3": conv.dw_corr3x3_cuda, "dw_corr3x3_dx": conv.dw_corr3x3_dx_cuda,
+                "dw_corr3x3_dk": conv.dw_corr3x3_dk_cuda, "sa_mlp_max": sa.sa_mlp_max_cuda}
+    for c in counters.values():
+        c.launches = c.launches_bf16 = 0
+    rows, wall_s, loop = run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens)
+    launches = {name: c.launches for name, c in counters.items()}
+    launches.update({f"{name}_bf16": c.launches_bf16 for name, c in counters.items()})
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the same loop again under torch.profiler (device busy time and the
+    # kernels that take it), after the launch counts were read
+    profile = profile_call(torch, lambda: run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens))
+    return rows, wall_s, loop, launches, peak_gib, profile
+
+
+def loop_summary(rows, wall_s, loop, launches, peak_gib, step_ms) -> dict:
+    n_steps = sum(len(ep) for logs in loop.finetune_logs for ep in logs)
+    events = [r["time_finetune"] for r in rows if r["finetune"]]
+    return {
+        "frames": len(rows), "wall_s": wall_s, "frames_per_s": len(rows) / wall_s,
+        "frame_ms": [round((r["time_iter"] + r["time_complete"]) * 1e3, 2) for r in rows],
+        "hypotheses": [int(r["n_hypos"]) for r in rows],
+        "finetune_events": len(events), "finetune_event_ms": [e * 1e3 for e in events],
+        "train_steps": n_steps, "train_step_ms_in_loop": sum(events) * 1e3 / max(n_steps, 1),
+        "train_step_ms_b8": step_ms, "detect_ms": [r["time_dtoid"] * 1e3 for r in rows],
+        "score_ms": [None if r["time_zephyr"] is None else r["time_zephyr"] * 1e3 for r in rows],
+        "ppf_ms": [None if r["time_ppf"] is None else r["time_ppf"] * 1e3 for r in rows],
+        "label_ms": [r["time_label"] * 1e3 for r in rows],
+        "launches": launches, "peak_memory_gib": peak_gib,
+        "pred_add01d": float(np.mean([r["pred_add01d"] for r in rows])),
+    }
+
+
+def compare_bf16_serving(results32, results16):
+    """bf16 serving against float32 serving on the same weights, frames and
+    hypotheses: per frame, the top-10 detection scores, the segmentation
+    agreement at 0.5 and the scorer's pick (BF16_* limits)."""
+    out = {"top10_max_abs_err": 0.0, "seg_agreement_min": 1.0, "picks_equal": 0, "pick_gaps": []}
+    for (det32, _, scored32, _, _), (det16, scored16) in zip(results32, results16):
+        out["top10_max_abs_err"] = max(out["top10_max_abs_err"], float(
+            np.abs(det16["pred_scores"][:10] - det32["pred_scores"][:10]).max()))
+        out["seg_agreement_min"] = min(out["seg_agreement_min"], float(
+            np.mean((det16["segmentation"] > 0.5) == (det32["segmentation"] > 0.5))))
+        s32 = scored32["scores"]
+        if scored16["pred_idx"] == scored32["pred_idx"]:
+            out["picks_equal"] += 1
+        else:
+            out["pick_gaps"].append(float(s32.max() - s32[scored16["pred_idx"]]) / float(np.abs(s32).max()))
+        out["score_max_rel_err"] = max(out.get("score_max_rel_err", 0.0), float(
+            np.abs(scored16["scores"] - s32).max() / np.abs(s32).max()))
+    if out["top10_max_abs_err"] > BF16_TOP10_TOL or out["seg_agreement_min"] <= BF16_SEG_AGREE:
+        fail(f"bf16 detect against float32: top-10 scores {out['top10_max_abs_err']:.3g} apart "
+             f"(tol {BF16_TOP10_TOL}), seg agreement {out['seg_agreement_min']:.4f} (> {BF16_SEG_AGREE})")
+    if out["score_max_rel_err"] > BF16_SCORE_TOL or any(gap > BF16_SCORE_TOL for gap in out["pick_gaps"]):
+        fail(f"bf16 scores {out['score_max_rel_err']:.3g} of the largest apart from float32, picks "
+             f"{out['pick_gaps']} below the float32 picks (tol {BF16_SCORE_TOL})")
+    return out
+
+
+def step_gradients(model) -> dict:
+    return {name: p.grad.detach().double().cpu() for name, p in model.net.named_parameters()}
+
+
+def compare_step_bf16(torch, m16, m32, batch, steps: int = 3):
+    """One bf16_finetune step against the float32 step from the same weights
+    and fresh optimizer state (STEP16_* limits), then steps - 1 more bf16
+    steps on the same batch: the loss must fall, and the master weights,
+    statistics and optimizer state stay float32."""
+    out = {}
+    l32 = float(m32.train_step(batch)["loss"])
+    g32 = step_gradients(m32)
+    losses = [float(m16.train_step(batch)["loss"])]
+    errs, dropped = grad_errors(step_gradients(m16), g32)
+    for _ in range(steps - 1):
+        losses.append(float(m16.train_step(batch)["loss"]))
+    vals = sorted(errs.values())
+    out.update(loss_f32=l32, losses_bf16=losses, loss_rel_err=abs(losses[0] - l32) / abs(l32),
+               grad_leaves=len(errs), grad_leaves_at_rounding_level=dropped,
+               grad_max_rel_l2_err=vals[-1], grad_worst_leaf=max(errs, key=errs.get),
+               grad_median_rel_l2_err=float(np.median(vals)), grad_p90_rel_l2_err=float(np.percentile(vals, 90)))
+    if out["loss_rel_err"] > STEP16_LOSS_TOL:
+        fail(f"bf16 step loss {losses[0]} against the float32 step's {l32} (tol {STEP16_LOSS_TOL})")
+    if not losses[-1] < losses[0]:
+        fail(f"bf16 steps on one batch do not lower the loss: {losses}")
+    state = list(m16.state_dict().values()) + [v for st in m16.optimizer.state.values()
+                                               for v in st.values() if isinstance(v, torch.Tensor)]
+    if any(t.dtype != torch.float32 for t in state if t.is_floating_point()):
+        fail("the bf16 step left a master weight, statistic or optimizer state outside float32")
+    if out["grad_p90_rel_l2_err"] > STEP16_GRAD_P90_TOL:
+        fail(f"bf16 step gradients against float32: 90th percentile of the leaves' relative L2 errors "
+             f"{out['grad_p90_rel_l2_err']:.3g} (tol {STEP16_GRAD_P90_TOL})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -737,9 +939,10 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output")
     device_name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; precision float32, TF32 off "
-          f"(cuDNN and matmul); peaks used for bounds: {HBM_BYTES_PER_S / 1e12} TB/s, "
-          f"{FP32_FLOPS / 1e12} TFLOP/s FP32, {TF32_FLOPS / 1e12} TFLOP/s TF32")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; float32 with TF32 off (cuDNN and "
+          f"matmul), and the bf16 paths; peaks used for bounds: {HBM_BYTES_PER_S / 1e12} TB/s, "
+          f"{FP32_FLOPS / 1e12} TFLOP/s FP32, {TF32_FLOPS / 1e12} TFLOP/s TF32, "
+          f"{BF16_FLOPS / 1e12} TFLOP/s BF16")
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -766,14 +969,22 @@ def main() -> int:
     prep = zephyr.prepare_object(scene["obj_id"], scene["model_points"], scene["model_colors"],
                                  scene["model_normals"])
     with torch.inference_mode():
-        dw_edge_err = check_dw_corr_edges(torch, conv, dw_corr_edge_cases(torch, device))
+        dw_edge_err = check_dw_corr_edges(torch, conv, dw_corr_edge_cases(torch, device), dw_check(torch, False))
         sa_edge_err = check_sa_edges(torch, sa, device)
+        dw16_edge_err = check_dw_corr_edges(torch, conv, dw_corr_edge_cases(torch, device, bf16=True),
+                                            dw_check(torch, True))
+        sa16_edge_err = check_sa_edges(torch, sa, device, bf16=True)
         print(f"edge cases agree: dw_corr3x3 max abs err {dw_edge_err:.3g}, "
-              f"sa_mlp_max max abs err {sa_edge_err:.3g}")
+              f"sa_mlp_max max abs err {sa_edge_err:.3g}; bf16: {dw16_edge_err:.3g}, {sa16_edge_err:.3g}")
         dw_cases = dw_corr_cases(torch, device)
-        dw_rows = measure_dw_corr(torch, F, conv, dw_cases)
+        dw_rows = measure_dw_corr(torch, F, conv, dw_cases, dw_check(torch, False))
         sa_rows = measure_sa(torch, sa, zephyr, prep, 128) + measure_sa(torch, sa, zephyr, prep, 256)
-    for label, rows in (("dw_corr3x3", dw_rows), ("sa_mlp_max", sa_rows)):
+        dw16_rows = measure_dw_corr(torch, F, conv, [(label, as_bf16(x), as_bf16(k)) for label, x, k in dw_cases],
+                                    dw_check(torch, True))
+        sa16_rows = (measure_sa(torch, sa, zephyr, prep, 128, bf16=True)
+                     + measure_sa(torch, sa, zephyr, prep, 256, bf16=True))
+    for label, rows in (("dw_corr3x3", dw_rows), ("sa_mlp_max", sa_rows), ("dw_corr3x3 bf16", dw16_rows),
+                        ("sa_mlp_max bf16", sa16_rows)):
         for r in rows:
             extra = (f"; 3-pass floor {r['three_pass_floor_ms']:.4f} ms, FP32-pipe bound "
                      f"{r['fp32_pipe_bound_ms']:.4f} ms; weight packing {r['pack_ms']:.4f} ms "
@@ -805,6 +1016,45 @@ def main() -> int:
                                                                 obj_id=scene["obj_id"]))):
         print(f"profile {label}: {json.dumps(profile_call(torch, fn))}")
 
+    # -- 3b. the same frames in bf16: bf16_infer and ZephyrModel(bf16=True) on
+    # the same weights, the same hypotheses scored --------------------------------
+    dtoid16 = DtoidModel(cfg.merged({"model": {"bf16_infer": True}}), seed=0, device=device)
+    dtoid16.load_state_dict(dtoid.state_dict())
+    zephyr16 = ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False, bf16=True,
+                           device=device)
+    zephyr16.load_state_dict(zephyr.state_dict())
+
+    def serve16(img, poses):
+        b = dict(scene, img=img)
+        t0 = time.perf_counter()
+        det16 = dtoid16.forward_test_time(b)
+        t1 = time.perf_counter()
+        scored16 = zephyr16.score_hypotheses(dict(b, pose_hypos=poses), obj_id=scene["obj_id"])
+        return det16, scored16, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    serve16(frames[0], results[0][1])  # warm-up: the bf16 weight copies, templates, cuDNN plans
+    torch.cuda.synchronize()
+    counters = (conv.dw_corr3x3_cuda, conv.dw_corr3x3_dx_cuda, conv.dw_corr3x3_dk_cuda, sa.sa_mlp_max_cuda)
+    for c in counters:
+        c.launches = c.launches_bf16 = 0
+    served16 = [serve16(img, r[1]) for img, r in zip(frames[1:], results)]
+    serve16_launches = {"dw_corr3x3_bf16": conv.dw_corr3x3_cuda.launches_bf16,
+                        "sa_mlp_max_bf16": sa.sa_mlp_max_cuda.launches_bf16,
+                        "float32 kernels": sum(c.launches for c in counters)}
+    for (det16, scored16, _, _), r in zip(served16, results):
+        check_frame(det16, scored16, dtoid.img_size)
+    if serve16_launches != {"dw_corr3x3_bf16": 2 * N_FRAMES, "sa_mlp_max_bf16": 2 * N_FRAMES, "float32 kernels": 0}:
+        fail(f"bf16 serving launched {serve16_launches}, expected 2 of each bf16 kernel per frame and no "
+             f"float32 kernel")
+    cmp16 = compare_bf16_serving(results, [(d, sc) for d, sc, _, _ in served16])
+    print(f"served {N_FRAMES} frames in bf16: detect {[round(r[2], 3) for r in served16]} ms, score "
+          f"{[round(r[3], 3) for r in served16]} ms (host clock, results fetched); launches {serve16_launches}; "
+          f"against float32: {json.dumps(cmp16)}")
+    for label, fn in (("detect bf16", lambda: dtoid16.forward_test_time(batch)),
+                      ("score bf16", lambda: zephyr16.score_hypotheses(dict(batch, pose_hypos=poses),
+                                                                       obj_id=scene["obj_id"]))):
+        print(f"profile {label}: {json.dumps(profile_call(torch, fn))}")
+
     # -- 4. the first served frame again, plain path on the CPU ---------------
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
@@ -817,6 +1067,14 @@ def main() -> int:
     det_cpu = dtoid_cpu.forward_test_time(batch)
     scored_cpu = zephyr_cpu.score_hypotheses(dict(batch, pose_hypos=poses), obj_id=scene["obj_id"])
     cmp = compare_with_cpu(det, scored, det_cpu, scored_cpu)
+    zephyr16_cpu = ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False, bf16=True,
+                               device="cpu")
+    zephyr16_cpu.load_state_dict(zephyr_cpu.state_dict())
+    s16_cpu = zephyr16_cpu.score_hypotheses(dict(batch, pose_hypos=poses), obj_id=scene["obj_id"])["scores"]
+    cmp["bf16_score_max_rel_err"] = float(np.abs(served16[0][1]["scores"] - s16_cpu).max() / np.abs(s16_cpu).max())
+    if cmp["bf16_score_max_rel_err"] > BF16_SCORE_TOL:
+        fail(f"bf16 Zephyr scores GPU vs CPU differ by {cmp['bf16_score_max_rel_err']:.3g} of the largest "
+             f"(tol {BF16_SCORE_TOL})")
     print(f"GPU vs CPU plain path on frame 1 ({time.perf_counter() - t0:.1f} s): {json.dumps(cmp)}")
 
     # -- 5. the backward of dw_corr3x3 against its plain version -----------
@@ -835,6 +1093,24 @@ def main() -> int:
               f"{r['dx_rel_err']:.3g}, dx {r['dx_ms']:.4f} ms (plain {r['dx_plain_ms']:.4f}, cuDNN "
               f"{r['dx_library_ms']:.4f}, bound {r['dx_bound_ms']:.4f})")
     bwd_edge_err = max(r["max_abs_err"] for r in bwd_edge_rows)
+    # ... and in bf16 (kernels 1b and 3b), within two bf16 steps of the
+    # largest magnitude (a broadcast input's gradient sums bf16 per-sample
+    # gradients), dk also 1e-4 for its float32 order
+    tols16 = (2 * BF16_STEP, 2 * BF16_STEP + 1e-4)
+    bwd16_cases = dw_bwd_cases(torch, device, bf16=True)
+    bwd16_errs = [check_dw_bwd(torch, conv, *case, tols=tols16) for case in bwd16_cases]
+    with torch.inference_mode():
+        bwd16_rows = measure_dw_bwd(torch, conv, bwd16_cases[:2], tols16)
+        bwd16_edge_rows = measure_dw_bwd(torch, conv, bwd16_cases[2:], tols16)
+    print(f"dw_corr3x3 bf16 backward through autograd agrees: worst relative error "
+          f"dx {max(e[0] for e in bwd16_errs):.3g}, dk {max(e[1] for e in bwd16_errs):.3g} (tol {tols16})")
+    for r in bwd16_rows + bwd16_edge_rows:
+        print(f"dw_corr3x3 bf16 backward {r['shape']}: dk rel err {r['dk_rel_err']:.3g}, bitwise repeatable "
+              f"{r['dk_bitwise_repeatable']}, dk {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, cuDNN "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']}); dx rel err "
+              f"{r['dx_rel_err']:.3g}, dx {r['dx_ms']:.4f} ms (plain {r['dx_plain_ms']:.4f}, cuDNN "
+              f"{r['dx_library_ms']:.4f}, bound {r['dx_bound_ms']:.4f})")
+    bwd16_edge_err = max(r["max_abs_err"] for r in bwd16_edge_rows)
 
     # -- 6. the online loop at full width ---------------------------------------
     import tempfile
@@ -857,43 +1133,35 @@ def main() -> int:
         warm = FakeHypoGen(n_hypos=LOOP_HYPOS, seed=0)
         zephyr_loop.score_hypotheses(dict(scene, img=frames[0], pose_hypos=warm.find_surface_model(
             scene["model_points"] + np.array([0.0, 0.0, 0.9], np.float32))[0]), obj_id="warm-up")
-        torch.cuda.reset_peak_memory_stats()
-        counters = (conv.dw_corr3x3_cuda, conv.dw_corr3x3_dx_cuda, conv.dw_corr3x3_dk_cuda,
-                    sa.sa_mlp_max_cuda)
-        for c in counters:
-            c.launches = 0
-        rows, wall_s, loop = run_loop(torch, dtoid_loop, zephyr_loop, cfg_loop, bop, zr_list, gens)
-        loop_launches = tuple(c.launches for c in counters)
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        # the same loop again under torch.profiler (device busy time and the
-        # kernels that take it), after the launch counts were read
-        loop_profile = profile_call(torch, lambda: run_loop(torch, dtoid_loop, zephyr_loop, cfg_loop,
-                                                            bop, zr_list, gens))
-    n_steps = sum(len(ep) for logs in loop.finetune_logs for ep in logs)
-    n_scored = sum(r["n_hypos"] > 0 for r in rows)
-    expected = (2 * len(rows) + 2 * n_steps, 2 * n_steps, 2 * n_steps, 2 * n_scored)
-    check_loop(rows, 2 * LOOP_FRAMES, loop_launches, expected)
-    events = [r["time_finetune"] for r in rows if r["finetune"]]
-    frame_ms = [round((r["time_iter"] + r["time_complete"]) * 1e3, 2) for r in rows]
-    loop_stats = {
-        "frames": len(rows), "wall_s": wall_s, "frames_per_s": len(rows) / wall_s,
-        "frame_ms": frame_ms, "hypotheses": [int(r["n_hypos"]) for r in rows],
-        "finetune_events": len(events), "finetune_event_ms": [e * 1e3 for e in events],
-        "train_steps": n_steps, "train_step_ms_in_loop": sum(events) * 1e3 / max(n_steps, 1),
-        "train_step_ms_b8": step_ms, "detect_ms": [r["time_dtoid"] * 1e3 for r in rows],
-        "score_ms": [None if r["time_zephyr"] is None else r["time_zephyr"] * 1e3 for r in rows],
-        "ppf_ms": [None if r["time_ppf"] is None else r["time_ppf"] * 1e3 for r in rows],
-        "label_ms": [r["time_label"] * 1e3 for r in rows],
-        "launches": dict(zip(("dw_corr3x3", "dw_corr3x3_dx", "dw_corr3x3_dk", "sa_mlp_max"),
-                             loop_launches)),
-        "peak_memory_gib": peak_gib,
-        "pred_add01d": float(np.mean([r["pred_add01d"] for r in rows])),
-    }
-    print(f"loop: {json.dumps(loop_stats)}")
-    print(f"profile loop (a second pass): {json.dumps(loop_profile)}")
+        loop32 = drive_loop(torch, conv, sa, dtoid_loop, zephyr_loop, cfg_loop, bop, zr_list, gens)
+        # the gating profile as the bench runs it by default: bf16 finetune
+        # steps (BENCH_BF16_FINETUNE=1), the same weights and world
+        cfg_loop16 = cfg_loop.merged({"model": {"bf16_finetune": True}})
+        dtoid_loop16 = DtoidModel(cfg_loop16, seed=1, device=device)
+        perturb_heads(dtoid_loop16.net, 2)
+        step16_ms = time_train_step(torch, dtoid_loop16, np.random.default_rng(5))
+        dtoid_loop16.reset_optimizer()
+        loop16 = drive_loop(torch, conv, sa, dtoid_loop16, zephyr_loop, cfg_loop16, bop, zr_list, gens)
+    for label, (rows, wall_s, loop, launches, peak_gib, loop_profile), ms, bf16 in (
+            ("loop", loop32, step_ms, False), ("loop, bf16 finetune", loop16, step16_ms, True)):
+        n_steps = sum(len(ep) for logs in loop.finetune_logs for ep in logs)
+        n_scored = sum(r["n_hypos"] > 0 for r in rows)
+        expected = dict.fromkeys(launches, 0)
+        expected.update({"dw_corr3x3": 2 * len(rows), "sa_mlp_max": 2 * n_scored})
+        step_kernels = ("dw_corr3x3_bf16", "dw_corr3x3_dx_bf16", "dw_corr3x3_dk_bf16") if bf16 else \
+            ("dw_corr3x3", "dw_corr3x3_dx", "dw_corr3x3_dk")
+        for name in step_kernels:
+            expected[name] += 2 * n_steps
+        check_loop(rows, 2 * LOOP_FRAMES, launches, expected)
+        print(f"{label}: {json.dumps(loop_summary(rows, wall_s, loop, launches, peak_gib, ms))}")
+        print(f"profile {label} (a second pass): {json.dumps(loop_profile)}")
+    loop_launches = loop32[3]
+    loop16_launches = loop16[3]
     batch8 = finetune_batch(np.random.default_rng(7), FINETUNE_BATCH)
     print(f"profile train step (batch {FINETUNE_BATCH}, float feed): "
           f"{json.dumps(profile_call(torch, lambda: dtoid_loop.train_step(batch8)))}")
+    print(f"profile train step, bf16 (batch {FINETUNE_BATCH}, float feed): "
+          f"{json.dumps(profile_call(torch, lambda: dtoid_loop16.train_step(batch8)))}")
 
     # -- 7. one finetune step, card against the CPU plain path --------------------
     t0 = time.perf_counter()
@@ -905,18 +1173,43 @@ def main() -> int:
     print(f"finetune step GPU vs CPU plain path, batch 2 at 480x640 "
           f"({time.perf_counter() - t0:.1f} s): {json.dumps(step_cmp)}")
 
+    # -- 7b. one bf16 step against the card's float32 step, same weights --------
+    t0 = time.perf_counter()
+    m32 = DtoidModel(cfg, seed=3, device=device)
+    perturb_heads(m32.net, 4)
+    m16 = DtoidModel(cfg.merged({"model": {"bf16_finetune": True}}), seed=3, device=device)
+    m16.load_state_dict(m32.state_dict())
+    step16_cmp = compare_step_bf16(torch, m16, m32, finetune_batch(np.random.default_rng(6), FINETUNE_BATCH))
+    print(f"bf16 finetune step against the float32 step on the card, batch {FINETUNE_BATCH} at 480x640 "
+          f"({time.perf_counter() - t0:.1f} s): {json.dumps(step16_cmp)}")
+
+    hbm = f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"
+    dw_src, bwd_src = "ossid_code_torch/csrc/dw_corr3x3.cu", "ossid_code_torch/csrc/dw_corr3x3_bwd.cu"
+    dw_replaces = "ossid_code_tpu/ops/pallas_kernels.py:49"
+    bwd_replaces = ("ossid_code_tpu/ops/conv.py:15 (the gradient JAX takes through XLA's grouped conv; "
+                    "no Pallas kernel)")
+    # launches: the float32 kernels' in the float32 loop run; the bf16
+    # kernels' in the bf16 serving run (1b, 2b) and the bf16-finetune loop
+    # run (1b, its dx, 3b), added, with each run's count beside
+    by_path = lambda name: {"serving_bf16": serve16_launches.get(name, 0), "loop_bf16": loop16_launches[name]}
     kernels = [
-        summary("dw_corr3x3", "ossid_code_torch/csrc/dw_corr3x3.cu",
-                "ossid_code_tpu/ops/pallas_kernels.py:49", loop_launches[0], dw_rows, dw_edge_err,
-                f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"),
-        dict(summary("dw_corr3x3_bwd", "ossid_code_torch/csrc/dw_corr3x3_bwd.cu",
-                     "ossid_code_tpu/ops/conv.py:15 (the gradient JAX takes through XLA's grouped "
-                     "conv; no Pallas kernel)", loop_launches[2], bwd_rows, bwd_edge_err,
-                     f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"),
-             dx_launches=loop_launches[1]),
-        summary("sa_mlp_max", "ossid_code_torch/csrc/sa_mlp_max.cu",
-                "ossid_code_tpu/ops/sa_fused.py:85", loop_launches[3], sa_rows, sa_edge_err,
-                f"TF32 tensor cores {TF32_FLOPS / 1e12} TFLOP/s"),
+        dict(summary("dw_corr3x3", dw_src, dw_replaces, loop_launches["dw_corr3x3"], dw_rows, dw_edge_err, hbm),
+             dtype="float32"),
+        dict(summary("dw_corr3x3_bwd", bwd_src, bwd_replaces, loop_launches["dw_corr3x3_dk"], bwd_rows,
+                     bwd_edge_err, hbm), dtype="float32", dx_launches=loop_launches["dw_corr3x3_dx"]),
+        dict(summary("sa_mlp_max", "ossid_code_torch/csrc/sa_mlp_max.cu", "ossid_code_tpu/ops/sa_fused.py:85",
+                     loop_launches["sa_mlp_max"], sa_rows, sa_edge_err,
+                     f"TF32 tensor cores {TF32_FLOPS / 1e12} TFLOP/s"), dtype="float32"),
+        dict(summary("dw_corr3x3_bf16", dw_src, dw_replaces, sum(by_path("dw_corr3x3_bf16").values()),
+                     dw16_rows, dw16_edge_err, hbm), dtype="bfloat16", launches_by_path=by_path("dw_corr3x3_bf16")),
+        dict(summary("dw_corr3x3_bwd_bf16", bwd_src, bwd_replaces, loop16_launches["dw_corr3x3_dk_bf16"],
+                     bwd16_rows, bwd16_edge_err, hbm), dtype="bfloat16",
+             dx_launches=loop16_launches["dw_corr3x3_dx_bf16"]),
+        dict(summary("sa_mlp_max_bf16", "ossid_code_torch/csrc/sa_mlp_max_bf16.cu",
+                     "ossid_code_tpu/ops/sa_fused.py:85", serve16_launches["sa_mlp_max_bf16"], sa16_rows,
+                     sa16_edge_err, f"BF16 tensor cores {BF16_FLOPS / 1e12} TFLOP/s"), dtype="bfloat16",
+             launches_by_path={"serving_bf16": serve16_launches["sa_mlp_max_bf16"],
+                               "loop_bf16": loop16_launches["sa_mlp_max_bf16"]}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

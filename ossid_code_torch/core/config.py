@@ -1,9 +1,12 @@
 """Config tree and DTOID model defaults (copy of ossid_code_tpu/core/config.py).
 
 A `Config` is a recursive attribute dict that round-trips YAML. The defaults
-mirror the reference's conf/model/dtoid.yaml and conf/dataset/dtoid_bop.yaml;
-the TPU-only knobs of the JAX package (bf16 inference, packed single-buffer
-fetch) are not read by the port.
+mirror the reference's conf/model/dtoid.yaml and conf/dataset/dtoid_bop.yaml.
+The model group also names the JAX package's two bf16 switches,
+`bf16_finetune` and `bf16_infer`, at the default the JAX package reads them
+with (`m.get(..., False)`; its own defaults leave them out); the port's
+DtoidModel reads them the same way. The JAX package's transport knobs
+(packed single-buffer fetch) are not read by the port.
 """
 
 from __future__ import annotations
@@ -101,6 +104,9 @@ def dtoid_model_config() -> Config:
         # seg mask transfer: 'packed' = mask thresholded at 0.5 packed
         # 8 px/byte; 'u8' keeps quantized probabilities
         seg_transfer="packed",
+        # mixed-precision finetune step and bf16 detection (DtoidModel)
+        bf16_finetune=False,
+        bf16_infer=False,
     )
 
 

@@ -1,5 +1,6 @@
 // Kernel gradient of the per-sample 3x3 depthwise cross-correlation (zero
-// padding 1, float32, NHWC). The forward is
+// padding 1, NHWC), in float32 (kernel 3) or bfloat16 (kernel 3b). The
+// forward is
 //   out[b, y, x, c] = sum_{i, j in 0..2} xpad[b, y + i, x + j, c] * k[b, i, j, c]
 // and this file computes
 //   dk[b, i, j, c] = sum_{y, x} xpad[b, y + i, x + j, c] * dout[b, y, x, c],
@@ -31,14 +32,47 @@
 //    a second kernel sums the chunks of each (b, tap, c) in order;
 //  * the zero padding is a bounds check; x comes with its batch stride, so a
 //    stride-0 broadcast is read in place (dout is always per sample).
+//
+// bf16 (kernel 3b): x and dout are read as 8-byte vectors of 4 bf16 channels
+// and widened to float32 in registers; the products, both stages of the
+// reduction and the partial rows stay float32, and dk is rounded once to
+// bf16 when the second stage stores it. The order of every sum is the
+// float32 instance's, so 3b is bitwise repeatable too.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int R = 8;          // outputs per run along a row
 constexpr int MAX_CHUNKS = 64;
+
+// One 4-channel vector of the element type: float4 (16 bytes) or 4 bf16
+// (8 bytes), read and written as float4 registers.
+struct F32 {
+  using T = float;
+  using raw = float4;
+  static __device__ __forceinline__ float4 widen(const raw& r) { return r; }
+  static __device__ __forceinline__ raw narrow(const float4& v) { return v; }
+};
+
+struct BF16 {
+  using T = __nv_bfloat16;
+  using raw = uint2;
+  static __device__ __forceinline__ float4 widen(const raw& r) {
+    return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                       __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ raw narrow(const float4& v) {
+    return make_uint2(pack(v.x, v.y), pack(v.z, v.w));
+  }
+};
 
 __device__ __forceinline__ void fma4(float4& acc, const float4& v, const float4& w) {
   acc.x = fmaf(v.x, w.x, acc.x);
@@ -65,10 +99,12 @@ int n_chunks(int H, int W, int C4) {
 
 // grid (ceil(C4 / TX), nchunks, B). Thread (tx, ty) of chunk `chunk` takes
 // the runs chunk * TY + ty, then every nchunks * TY-th after it.
+template <class V>
 __global__ void __launch_bounds__(THREADS)
-dk_partial_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+dk_partial_kernel(const typename V::T* __restrict__ x, const typename V::T* __restrict__ dout,
                   float* __restrict__ partial, int H, int W, int C4, int TX, int nruns,
                   int nchunks, long long x_bstride) {
+  using raw = typename V::raw;
   __shared__ float4 red[9][THREADS];
   const int TY = THREADS / TX;
   const int tx = threadIdx.x % TX;
@@ -83,33 +119,34 @@ dk_partial_kernel(const float* __restrict__ x, const float* __restrict__ dout,
 #pragma unroll
   for (int t = 0; t < 9; ++t) acc[t] = zero;
   if (active) {
-    const int row = W * C4;  // float4s in one image row
-    const float4* xb = reinterpret_cast<const float4*>(x + b * x_bstride) + c4;
-    const float4* gb = reinterpret_cast<const float4*>(dout) + (long long)b * H * row + c4;
+    const int row = W * C4;  // vectors in one image row
+    const raw* xb = reinterpret_cast<const raw*>(x + b * x_bstride) + c4;
+    const raw* gb = reinterpret_cast<const raw*>(dout) + (long long)b * H * row + c4;
     const int items = H * nruns;
     for (int item = chunk * TY + ty; item < items; item += nchunks * TY) {
       const int y = item / nruns;
       const int x0 = (item - y * nruns) * R;
       // win[i][j] = x[y + i - 1, xx + j - 1] for the current output column xx
       float4 win[3][3];
-      const float4* xr[3];
+      const raw* xr[3];
       bool rok[3];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const int yy = y + i - 1;
         rok[i] = yy >= 0 && yy < H;
         xr[i] = xb + (long long)(rok[i] ? yy : 0) * row;
-        win[i][0] = rok[i] && x0 > 0 ? __ldg(xr[i] + (x0 - 1) * C4) : zero;
-        win[i][1] = rok[i] ? __ldg(xr[i] + x0 * C4) : zero;  // x0 < W
+        win[i][0] = rok[i] && x0 > 0 ? V::widen(__ldg(xr[i] + (x0 - 1) * C4)) : zero;
+        win[i][1] = rok[i] ? V::widen(__ldg(xr[i] + x0 * C4)) : zero;  // x0 < W
       }
-      const float4* gr = gb + (long long)y * row;
+      const raw* gr = gb + (long long)y * row;
 #pragma unroll
       for (int s = 0; s < R; ++s) {
         const int xx = x0 + s;
         if (xx >= W) break;
 #pragma unroll
-        for (int i = 0; i < 3; ++i) win[i][2] = rok[i] && xx + 1 < W ? __ldg(xr[i] + (xx + 1) * C4) : zero;
-        const float4 g = __ldg(gr + xx * C4);
+        for (int i = 0; i < 3; ++i)
+          win[i][2] = rok[i] && xx + 1 < W ? V::widen(__ldg(xr[i] + (xx + 1) * C4)) : zero;
+        const float4 g = V::widen(__ldg(gr + xx * C4));
 #pragma unroll
         for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -135,8 +172,9 @@ dk_partial_kernel(const float* __restrict__ x, const float* __restrict__ dout,
 }
 
 // one thread per (b, tap, c4): the chunks' partial sums, in chunk order
+template <class V>
 __global__ void __launch_bounds__(THREADS)
-dk_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dk, int B, int C4,
+dk_reduce_kernel(const float* __restrict__ partial, typename V::T* __restrict__ dk, int B, int C4,
                  int nchunks) {
   const int t = blockIdx.x * THREADS + threadIdx.x;
   if (t >= B * 9 * C4) return;
@@ -145,41 +183,55 @@ dk_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dk, int 
   const float4* p = reinterpret_cast<const float4*>(partial) + (long long)b * nchunks * 9 * C4 + r;
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int ch = 0; ch < nchunks; ++ch) add4(s, p[(long long)ch * 9 * C4]);
-  reinterpret_cast<float4*>(dk)[t] = s;
+  reinterpret_cast<typename V::raw*>(dk)[t] = V::narrow(s);
 }
 
-}  // namespace
-
-// Number of chunks, the partial buffer's second dimension, for a shape: the
-// wrapper allocates partial (B, chunks, 9, C) float32.
-extern "C" int dw_corr3x3_dk_chunks(int H, int W, int C) {
-  return n_chunks(H, W, C / 4);
-}
-
-// x: (B, H, W, C) with (H, W, C) contiguous and batch stride x_bstride
-// (elements, may be 0); dout: contiguous (B, H, W, C); partial: scratch
-// (B, chunks, 9, C); dk: contiguous (B, 3, 3, C). C % 4 == 0, pointers
-// 16-byte aligned, x_bstride a multiple of 4 (the wrapper checks). One
-// image, H * W * C, must fit an int; B at most 65535.
-// Returns cudaGetLastError() after the two launches.
-extern "C" int dw_corr3x3_dk_f32(const float* x, const float* dout, float* partial, float* dk,
-                                 int B, int H, int W, int C, long long x_bstride, void* stream) {
+template <class V>
+int launch(const void* x, const void* dout, float* partial, void* dk, int B, int H, int W, int C,
+           long long x_bstride, void* stream) {
+  using T = typename V::T;
   if (B == 0 || C == 0) return 0;
   if ((long long)H * W * C > 0x7fffffffLL || B > 65535) return (int)cudaErrorInvalidValue;
   const int C4 = C / 4;
   cudaStream_t s = (cudaStream_t)stream;
   if (H == 0 || W == 0) {
-    cudaMemsetAsync(dk, 0, (size_t)B * 9 * C * sizeof(float), s);
+    cudaMemsetAsync(dk, 0, (size_t)B * 9 * C * sizeof(T), s);
     return (int)cudaGetLastError();
   }
   const int tx = lanes_along_c(C4);
   const int nchunks = n_chunks(H, W, C4);
   const dim3 grid((unsigned)((C4 + tx - 1) / tx), (unsigned)nchunks, (unsigned)B);
-  dk_partial_kernel<<<grid, THREADS, 0, s>>>(x, dout, partial, H, W, C4, tx, (W + R - 1) / R,
-                                             nchunks, x_bstride);
+  dk_partial_kernel<V><<<grid, THREADS, 0, s>>>(static_cast<const T*>(x), static_cast<const T*>(dout),
+                                                partial, H, W, C4, tx, (W + R - 1) / R, nchunks,
+                                                x_bstride);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  dk_reduce_kernel<<<(unsigned)((B * 9 * C4 + THREADS - 1) / THREADS), THREADS, 0, s>>>(
-      partial, dk, B, C4, nchunks);
+  dk_reduce_kernel<V><<<(unsigned)((B * 9 * C4 + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+      partial, static_cast<T*>(dk), B, C4, nchunks);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Number of chunks, the partial buffer's second dimension, for a shape: the
+// wrapper allocates partial (B, chunks, 9, C) float32 (for either dtype).
+extern "C" int dw_corr3x3_dk_chunks(int H, int W, int C) {
+  return n_chunks(H, W, C / 4);
+}
+
+// x: (B, H, W, C) with (H, W, C) contiguous and batch stride x_bstride
+// (elements, may be 0); dout: contiguous (B, H, W, C); partial: float32
+// scratch (B, chunks, 9, C); dk: contiguous (B, 3, 3, C); x, dout and dk of
+// one dtype, float32 (_f32) or bf16 (_bf16). C % 4 == 0, pointers aligned to
+// one 4-channel vector (16 bytes in float32, 8 in bf16), x_bstride a
+// multiple of 4 (the wrapper checks). One image, H * W * C, must fit an int;
+// B at most 65535. Returns cudaGetLastError() after the two launches.
+extern "C" int dw_corr3x3_dk_f32(const float* x, const float* dout, float* partial, float* dk,
+                                 int B, int H, int W, int C, long long x_bstride, void* stream) {
+  return launch<F32>(x, dout, partial, dk, B, H, W, C, x_bstride, stream);
+}
+
+extern "C" int dw_corr3x3_dk_bf16(const void* x, const void* dout, float* partial, void* dk,
+                                  int B, int H, int W, int C, long long x_bstride, void* stream) {
+  return launch<BF16>(x, dout, partial, dk, B, H, W, C, x_bstride, stream);
 }

@@ -6,12 +6,26 @@ per-object template-feature cache that stays on the device. `detect_async`
 launches the whole serving path for one frame (CUDA launches return before
 the device finishes); `fetch_detections` copies the results to the host and
 builds the reference-schema dict. `train_step` / `train_step_u8` run one
-float32 finetune step (forward in train mode, `dtoid_losses`, backward, the
-optax-rule optimizer of core/optim.py); the bf16 step is not ported.
+finetune step (forward in train mode, `dtoid_losses`, backward, the
+optax-rule optimizer of core/optim.py).
+
+The JAX package's two bf16 switches, read the same way (`cfg.model.get(...,
+False)`):
+  * `bf16_finetune`: the mixed-precision step (JAX `train_step_mp`). The
+    network runs on bf16 casts of the float32 parameters (gradients flow
+    back through the casts into the float32 masters), on bf16 inputs, with
+    the running statistics updated in float32 by flax's bf16 rule
+    (models/batchnorm.py); the losses run on float32 upcasts of the outputs
+    and the optimizer in float32.
+  * `bf16_infer`: detection in bf16 on a cast of the weights that is kept
+    on the device and refreshed when `weights_version` changes (JAX
+    `_infer_vars`); template features are computed and cached in float32
+    from the float32 weights and cast for each detect.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any
 
 import numpy as np
@@ -37,6 +51,8 @@ class DtoidModel:
         self.nms_iou = float(m.nms_iou_thresh)
         self._pack_seg = str(m.get("seg_transfer", "packed")) == "packed"
 
+        self.bf16_finetune = bool(m.get("bf16_finetune", False))
+        self.bf16_infer = bool(m.get("bf16_infer", False))
         self.net = DtoidNetwork(self.img_size, tuple(m.get("densenet_blocks", (12, 24, 16))))
         self.net.reset_parameters(torch.Generator().manual_seed(seed))
         self.net.to(device=self.device, memory_format=torch.channels_last).eval()
@@ -47,6 +63,7 @@ class DtoidModel:
         self.template_feature_cache: dict[Any, tuple] = {}
         # bumped on every weight change
         self.weights_version = 0
+        self._bf16_cache = None  # (weights_version, bf16 copy of the network)
 
     # ------------------------------------------------------------- weights
     def state_dict(self) -> dict:
@@ -73,12 +90,20 @@ class DtoidModel:
         """One finetune step on a batch of float [0, 1] images: 'img'
         (B, H, W, 3), 'limg', 'lmask', 'gimg', 'gmask' (B, h, w, 3 | 1),
         'bbox_gt' (B, G, 5), 'heatmap' (B, fh, fw, 1), 'mask' (B, H, W, 1).
+        With `bf16_finetune` the forward and backward run in bf16 (module
+        doc); the parameters, statistics and optimizer state stay float32.
         Returns the loss terms as device scalars (no host sync)."""
         b = {k: t.to(torch.float32) for k, t in self._on_device(batch).items()}
         m = self.cfg.model
+        images = [b[k] for k in ("img", "limg", "lmask", "gimg", "gmask")]
         self.net.train()
         try:
-            out = self.net(b["img"], b["limg"], b["lmask"], b["gimg"], b["gmask"])
+            if self.bf16_finetune:
+                casts = {n: p.to(torch.bfloat16) for n, p in self.net.named_parameters()}
+                out = torch.func.functional_call(self.net, casts, tuple(t.to(torch.bfloat16) for t in images))
+                out = {k: v.float() for k, v in out.items()}
+            else:
+                out = self.net(*images)
             loss, metrics = dtoid_losses(out, b, self.anchors, lam_seg=m.lam_seg,
                                          lam_center=m.lam_center, lam_cls=m.lam_cls,
                                          lam_reg=m.lam_reg)
@@ -95,7 +120,8 @@ class DtoidModel:
         (B, H, W, 3) uint8, 'mask_bits' (B, H*W/8) uint8 of little-endian
         bit-packed mask, 'limg_u8' / 'gimg_u8' uint8 templates, 'lmask_u8' /
         'gmask_u8' 0/1 uint8, 'bbox_gt', 'heatmap'. u8 / 255 is what the host
-        path's process_data gives at native resolution."""
+        path's process_data gives at native resolution; the bf16 step casts
+        that float32 feed."""
         dev = self._on_device(batch)
         img_h, img_w = self.img_size
         img = dev["img_u8"].to(torch.float32) / 255.0
@@ -155,9 +181,29 @@ class DtoidModel:
         if hasattr(obj_id, "__len__"):
             obj_id = int(np.asarray(obj_id).reshape(-1)[0])
         local, glob = self.get_template_features(obj_id, batch["limg"], batch["lmask"])
-        return self.net.detect(img, local, glob, self.anchors,
-                               pre_nms_topk=self.pre_nms_topk, topk=topk,
-                               nms_iou=self.nms_iou, pack_seg=self._pack_seg)
+        dtype = torch.bfloat16 if self.bf16_infer else torch.float32
+        return self._infer_net().detect(img, local, glob, self.anchors,
+                                        pre_nms_topk=self.pre_nms_topk, topk=topk,
+                                        nms_iou=self.nms_iou, pack_seg=self._pack_seg,
+                                        compute_dtype=dtype)
+
+    def _infer_net(self) -> DtoidNetwork:
+        """The network in the inference dtype: the float32 network itself, or
+        with `bf16_infer` a bf16 copy on the device, recast from the float32
+        weights and statistics when `weights_version` has changed."""
+        if not self.bf16_infer:
+            return self.net
+        # plain tensors, not inference tensors: the copy is refreshed in place
+        with torch.inference_mode(False), torch.no_grad():
+            if self._bf16_cache is None:
+                net16 = copy.deepcopy(self.net).to(torch.bfloat16).eval().requires_grad_(False)
+                self._bf16_cache = (self.weights_version, net16)
+            elif self._bf16_cache[0] != self.weights_version:
+                net16 = self._bf16_cache[1]
+                for dst, src in zip(net16.state_dict().values(), self.net.state_dict().values()):
+                    dst.copy_(src)
+                self._bf16_cache = (self.weights_version, net16)
+        return self._bf16_cache[1]
 
     def fetch_detections(self, out_dev: dict, batch: dict | None = None,
                          fetched: dict | None = None) -> dict:

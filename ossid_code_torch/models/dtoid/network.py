@@ -330,20 +330,25 @@ class DtoidNetwork(nn.Module):
     def detect(self, image_u8: torch.Tensor, local_feats: torch.Tensor,
                global_feat: torch.Tensor, anchors: torch.Tensor,
                pre_nms_topk: int = 1000, topk: int = 500, nms_iou: float = 0.5,
-               pack_seg: bool = False) -> dict:
+               pack_seg: bool = False, compute_dtype: torch.dtype = torch.float32) -> dict:
         """The serving path for one frame: uint8 image in, detections out.
         Every template is correlated in one batch, top-k and NMS run on the
         device, and the full-resolution segmentation decoder runs only for
         the winning template.
 
         image_u8 (1, H, W, 3) uint8; local_feats (T, 7, 7, 640);
-        global_feat (1, 3, 3, 64); anchors (N, 4)."""
+        global_feat (1, 3, 3, 64); anchors (N, 4). compute_dtype bfloat16
+        runs the trunk and the heads in bf16 (the caller holds the network's
+        weights in bf16; the template features are cast here); scores and
+        box deltas are upcast to float32 before ranking and decoding, so
+        top-k, NMS and the boxes run in float32."""
         img_h, img_w = self.img_size
-        image = image_u8.to(torch.float32) / 255.0
-        xcors, heatmap, cls, reg = self._heads(imagenet_normalize(image), local_feats, global_feat)
+        image = image_u8.to(compute_dtype) / 255.0
+        xcors, heatmap, cls, reg = self._heads(imagenet_normalize(image), local_feats.to(compute_dtype),
+                                               global_feat.to(compute_dtype))
         t, n = cls.shape[0], cls.shape[1]
-        scores_all = cls[..., 1].reshape(-1)
-        boxes_all = clip_boxes(decode_boxes(anchors, reg), img_h, img_w).reshape(-1, 4)
+        scores_all = cls[..., 1].float().reshape(-1)
+        boxes_all = clip_boxes(decode_boxes(anchors, reg.float()), img_h, img_w).reshape(-1, 4)
 
         top_scores, top_idx = topk_stable(scores_all, min(pre_nms_topk, t * n))
         top_boxes = boxes_all[top_idx]
@@ -353,7 +358,7 @@ class DtoidNetwork(nn.Module):
 
         best = sel_tids[:1].long()  # stays on the device: no host sync
         seg_logits = self.correlation_model.decode_seg(xcors.index_select(0, best))
-        heat_best = heatmap.index_select(0, best)[0, 0]
+        heat_best = heatmap.index_select(0, best)[0, 0].float()
 
         out = {
             "pred_scores": sel_scores,

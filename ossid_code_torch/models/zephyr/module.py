@@ -12,11 +12,16 @@ cloud) is prepared once and kept on the device: grouping is rigid-invariant,
 so FPS and ball query never run per frame. With `refine_top > 0` the first
 `refine_top` hypotheses are refined by device ICP (ops/icp_device.py) against
 the depth before they are scored, and the refined rows replace them where
-they are valid. Training the scorer belongs to a later slice of the port.
+they are valid. With `bf16=True` (the JAX package's OSSID_BF16_SCORER) the
+network runs in bf16 on a cached bf16 copy of its weights: geometry, ICP,
+feature assembly and the alignment statistic stay float32, and the point
+features are cast to bf16 just before the network. Training the scorer
+belongs to a later slice of the port.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 
 import numpy as np
@@ -84,8 +89,11 @@ def _blur5(img: torch.Tensor) -> torch.Tensor:
 class ZephyrModel:
     def __init__(self, num_points: int = 512, inconst_ratio_th: float = 100.0, seed: int = 0,
                  need_uv: bool = True, refine_top: int = 0, rank_blend: float = 0.0, align_feats: bool = False,
-                 device: str | torch.device | None = None):
+                 bf16: bool = False, device: str | torch.device | None = None):
         self.device = resolve_device(device)
+        # the scorer network in bf16 (the JAX package's OSSID_BF16_SCORER)
+        self.bf16 = bool(bf16)
+        self._bf16_net = None  # bf16 copy of self.net, dropped when the weights load
         self.num_points = num_points
         self.inconst_ratio_th = inconst_ratio_th
         self.need_uv = need_uv
@@ -108,6 +116,18 @@ class ZephyrModel:
 
     def load_state_dict(self, sd: dict) -> None:
         self.net.load_state_dict(sd, strict=True)
+        self._bf16_net = None
+
+    def _score_net(self):
+        """The network in the scoring dtype: itself, or with `bf16` a bf16 copy
+        of its weights and statistics kept on the device until the weights
+        load anew (JAX `_score_vars`)."""
+        if not self.bf16:
+            return self.net
+        if self._bf16_net is None:
+            with torch.inference_mode(False), torch.no_grad():  # plain tensors, not inference tensors
+                self._bf16_net = copy.deepcopy(self.net).to(torch.bfloat16).eval().requires_grad_(False)
+        return self._bf16_net
 
     # --------------------------------------------------------- object prep
     def prepare_object(self, obj_id, points, colors, normals):
@@ -168,7 +188,9 @@ class ZephyrModel:
         aligned = okp * (torch.abs(point_x[..., 6]) < 0.01) * (point_x[..., 3] < 0.05)
         align_stat = aligned.sum(-1) / okp.sum(-1).clamp(min=1.0)
         static_idx = {"sa1": (sa1c, sa1g), "sa2": (sa2c, sa2g)}
-        raw = self.net(point_x, static_idx).to(torch.float32)
+        if self.bf16:
+            point_x = point_x.to(torch.bfloat16)
+        raw = self._score_net()(point_x, static_idx).to(torch.float32)
         neg_inf = torch.full_like(raw, float("-inf"))
         ok = valid & (inconst < self.inconst_ratio_th)
         return (torch.where(ok, raw, neg_inf), torch.where(valid, raw, neg_inf), uv, inconst,

@@ -9,6 +9,14 @@ centered camera-frame xyz (see features.py); output is one score each.
   SA3: global, MLP (256, 512, 1024), then FC 512 -> 256 -> num_class, plain
        torch.matmul (the JAX package leaves these to XLA)
 
+In bf16 (the network's weights cast to bf16 and bf16 points, as
+`ZephyrModel(bf16=True)` runs it) the forward follows the JAX package's
+`pointnet2_fused_apply`: the BatchNorm folds in float32 from the bf16
+weights and statistics and the folded matrices are cast to bf16; SA1 and SA2
+run kernel 2b; SA3 and the FC head sum bf16 products in float32, add the
+float32 bias, apply relu and round to bf16 (`dense_relu`); the last layer's
+logit stays float32.
+
 Grouping is static: FPS and ball query depend only on distances, which the
 rigid per-hypothesis transform preserves, so `ZephyrModel.prepare_object`
 computes the indices once per object. BatchNorm runs in its inference form,
@@ -20,8 +28,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ossid_code_torch.ops.sa_fused import fold_bn, sa_mlp_max
+from ossid_code_torch.ops.sa_fused import dense_relu, fold_bn, sa_mlp_max
 
 ALIGN_TAU_D = (0.005, 0.01, 0.015, 0.02)
 ALIGN_TAU_H = (0.05, 0.12, 0.5)
@@ -82,7 +91,7 @@ class SetAbstraction(nn.Module):
         group_idx (S, k)) -> (new_xyz (M, S, 3), new_feats (M, S, mlp[-1]))."""
         center_idx, group_idx = static_idx
         Ws, bs = self.mlps[0].folded()
-        new_feats = sa_mlp_max(xyz, feats, center_idx, group_idx, Ws, bs)
+        new_feats = sa_mlp_max(xyz, feats, center_idx, group_idx, [w.to(xyz.dtype) for w in Ws], bs)
         return xyz[:, center_idx.long()], new_feats
 
 
@@ -94,7 +103,7 @@ class GlobalAbstraction(nn.Module):
     def forward(self, xyz, feats):
         x = torch.cat([xyz, feats], dim=-1)
         for w, b in zip(*self.mlps[0].folded()):
-            x = torch.relu(torch.matmul(x, w) + b)
+            x = dense_relu(x, w, b)
         return x.amax(dim=1)
 
 
@@ -105,10 +114,10 @@ class _FC(nn.Module):
         self.bn = _BN(cout, nn.BatchNorm1d) if bn else None
 
     def forward(self, x):
-        if self.bn is None:
-            return self.fc(x)
+        if self.bn is None:  # the logit layer: float32 out, from bf16 operands in bf16
+            return F.linear(x.float(), self.fc.weight.float(), self.fc.bias.float())
         w, b = self.bn.fold(self.fc.weight.t())
-        return torch.relu(torch.matmul(x, w) + b)
+        return dense_relu(x, w, b)
 
 
 class PointNet2SSG(nn.Module):
@@ -136,5 +145,6 @@ class PointNet2SSG(nn.Module):
         xyz, feats = self.SA_modules[1](xyz, feats, static_idx["sa2"])
         x = self.FC_layer(self.SA_modules[2](xyz, feats))
         if self.align_head is not None:
-            x = x + self.align_head(alignment_fractions(point_x))
+            head = self.align_head
+            x = x + F.linear(alignment_fractions(point_x), head.weight.float(), head.bias.float())
         return x[..., 0] if self.num_class == 1 else x

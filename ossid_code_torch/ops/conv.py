@@ -9,6 +9,12 @@ hand-written kernel `csrc/dw_corr3x3.cu` and whose backward is that kernel
 again on the output gradient with the taps turned by 180 degrees (dx) and
 the reduction kernel `csrc/dw_corr3x3_bwd.cu` (dk). The wrappers raise on
 what their kernels do not take. There is no other switch and no fallback.
+
+Both operands are float32 or both bfloat16; each kernel has an instance of
+each (1 / 1b, 3 / 3b) and the wrappers choose it by dtype, a mix raises. In
+bf16 every function accumulates in float32 and rounds once to bf16, as the
+JAX package's bf16 grouped convolution does. Each wrapper counts its
+launches per dtype: `.launches` (float32) and `.launches_bf16`.
 """
 
 from __future__ import annotations
@@ -21,10 +27,24 @@ import torch.nn.functional as F
 from ossid_code_torch.kernels.build import check, library, stream_ptr
 
 
+def _dtype_of(x: torch.Tensor, other: torch.Tensor, what: str,
+              dtypes: tuple = (torch.float32, torch.bfloat16)) -> torch.dtype:
+    """The operands' common dtype; a mix, or a dtype outside `dtypes`, raises."""
+    if x.dtype != other.dtype or x.dtype not in dtypes:
+        raise TypeError(f"{what} takes two tensors of one dtype of {dtypes}, got {x.dtype} and {other.dtype}")
+    return x.dtype
+
+
+_PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+
+
 def depthwise_corr_plain(x: torch.Tensor, kernel: torch.Tensor, padding: int = 0) -> torch.Tensor:
     """x (B, H, W, C); kernel (B, kh, kw, C): each batch element correlated with
     its own kernel, channel by channel. The reference's reshape trick: the
-    batch folds into the channels and one grouped conv runs B*C groups."""
+    batch folds into the channels and one grouped conv runs B*C groups.
+    bf16 operands: the float32 result rounded once to bf16."""
+    if _dtype_of(x, kernel, "depthwise_corr_plain", _PLAIN_DTYPES) == torch.bfloat16:
+        return depthwise_corr_plain(x.float(), kernel.float(), padding).to(torch.bfloat16)
     b, h, w, c = x.shape
     kh, kw = kernel.shape[1], kernel.shape[2]
     # contiguous first: a stride-0 (broadcast) batch is materialised
@@ -36,7 +56,10 @@ def depthwise_corr_plain(x: torch.Tensor, kernel: torch.Tensor, padding: int = 0
 
 def dw_corr3x3_dk_plain(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel 3: dk[b, i, j, c] = sum over (y, x) of
-    xpad[b, y + i, x + j, c] * dout[b, y, x, c], nine shifted products."""
+    xpad[b, y + i, x + j, c] * dout[b, y, x, c], nine shifted products
+    (bf16 operands: the float32 sums rounded once to bf16)."""
+    if _dtype_of(x, dout, "dw_corr3x3_dk_plain", _PLAIN_DTYPES) == torch.bfloat16:
+        return dw_corr3x3_dk_plain(x.float(), dout.float()).to(torch.bfloat16)
     _, h, w, _ = dout.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     taps = [(xp[:, i:i + h, j:j + w] * dout).sum((1, 2)) for i in range(3) for j in range(3)]
@@ -52,35 +75,51 @@ def _inner_contiguous(t: torch.Tensor) -> bool:
     return t.stride(3) == 1 and (w == 1 or t.stride(2) == c) and (h == 1 or t.stride(1) == w * c)
 
 
-_SIGNATURES = {"dw_corr3x3_f32": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                                  + [ctypes.c_longlong] * 2 + [ctypes.c_void_p], ctypes.c_int)}
+_FWD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+             ctypes.c_int)
+_SIGNATURES = {"dw_corr3x3_f32": _FWD_ARGS, "dw_corr3x3_bf16": _FWD_ARGS}
+_DK_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int)
 _BWD_SIGNATURES = {
     "dw_corr3x3_dk_chunks": ([ctypes.c_int] * 3, ctypes.c_int),
-    "dw_corr3x3_dk_f32": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                          + [ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int),
+    "dw_corr3x3_dk_f32": _DK_ARGS,
+    "dw_corr3x3_dk_bf16": _DK_ARGS,
 }
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _check_operands(what: str, x: torch.Tensor, other: torch.Tensor, other_shape: tuple) -> None:
+def _check_operands(what: str, x: torch.Tensor, other: torch.Tensor, other_shape: tuple,
+                    bf16_vector: int) -> torch.dtype:
+    """Raise on what the kernels do not take; returns the common dtype. A
+    thread reads one vector of channels: 4 float32 (16 bytes), or
+    `bf16_vector` bf16 (8 for kernel 1b, 4 for kernel 3b)."""
+    dtype = _dtype_of(x, other, what)
     if not (x.is_cuda and other.is_cuda and x.device == other.device):
         raise ValueError(f"{what} needs both tensors on one CUDA device")
-    if x.dtype != torch.float32 or other.dtype != torch.float32:
-        raise TypeError(f"{what} takes float32")
     if other.shape != other_shape:
         raise ValueError(f"{what}: shape {tuple(other.shape)} does not fit x {tuple(x.shape)}")
-    if x.shape[3] % 4:
-        raise ValueError(f"{what} needs C % 4 == 0, got C={x.shape[3]}")
+    vec = 4 if dtype == torch.float32 else bf16_vector
+    if x.shape[3] % vec:
+        raise ValueError(f"{what} needs C % {vec} == 0 in {dtype}, got C={x.shape[3]}")
     if not (_inner_contiguous(x) and _inner_contiguous(other)):
         raise ValueError(f"{what} needs (H, W, C) contiguous in both tensors")
-    if x.data_ptr() % 16 or other.data_ptr() % 16 or _batch_stride(x) % 4 or _batch_stride(other) % 4:
-        raise ValueError(f"{what} needs 16-byte aligned rows")
+    align = vec * x.element_size()
+    if x.data_ptr() % align or other.data_ptr() % align or _batch_stride(x) % vec or _batch_stride(other) % vec:
+        raise ValueError(f"{what} needs {align}-byte aligned rows")
+    return dtype
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str) -> torch.Tensor:
     b, h, w, c = x.shape
-    _check_operands(what, x, kernel, (b, 3, 3, c))
-    out = torch.empty((b, h, w, c), device=x.device, dtype=torch.float32)
-    err = library("dw_corr3x3", _SIGNATURES).dw_corr3x3_f32(
+    dtype = _check_operands(what, x, kernel, (b, 3, 3, c), 8)
+    out = torch.empty((b, h, w, c), device=x.device, dtype=dtype)
+    err = getattr(library("dw_corr3x3", _SIGNATURES), f"dw_corr3x3_{_SUFFIX[dtype]}")(
         x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, c,
         _batch_stride(x), _batch_stride(kernel), stream_ptr(x.device))
     check(err, what)
@@ -88,56 +127,60 @@ def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str) -> torc
 
 
 def dw_corr3x3_cuda(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Kernel 1: 3x3 / padding-1 depthwise correlation on the card.
+    """Kernel 1 (float32) or 1b (bf16): 3x3 / padding-1 depthwise
+    correlation on the card.
 
     x (B, H, W, C) with (H, W, C) contiguous and any batch stride (0 for a
-    broadcast); kernel (B, 3, 3, C) likewise. Returns a contiguous
-    (B, H, W, C) float32 tensor. Raises on what the kernel does not take.
-    It records no gradient: `depthwise_corr` is the differentiable entry."""
+    broadcast); kernel (B, 3, 3, C) likewise, of x's dtype (C % 8 == 0 in
+    bf16). Returns a contiguous (B, H, W, C) tensor of that dtype. Raises on
+    what the kernel does not take. It records no gradient: `depthwise_corr`
+    is the differentiable entry."""
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
         raise RuntimeError("dw_corr3x3_cuda records no gradient; call depthwise_corr")
     out = _launch_dw_corr3x3(x, kernel, "dw_corr3x3_cuda")
-    dw_corr3x3_cuda.launches += 1
+    _count(dw_corr3x3_cuda, out.dtype)
     return out
 
 
 def dw_corr3x3_dx_cuda(dout: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """dx of kernel 1: kernel 1 on dout (B, H, W, C), contiguous, with the
-    taps of kernel (B, 3, 3, C) turned by 180 degrees."""
+    """dx of kernel 1 (1b): kernel 1 (1b) on dout (B, H, W, C), contiguous,
+    with the taps of kernel (B, 3, 3, C) turned by 180 degrees."""
     flipped = kernel.flip(1, 2).contiguous()
     out = _launch_dw_corr3x3(dout, flipped, "dw_corr3x3_dx_cuda")
-    dw_corr3x3_dx_cuda.launches += 1
+    _count(dw_corr3x3_dx_cuda, out.dtype)
     return out
 
 
 def dw_corr3x3_dk_cuda(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """Kernel 3: dk (B, 3, 3, C) of kernel 1, the sum over H * W of the padded
-    x window times dout, in a fixed order (bitwise repeatable). x as kernel 1
+    """Kernel 3 (float32) or 3b (bf16): dk (B, 3, 3, C) of kernel 1, the sum
+    over H * W of the padded x window times dout, in float32 in a fixed
+    order (bitwise repeatable), stored in the operands' dtype. x as kernel 1
     takes it (any batch stride); dout contiguous (B, H, W, C). The gradient
     is per sample even where k was broadcast: autograd's expand sums it."""
     b, h, w, c = x.shape
     if not dout.is_contiguous():
         raise ValueError("dw_corr3x3_dk_cuda needs a contiguous dout")
-    _check_operands("dw_corr3x3_dk_cuda", x, dout, (b, h, w, c))
+    dtype = _check_operands("dw_corr3x3_dk_cuda", x, dout, (b, h, w, c), 4)
     lib = library("dw_corr3x3_bwd", _BWD_SIGNATURES)
     partial = torch.empty((b, lib.dw_corr3x3_dk_chunks(h, w, c), 9, c), device=x.device,
                           dtype=torch.float32)
-    dk = torch.empty((b, 3, 3, c), device=x.device, dtype=torch.float32)
-    err = lib.dw_corr3x3_dk_f32(x.data_ptr(), dout.data_ptr(), partial.data_ptr(), dk.data_ptr(),
-                                b, h, w, c, _batch_stride(x), stream_ptr(x.device))
-    check(err, "dw_corr3x3_dk_f32")
-    dw_corr3x3_dk_cuda.launches += 1
+    dk = torch.empty((b, 3, 3, c), device=x.device, dtype=dtype)
+    name = f"dw_corr3x3_dk_{_SUFFIX[dtype]}"
+    err = getattr(lib, name)(x.data_ptr(), dout.data_ptr(), partial.data_ptr(), dk.data_ptr(),
+                             b, h, w, c, _batch_stride(x), stream_ptr(x.device))
+    check(err, name)
+    _count(dw_corr3x3_dk_cuda, dtype)
     return dk
 
 
-dw_corr3x3_cuda.launches = 0
-dw_corr3x3_dx_cuda.launches = 0
-dw_corr3x3_dk_cuda.launches = 0
+for _fn in (dw_corr3x3_cuda, dw_corr3x3_dx_cuda, dw_corr3x3_dk_cuda):
+    _fn.launches = _fn.launches_bf16 = 0
 
 
 class DwCorr3x3(torch.autograd.Function):
     """3x3 / padding-1 depthwise correlation on the card with its gradient:
-    forward kernel 1; backward kernel 1 on dout for dx, kernel 3 for dk."""
+    forward kernel 1; backward kernel 1 on dout for dx, kernel 3 for dk (in
+    bf16: 1b and 3b)."""
 
     @staticmethod
     def forward(ctx, x, kernel):

@@ -7,11 +7,18 @@ BatchNorm folded in (`relu(x W_i + b_i)`), and take the max over the k
 members: (M hypotheses, S centres) groups -> (M, S, C_out).
 
 `sa_mlp_max` dispatches by tensor device: a CPU tensor takes the plain
-version (gather, three matmuls, max), a CUDA tensor the hand-written kernel
-`csrc/sa_mlp_max.cu` (or the wrapper raises), which gathers inside the
-kernel, never writes the (M, S, k, Cin) grouped tensor to memory, and runs
-the three layers on the tensor cores in 3xTF32 from weights that
-`pack_sa_weights` splits and lays out.
+version (gather, three matmuls, max), a CUDA tensor a hand-written kernel
+(or the wrapper raises), which gathers inside the kernel and never writes
+the (M, S, k, Cin) grouped tensor to memory. The wrapper chooses the
+kernel by dtype:
+  * float32: `csrc/sa_mlp_max.cu` (kernel 2) runs the three layers on the
+    tensor cores in 3xTF32 from weights that `pack_sa_weights` splits and
+    lays out;
+  * bfloat16 points, features and weights with float32 biases (the JAX
+    package's bf16 scorer): `csrc/sa_mlp_max_bf16.cu` (kernel 2b), one
+    bf16 `wgmma` pass from weights that `pack_sa_weights_bf16` lays out.
+    As in JAX, each layer sums in float32, adds the float32 bias, applies
+    relu and rounds to bf16; the xyz offsets are bf16 differences.
 """
 
 from __future__ import annotations
@@ -44,11 +51,33 @@ def _grouped(xyz, feats, center_idx, group_idx):
     return torch.cat([rel, feats[:, gidx]], dim=-1)  # (M, S, k, 3 + Cf)
 
 
+def dense_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """relu(x W + b). In bf16 (JAX's bf16 dense chain, `preferred_element_type`
+    float32): x and W rounded to bf16, their product summed in float32, the
+    float32 bias added, relu, then one round to bf16."""
+    if x.dtype == torch.bfloat16:
+        return torch.relu(torch.matmul(x.float(), w.to(torch.bfloat16).float()) + b).to(torch.bfloat16)
+    return torch.relu(torch.matmul(x, w) + b)
+
+
+def _check_dtypes(what: str, xyz, feats, Ws, bs) -> torch.dtype:
+    """float32 points, features, weights and biases, or bf16 points, features
+    and weights with float32 biases; anything else raises (no quiet cast)."""
+    dtype = xyz.dtype
+    if dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != dtype for t in (feats, *Ws)) \
+            or any(b.dtype != torch.float32 for b in bs):
+        raise TypeError(f"{what} takes float32 points, features, weights and biases, or bf16 points, "
+                        f"features and weights with float32 biases")
+    return dtype
+
+
 def sa_mlp_max_plain(xyz, feats, center_idx, group_idx, Ws, bs) -> torch.Tensor:
-    """Plain version: materialise the grouped tensor, three layers, max over k."""
+    """Plain version: materialise the grouped tensor, three layers, max over k
+    (float32, or bf16 by dense_relu's rule: JAX's _mlp_max_ref)."""
+    _check_dtypes("sa_mlp_max_plain", xyz, feats, Ws, bs)
     x = _grouped(xyz, feats, center_idx, group_idx)
     for w, b in zip(Ws, bs):
-        x = torch.relu(torch.matmul(x, w) + b)
+        x = dense_relu(x, w, b)
     return x.amax(dim=2)
 
 
@@ -141,23 +170,59 @@ def pack_sa_weights(Ws, cf: int, k1: int, ks: int) -> torch.Tensor:
     return torch.where(is_lo, tf32_round(v - hi), hi)
 
 
-def sa_mlp_max_cuda(xyz, feats, center_idx, group_idx, Ws, bs) -> torch.Tensor:
-    """Kernel 2: one SA stage on the card, 3xTF32 on the tensor cores.
+SA_LAYOUT_BF16 = {(64, 64, 128): 16, (128, 128, 256): 144}  # K1 of kernel 2b's instances
 
-    xyz (M, N, 3) and feats (M, N, Cf) float32, any row and hypothesis strides
-    with unit channel stride (views into one point tensor are fine);
+
+def _pack_index_bf16(widths, cf: int, k1: int, device) -> torch.Tensor:
+    """Packed position -> index into cat(W1, W2, W3 flattened, [0]) (the last
+    entry for padding). Layer by layer, W_i^T (C_i rows, K_i = k1, C1, C2
+    deep) in wgmma core matrices of 8 rows x 8 k (128 contiguous bytes),
+    K-adjacent core matrices 128 B apart, N-adjacent ones K_i / 8 * 128 B.
+    Layer 1's K order is the kernel's input row [feats (cf), xyz (3), 0 ...];
+    layers 2 and 3 keep their natural K order."""
+    key = ("bf16", tuple(widths), cf, k1, str(device))
+    if key not in _PACK_INDEX:
+        cins = (3 + cf,) + tuple(widths[:2])
+        base = np.cumsum([0] + [cin * c for cin, c in zip(cins, widths)])
+        src = []
+        for layer, (rows, kc) in enumerate(zip(widths, (k1,) + tuple(widths[:2]))):
+            ng, kg, r8, c8 = np.meshgrid(np.arange(rows // 8), np.arange(kc // 8), np.arange(8),
+                                         np.arange(8), indexing="ij")
+            n, k = (8 * ng + r8).ravel(), (8 * kg + c8).ravel()
+            wrow = _w_row(0, k, cf) if layer == 0 else k
+            src.append(np.where(wrow >= 0, base[layer] + wrow * widths[layer] + n, base[-1]))
+        _PACK_INDEX[key] = torch.from_numpy(np.concatenate(src)).to(device)
+    return _PACK_INDEX[key]
+
+
+def pack_sa_weights_bf16(Ws, cf: int, k1: int) -> torch.Tensor:
+    """The folded bf16 weights W_i (Cin_i, C_i) of one SA stage as kernel 2b
+    reads them: W^T, layer 1 padded with exact zeros to depth k1, in wgmma
+    core matrices (see _pack_index_bf16). One flat bf16 tensor on the
+    weights' device."""
+    widths = tuple(w.shape[1] for w in Ws)
+    src = _pack_index_bf16(widths, cf, k1, Ws[0].device)
+    return torch.cat([w.reshape(-1) for w in Ws] + [Ws[0].new_zeros(1)])[src]
+
+
+def sa_mlp_max_cuda(xyz, feats, center_idx, group_idx, Ws, bs) -> torch.Tensor:
+    """Kernel 2 (float32, 3xTF32 on the tensor cores) or kernel 2b (bf16, one
+    bf16 pass on the tensor cores): one SA stage on the card.
+
+    xyz (M, N, 3) and feats (M, N, Cf), any row and hypothesis strides with
+    unit channel stride (views into one point tensor are fine);
     center_idx (S,), group_idx (S, k) integer indices into N, k <= 64;
     Ws 3 x (Cin_i, C_i), bs 3 x (C_i,) with widths (64, 64, 128) (Cf <= 13)
-    or (128, 128, 256) (Cf <= 133). Returns a contiguous (M, S, C3) float32
-    tensor."""
+    or (128, 128, 256) (Cf <= 133). Either everything float32, or xyz, feats
+    and Ws bf16 with float32 bs. Returns a contiguous (M, S, C3) tensor of
+    xyz's dtype."""
+    dtype = _check_dtypes("sa_mlp_max_cuda", xyz, feats, Ws, bs)
     dev = xyz.device
     tensors = (xyz, feats, center_idx, group_idx, *Ws, *bs)
     if not all(t.is_cuda and t.device == dev for t in tensors):
         raise ValueError("sa_mlp_max_cuda needs every tensor on one CUDA device")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError("sa_mlp_max_cuda has no backward; run under torch.inference_mode()")
-    if any(t.dtype != torch.float32 for t in (xyz, feats, *Ws, *bs)):
-        raise TypeError("sa_mlp_max_cuda takes float32 points and weights")
     _check_rows("xyz", xyz)
     _check_rows("feats", feats)
     m, n, d = xyz.shape
@@ -168,45 +233,61 @@ def sa_mlp_max_cuda(xyz, feats, center_idx, group_idx, Ws, bs) -> torch.Tensor:
     if center_idx.shape != (s,) or not 1 <= k <= _MAX_GROUP:
         raise ValueError(f"center_idx {tuple(center_idx.shape)} / group_idx {tuple(group_idx.shape)}")
     widths = tuple(w.shape[1] for w in Ws)
-    layout = SA_LAYOUT.get(widths)
-    if layout is None or 3 + cf > layout[0]:
-        raise ValueError(f"sa_mlp_max_cuda has no instance for widths {widths} with {cf} features")
-    if _layout(_lib(), widths) != layout:
-        raise RuntimeError(f"csrc/sa_mlp_max.cu lays out (K1, KS) = {_layout(_lib(), widths)} for "
-                           f"widths {widths}, SA_LAYOUT says {layout}")
+    bf16 = dtype == torch.bfloat16
+    layout = (SA_LAYOUT_BF16 if bf16 else SA_LAYOUT).get(widths)
+    if layout is None or 3 + cf > (layout if bf16 else layout[0]):
+        raise ValueError(f"sa_mlp_max_cuda has no {dtype} instance for widths {widths} with {cf} features")
+    lib = _lib_bf16() if bf16 else _lib()
+    have = _layout_bf16(lib, widths) if bf16 else _layout(lib, widths)
+    if have != layout:
+        raise RuntimeError(f"the {dtype} kernel lays out {have} for widths {widths}, "
+                           f"SA_LAYOUT{'_BF16' if bf16 else ''} says {layout}")
     cins = (3 + cf,) + widths[:2]
     for w, b, cin, cout in zip(Ws, bs, cins, widths):
         if w.shape != (cin, cout) or b.shape != (cout,):
             raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} != ({cin}, {cout})")
-    packed = pack_sa_weights(Ws, cf, *layout)
+    packed = pack_sa_weights_bf16(Ws, cf, layout) if bf16 else pack_sa_weights(Ws, cf, *layout)
     bs = [b.contiguous() for b in bs]
     if any(b.data_ptr() % 16 for b in bs):
         raise ValueError("sa_mlp_max_cuda needs 16-byte aligned biases")
     cidx = center_idx.to(torch.int32).contiguous()
     gidx = group_idx.to(torch.int32).contiguous()
-    out = torch.empty((m, s, widths[2]), device=dev, dtype=torch.float32)
-    vec4 = int(feats.data_ptr() % 16 == 0 and all(v % 4 == 0 for v in (feats.stride(0), feats.stride(1), cf)))
-    err = _lib().sa_mlp_max_tf32(
+    out = torch.empty((m, s, widths[2]), device=dev, dtype=dtype)
+    vec = 8 if bf16 else 4  # channels in 16 bytes
+    aligned = int(feats.data_ptr() % 16 == 0 and all(v % vec == 0 for v in (feats.stride(0), feats.stride(1), cf)))
+    name = "sa_mlp_max_bf16" if bf16 else "sa_mlp_max_tf32"
+    err = getattr(lib, name)(
         xyz.data_ptr(), xyz.stride(0), xyz.stride(1),
-        feats.data_ptr(), feats.stride(0), feats.stride(1), cf, vec4,
+        feats.data_ptr(), feats.stride(0), feats.stride(1), cf, aligned,
         cidx.data_ptr(), gidx.data_ptr(), m, s, k, *widths, packed.data_ptr(),
         bs[0].data_ptr(), bs[1].data_ptr(), bs[2].data_ptr(), out.data_ptr(), stream_ptr(dev))
-    check(err, "sa_mlp_max_tf32")
-    sa_mlp_max_cuda.launches += 1
+    check(err, name)
+    if bf16:
+        sa_mlp_max_cuda.launches_bf16 += 1
+    else:
+        sa_mlp_max_cuda.launches += 1
     return out
 
 
-sa_mlp_max_cuda.launches = 0
+sa_mlp_max_cuda.launches = 0       # kernel 2, float32
+sa_mlp_max_cuda.launches_bf16 = 0  # kernel 2b
 
 
 _vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_SIGNATURES = {"sa_mlp_max_tf32": ([_vp, _ll, _ll, _vp, _ll, _ll, _ci, _ci, _vp, _vp, _ci, _ci, _ci,
-                                    _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp], _ci),
+_LAUNCH_ARGS = ([_vp, _ll, _ll, _vp, _ll, _ll, _ci, _ci, _vp, _vp, _ci, _ci, _ci,
+                 _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp], _ci)
+_SIGNATURES = {"sa_mlp_max_tf32": _LAUNCH_ARGS,
                "sa_mlp_max_layout": ([_ci, _ci, _ci, ctypes.POINTER(_ci), ctypes.POINTER(_ci)], _ci)}
+_SIGNATURES_BF16 = {"sa_mlp_max_bf16": _LAUNCH_ARGS,
+                    "sa_mlp_max_bf16_layout": ([_ci, _ci, _ci, ctypes.POINTER(_ci)], _ci)}
 
 
 def _lib() -> ctypes.CDLL:
     return library("sa_mlp_max", _SIGNATURES)
+
+
+def _lib_bf16() -> ctypes.CDLL:
+    return library("sa_mlp_max_bf16", _SIGNATURES_BF16)
 
 
 @functools.cache
@@ -217,6 +298,15 @@ def _layout(lib: ctypes.CDLL, widths: tuple[int, int, int]) -> tuple[int, int] |
     if lib.sa_mlp_max_layout(*widths, ctypes.byref(k1), ctypes.byref(ks)) != 0:
         return None
     return k1.value, ks.value
+
+
+@functools.cache
+def _layout_bf16(lib: ctypes.CDLL, widths: tuple[int, int, int]) -> int | None:
+    """K1 of kernel 2b's instance for `widths`, None if it has none."""
+    k1 = _ci()
+    if lib.sa_mlp_max_bf16_layout(*widths, ctypes.byref(k1)) != 0:
+        return None
+    return k1.value
 
 
 def sa_mlp_max(xyz, feats, center_idx, group_idx, Ws, bs) -> torch.Tensor:

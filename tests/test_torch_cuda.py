@@ -16,6 +16,10 @@ from ossid_code_torch.ops import conv as tconv
 from ossid_code_torch.ops import sa_fused as tsa
 
 torch.set_num_threads(2)
+# The largest relative size of one bf16 rounding step (8 significant bits): a
+# bf16 kernel and its plain version sum in float32 in other orders, so a sum
+# near a rounding midpoint may round to either neighbour.
+BF16_STEP = 2.0 ** -7
 
 
 def _sa_inputs(rng, m, n, cf, s, k):
@@ -47,6 +51,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                             [torch.zeros(64), torch.zeros(64), torch.zeros(128)])
 
 
+def test_dtype_mix_raises():
+    """Both dw-corr operands share one dtype, float32 or bf16; the SA stage
+    takes float32 throughout, or bf16 points, features and weights with
+    float32 biases. A mix raises before any device check, on the CPU path
+    too: there is no quiet cast."""
+    f32, bf = torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16)
+    k32, kbf = torch.zeros(1, 3, 3, 8), torch.zeros(1, 3, 3, 8, dtype=torch.bfloat16)
+    for call in (lambda: tconv.dw_corr3x3_cuda(f32, kbf), lambda: tconv.dw_corr3x3_cuda(bf, k32),
+                 lambda: tconv.dw_corr3x3_dk_cuda(bf, f32), lambda: tconv.depthwise_corr(f32, kbf, 1),
+                 lambda: tconv.dw_corr3x3_dk_plain(bf, f32), lambda: tconv.dw_corr3x3_cuda(f32.double(), k32.double())):
+        with pytest.raises(TypeError):
+            call()
+    dims = (11, 64, 64, 128)
+    Ws = [torch.zeros(dims[i], dims[i + 1]) for i in range(3)]
+    bs = [torch.zeros(dims[i + 1]) for i in range(3)]
+    idx = (torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4, dtype=torch.int32))
+    p16 = torch.zeros(1, 8, 11, dtype=torch.bfloat16)
+    for fn in (tsa.sa_mlp_max_cuda, tsa.sa_mlp_max):
+        with pytest.raises(TypeError):  # bf16 points, float32 weights
+            fn(p16[..., :3], p16[..., 3:], *idx, Ws, bs)
+        with pytest.raises(TypeError):  # bf16 biases
+            fn(p16[..., :3], p16[..., 3:], *idx, [w.bfloat16() for w in Ws], [b.bfloat16() for b in bs])
+
+
 @pytest.mark.cuda
 def test_sa_layout_is_the_kernels(cuda):
     """The packed layout that the wrapper and the CPU tests use is the one
@@ -55,6 +83,10 @@ def test_sa_layout_is_the_kernels(cuda):
     for widths, layout in tsa.SA_LAYOUT.items():
         assert tsa._layout(lib, widths) == layout
     assert tsa._layout(lib, (32, 32, 64)) is None
+    lib16 = tsa._lib_bf16()
+    for widths, k1 in tsa.SA_LAYOUT_BF16.items():
+        assert tsa._layout_bf16(lib16, widths) == k1
+    assert tsa._layout_bf16(lib16, (32, 32, 64)) is None
 
 
 @pytest.mark.cuda
@@ -205,3 +237,174 @@ def test_serving_path_launches_the_kernels(cuda):
     assert tsa.sa_mlp_max_cuda.launches - before == 2
     np.testing.assert_allclose(got["scores"], zc.score_hypotheses(data, obj_id=1)["scores"],
                                rtol=1e-4, atol=1e-4)
+
+
+def _bf16_agree(got, want, share=0.01, steps=2.0, floor=0.0):
+    """bf16 results against their plain version: every element within
+    `steps` bf16 steps of the largest magnitude (plus `floor` of it), and at
+    most `share` of the elements more than one step of their own magnitude
+    apart."""
+    g, w = got.float(), want.float()
+    err, scale = (g - w).abs(), float(w.abs().max())
+    assert float(err.max()) <= (steps * BF16_STEP + floor) * scale, float(err.max()) / scale
+    assert float((err > BF16_STEP * w.abs() + floor * scale).float().mean()) <= share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,x_broadcast,k_broadcast", [
+    ((10, 29, 39, 640), True, False),   # correlation head: x broadcast over T
+    ((1, 240, 320, 64), False, False),  # image-encoder stem
+    ((4, 6, 322, 64), False, True),     # W = 322, k broadcast
+    ((3, 5, 7, 16), False, False),      # W = 7, not a multiple of the run length 4
+    ((3, 4, 1, 8), True, True),         # W = 1, C = 8 (one vector)
+])
+def test_dw_corr3x3_bf16_matches_plain(cuda, shape, x_broadcast, k_broadcast):
+    """Kernel 1b against the plain bf16 version (the float32 sums rounded
+    once), at one bf16 step (BF16_STEP)."""
+    b, h, w, c = shape
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn(1 if x_broadcast else b, h, w, c, device="cuda", generator=g).bfloat16().expand(b, h, w, c)
+    k = torch.randn(1 if k_broadcast else b, 3, 3, c, device="cuda", generator=g).bfloat16().expand(b, 3, 3, c)
+    before = tconv.dw_corr3x3_cuda.launches_bf16
+    with torch.inference_mode():
+        got = tconv.dw_corr3x3_cuda(x, k)
+        want = tconv.depthwise_corr_plain(x, k, 1)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tconv.dw_corr3x3_cuda.launches_bf16 == before + 1
+    _bf16_agree(got, want, steps=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,x_broadcast,k_broadcast", [
+    ((8, 29, 39, 640), False, False),    # finetune: correlation head
+    ((8, 240, 320, 64), False, False),   # finetune: image-encoder stem
+    ((1, 5, 7, 8), False, False),        # B = 1, C = 8
+    ((3, 6, 13, 16), False, True),       # W = 13; k broadcast
+    ((4, 6, 39, 64), True, False),       # x broadcast
+])
+def test_dw_corr3x3_bf16_backward_matches_plain(cuda, shape, x_broadcast, k_broadcast):
+    """depthwise_corr's bf16 gradients on the card (kernel 1b for dx,
+    kernel 3b for dk) against the plain version's autograd (float32 sums
+    rounded once): within one bf16 step, dk's H*W-term sums also within
+    1e-4 of its largest magnitude for their float32 order."""
+    b, h, w, c = shape
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(1 if x_broadcast else b, h, w, c, device="cuda", generator=g).bfloat16()
+    k = torch.randn(1 if k_broadcast else b, 3, 3, c, device="cuda", generator=g).bfloat16()
+    dout = torch.randn(b, h, w, c, device="cuda", generator=g).bfloat16()
+    xg, kg = x.clone().requires_grad_(True), k.clone().requires_grad_(True)
+    before = (tconv.dw_corr3x3_dx_cuda.launches_bf16, tconv.dw_corr3x3_dk_cuda.launches_bf16)
+    out = tconv.depthwise_corr(xg.expand(b, h, w, c), kg.expand(b, 3, 3, c), 1)
+    dx, dk = torch.autograd.grad(out, (xg, kg), dout)
+    after = (tconv.dw_corr3x3_dx_cuda.launches_bf16, tconv.dw_corr3x3_dk_cuda.launches_bf16)
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    want_dx, want_dk = _dw_plain_grads(x, k, dout)
+    torch.cuda.synchronize()
+    assert dx.dtype == dk.dtype == torch.bfloat16
+    if not x_broadcast:  # a broadcast x's gradient is autograd's bf16 sum over B
+        _bf16_agree(dx, want_dx, steps=1.0)
+    if not k_broadcast:
+        _bf16_agree(dk, want_dk, steps=1.0, floor=1e-4)
+
+
+@pytest.mark.cuda
+def test_dw_corr3x3_dk_bf16_is_bitwise_repeatable(cuda):
+    """Kernel 3b keeps kernel 3's fixed reduction order."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(8, 240, 320, 64, device="cuda", generator=g).bfloat16()
+    dout = torch.randn(8, 240, 320, 64, device="cuda", generator=g).bfloat16()
+    first = tconv.dw_corr3x3_dk_cuda(x, dout)
+    for _ in range(3):
+        assert torch.equal(tconv.dw_corr3x3_dk_cuda(x, dout), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,cf,m,n,s,k,w3,b3", [
+    ((64, 64, 128), 8, 3, 200, 37, 64, 0.0, 0.0),          # 111 groups: a partial last tile
+    ((128, 128, 256), 128, 3, 200, 37, 64, 0.0, 0.0),
+    ((64, 64, 128), 8, 3, 200, 37, 13, 0.0, 0.0),          # k = 13: padding rows
+    ((64, 64, 128), 8, 128, 512, 512, 64, 0.0, 0.0),       # SA1 at the scorer's size
+    ((128, 128, 256), 128, 128, 512, 128, 64, 0.0, 0.0),   # SA2 at the scorer's size
+    ((128, 128, 256), 128, 256, 512, 128, 64, 0.0, 0.0),   # SA2 at the gating bucket M = 256
+    ((64, 64, 128), 8, 3, 200, 37, 13, -0.1, 0.3),         # layer 3 mostly negative
+    ((128, 128, 256), 128, 5, 301, 301, 29, -0.05, 0.3),
+    ((64, 64, 128), 8, 1, 1, 1, 1, 0.0, 0.0),              # one group of one row
+])
+def test_sa_mlp_max_bf16_matches_plain(cuda, widths, cf, m, n, s, k, w3, b3):
+    """Kernel 2b (one bf16 pass of wgmma) against the plain bf16 version
+    (float32 sums, float32 bias, relu, a round to bf16 per layer): a
+    layer's float32 sum in another order may round to the other bf16
+    neighbour and move the next layers by a step; two steps of the largest
+    magnitude, 1% of the elements beyond one step of their own."""
+    rng = np.random.default_rng(13)
+    pts, cidx, gidx = _sa_inputs(rng, m, n, cf, s, k)
+    dims = (3 + cf,) + widths
+    Ws = [torch.from_numpy(rng.normal(w3 * (i == 2), 0.2, (dims[i], dims[i + 1])).astype(np.float32)).cuda()
+          .bfloat16() for i in range(3)]
+    bs = [torch.from_numpy(rng.normal(b3 * (i == 2), 0.2, dims[i + 1]).astype(np.float32)).cuda()
+          for i in range(3)]
+    p = torch.from_numpy(pts).cuda().bfloat16()
+    args = (p[..., :3], p[..., 3:], torch.from_numpy(cidx).cuda(), torch.from_numpy(gidx).cuda(), Ws, bs)
+    before = tsa.sa_mlp_max_cuda.launches_bf16
+    with torch.inference_mode():
+        got = tsa.sa_mlp_max_cuda(*args)
+        want = tsa.sa_mlp_max_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tsa.sa_mlp_max_cuda.launches_bf16 == before + 1
+    _bf16_agree(got, want)
+
+
+@pytest.mark.cuda
+def test_bf16_paths_launch_the_bf16_kernels(cuda):
+    """A small DtoidModel with bf16_infer launches kernel 1b twice a detect
+    and detects within the JAX package's bf16 criteria of the float32
+    model; a ZephyrModel(bf16=True) score call launches kernel 2b twice; a
+    bf16_finetune step launches 1b twice forward, and 1b (dx) and 3b (dk)
+    twice backward, and keeps its weights float32."""
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+
+    cfg = default_config()
+    cfg.model.img_h, cfg.model.img_w, cfg.model.densenet_blocks = 128, 160, (2, 2, 2)
+    rng = np.random.default_rng(14)
+    batch = {"img": rng.integers(0, 256, (128, 160, 3), dtype=np.uint8), "obj_id": 1,
+             "limg": rng.uniform(0, 1, (4, 124, 124, 3)).astype(np.float32),
+             "lmask": (rng.uniform(0, 1, (4, 124, 124)) > 0.5).astype(np.float32)}
+    m32 = DtoidModel(cfg, seed=0, device=cuda)
+    m16 = DtoidModel(cfg.merged({"model": {"bf16_infer": True, "bf16_finetune": True}}), seed=0, device=cuda)
+    counters = (tconv.dw_corr3x3_cuda, tconv.dw_corr3x3_dx_cuda, tconv.dw_corr3x3_dk_cuda)
+    before = [c.launches_bf16 for c in counters]
+    o16, o32 = m16.forward_test_time(batch), m32.forward_test_time(batch)
+    assert tconv.dw_corr3x3_cuda.launches_bf16 - before[0] == 2
+    assert np.abs(o16["pred_scores"][:10] - o32["pred_scores"][:10]).max() <= 0.05
+    assert np.mean((o16["segmentation"] > 0.5) == (o32["segmentation"] > 0.5)) > 0.98
+
+    b = 2
+    ann = np.array([[[20, 30, 80, 90, 1]]] * b, np.float32)
+    feed = {"img": rng.uniform(0, 1, (b, 128, 160, 3)).astype(np.float32),
+            "limg": rng.uniform(0, 1, (b, 124, 124, 3)).astype(np.float32),
+            "lmask": (rng.uniform(0, 1, (b, 124, 124, 1)) > 0.4).astype(np.float32),
+            "gimg": rng.uniform(0, 1, (b, 124, 124, 3)).astype(np.float32),
+            "gmask": (rng.uniform(0, 1, (b, 124, 124, 1)) > 0.4).astype(np.float32),
+            "bbox_gt": ann, "heatmap": rng.uniform(0, 1, (b, 7, 9, 1)).astype(np.float32),
+            "mask": (rng.uniform(0, 1, (b, 128, 160, 1)) > 0.8).astype(np.float32)}
+    before = [c.launches_bf16 for c in counters]
+    loss = float(m16.train_step(feed)["loss"])
+    assert [c.launches_bf16 - n for c, n in zip(counters, before)] == [2, 2, 2]
+    assert np.isfinite(loss)
+    assert all(t.dtype == torch.float32 for t in m16.state_dict().values() if t.is_floating_point())
+
+    pts = rng.normal(0, 0.05, (300, 3)).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (20, 1, 1))
+    poses[:, 2, 3] = rng.uniform(0.8, 1.2, 20)
+    data = {"img": batch["img"], "depth": (rng.uniform(0.8, 1.3, (128, 160)) * 1000).astype(np.uint16),
+            "cam_K": np.array([[150.0, 0, 80], [0, 150.0, 64], [0, 0, 1]], np.float32),
+            "model_points": pts, "model_colors": rng.uniform(0, 1, (300, 3)).astype(np.float32),
+            "model_normals": np.tile(np.array([[0, 0, -1.0]], np.float32), (300, 1)),
+            "pose_hypos": poses}
+    z16 = ZephyrModel(num_points=512, seed=0, need_uv=False, bf16=True, device=cuda)
+    before = tsa.sa_mlp_max_cuda.launches_bf16
+    got = z16.score_hypotheses(data, obj_id=1)
+    assert tsa.sa_mlp_max_cuda.launches_bf16 - before == 2
+    assert np.isfinite(got["scores"]).all()

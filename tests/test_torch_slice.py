@@ -141,14 +141,19 @@ def test_entry_points_raise_without_cuda():
 
 def test_config_is_a_copy(tmp_path):
     """The port's Config and DTOID model defaults equal the JAX package's:
-    attribute access, nesting, merge and the YAML round trip."""
+    attribute access, nesting, merge and the YAML round trip. The port's
+    model group names the two bf16 switches that the JAX package reads with
+    `m.get(..., False)`, at that default."""
     from ossid_code_tpu.core.config import Config, default_config
 
     from ossid_code_torch.core.config import Config as TConfig
 
-    assert t_default_config().model == default_config().model
+    bf16 = ("bf16_finetune", "bf16_infer")
+    tmodel, jmodel = t_default_config().model, default_config().model
+    assert {k: v for k, v in tmodel.items() if k not in bf16} == jmodel
+    assert all(tmodel[k] is jmodel.get(k, False) is False for k in bf16)
     over = {"model": {"img_h": 128, "densenet_blocks": [2, 2, 2]}, "seed": 3}
-    jm = Config(model=dict(default_config().model)).merged(over)
+    jm = Config(model=dict(default_config().model, **{k: False for k in bf16})).merged(over)
     tm = TConfig(model=dict(t_default_config().model)).merged(over)
     assert tm == jm and tm.model.img_h == 128 and isinstance(tm.model, TConfig)
     tm.save(str(tmp_path / "t.yaml"))

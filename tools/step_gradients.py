@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""What chip_smoke.py's gradient check reads, on sound and on faulty runs.
+"""What chip_smoke.py's gradient checks read, on sound and on faulty runs.
 
-    python3 tools/step_gradients.py      (needs one NVIDIA GPU)
+    python3 tools/step_gradients.py         (needs one NVIDIA GPU)
+    python3 tools/step_gradients.py --bf16
 
 One full-width DTOID finetune step (480x640, DenseNet-121, batch 2, the
 weights and batch of chip_smoke.py's phase 7) is differentiated on the card,
@@ -10,6 +11,12 @@ half the batch, dk doubled, dk of the first sample only, dx doubled. For each
 run it prints the leaf-by-leaf relative L2 gradient error that
 chip_smoke.grad_errors computes, against the float32 CPU run and against the
 float64 one, then runs chip_smoke.compare_step on the sound models.
+
+With --bf16 it measures phase 7b instead: the mixed-precision step
+(bf16_finetune, batch 8, the weights and batch of phase 7b) against the
+card's float32 step, sound (twice) and under the faults half the batch, dk
+(kernel 3b) doubled and dx (kernel 1b) doubled: the largest, 90th-percentile
+and median leaf errors, then chip_smoke.compare_step_bf16 on sound models.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ def gradients(model, weights, cfg, batch, dtype=torch.float32):
 
 def patched(name, fn):
     """Replace conv.<name> (a counted wrapper) by fn for one run."""
-    fn.launches = 0
+    fn.launches = fn.launches_bf16 = 0
     orig = getattr(conv, name)
 
     class Patch:
@@ -65,6 +72,53 @@ def patched(name, fn):
     return Patch()
 
 
+def step_gradients(model, weights, batch):
+    """Loss and {leaf: gradient} of one train_step of `model` (float32 or
+    bf16_finetune) from `weights` and a fresh optimizer."""
+    model.load_state_dict({k: v.to(model.device) for k, v in weights.items()})
+    model.reset_optimizer()
+    loss = float(model.train_step(batch)["loss"])
+    return loss, cs.step_gradients(model)
+
+
+def main_bf16() -> int:
+    """Phase 7b's check: bf16 step gradients against the float32 step's."""
+    cfg = default_config()
+    m32 = DtoidModel(cfg, seed=3, device="cuda")
+    cs.perturb_heads(m32.net, 4)
+    m16 = DtoidModel(cfg.merged({"model": {"bf16_finetune": True}}), seed=3, device="cuda")
+    weights = {k: v.cpu() for k, v in m32.state_dict().items()}
+    batch = cs.finetune_batch(np.random.default_rng(6), cs.FINETUNE_BATCH)
+    dk, dx = conv.dw_corr3x3_dk_cuda, conv.dw_corr3x3_dx_cuda
+    t0 = time.perf_counter()
+    runs = {"card float32": step_gradients(m32, weights, batch),
+            "card bf16": step_gradients(m16, weights, batch),
+            "card bf16 again": step_gradients(m16, weights, batch),
+            "fault: bf16, half the batch": step_gradients(m16, weights, {k: v[:4] for k, v in batch.items()})}
+    with patched("dw_corr3x3_dk_cuda", lambda x, d: 2 * dk(x, d)):
+        runs["fault: bf16, dk (3b) doubled"] = step_gradients(m16, weights, batch)
+    with patched("dw_corr3x3_dx_cuda", lambda d, k: 2 * dx(d, k)):
+        runs["fault: bf16, dx (1b) doubled"] = step_gradients(m16, weights, batch)
+    print(f"{len(runs)} runs in {time.perf_counter() - t0:.1f} s; losses "
+          f"{json.dumps({k: v[0] for k, v in runs.items()})}")
+    for ref in ("card float32", "card bf16"):
+        for name, (_, grads) in runs.items():
+            if name == ref:
+                continue
+            errs, dropped = cs.grad_errors(grads, runs[ref][1])
+            vals = np.array(sorted(errs.values()))
+            worst = max(errs, key=errs.get)
+            print(f"against {ref}: {name}: relative L2 error largest {vals[-1]:.4g} ({worst}), 90th "
+                  f"percentile {np.percentile(vals, 90):.4g}, median {np.median(vals):.4g}; {len(errs)} leaves, "
+                  f"left out {dropped}")
+    m32.load_state_dict({k: v.cuda() for k, v in weights.items()})
+    m32.reset_optimizer()
+    m16.load_state_dict({k: v.cuda() for k, v in weights.items()})
+    m16.reset_optimizer()
+    print(f"compare_step_bf16: {json.dumps(cs.compare_step_bf16(torch, m16, m32, batch))}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("step_gradients: needs an NVIDIA GPU", file=sys.stderr)
@@ -73,6 +127,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(8)
     build.build()
+    if "--bf16" in sys.argv[1:]:
+        return main_bf16()
     cfg = default_config()
     gpu = DtoidModel(cfg, seed=3, device="cuda")
     cs.perturb_heads(gpu.net, 4)
