@@ -228,6 +228,20 @@ def unique_bytes(t) -> int:
     return n * t.element_size()
 
 
+def ptxas_report(log: str) -> list[tuple[str, str]]:
+    """(kernel, "N registers, S bytes smem, spills ...") for each entry
+    function in an `nvcc -Xptxas -v` log."""
+    out, kernel, spills = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append((kernel[:60], f"{line.split('Used', 1)[1].strip()}; {spills}"))
+    return out
+
+
 def check_close(torch, name, got, want, tol):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -387,20 +401,26 @@ def measure_sa(torch, sa, zephyr, prep, m, bf16=False):
 def check_sa_edges(torch, sa, device, bf16=False):
     """Inputs that reach the kernel's edges, against the plain version:
     k = 13 and 29 (padding rows in every tile), odd group counts (a partial
-    last tile, and more tiles than blocks), and weights whose layer-3 outputs
-    are mostly negative (W3 shifted down, b3 up): relu hits zero on the real
-    rows while a padding row, relu(b) of the chain, would win the max if it
-    were not masked; the case checks that it would. bf16: the same inputs
-    cast (biases stay float32), against kernel 2b."""
+    last tile, and more tiles than blocks), k = 13 with several groups per
+    warpgroup (the next group's gather in flight) from 16-byte aligned and
+    from unaligned features, one group (fewer groups than warpgroups), and
+    weights whose layer-3 outputs are mostly negative (W3 shifted down, b3
+    up): relu hits zero on the real rows while a padding row, relu(b) of the
+    chain, would win the max if it were not masked; the case checks that it
+    would. bf16: the same inputs cast (biases stay float32), against kernel
+    2b."""
     dt = torch.bfloat16 if bf16 else torch.float32
     rng = np.random.default_rng(9)
     errs = []
-    # (widths, cf, M, S, k, mean of W3, mean of b3)
-    for widths, cf, m, s, k, w3, b3 in (((64, 64, 128), 8, 3, 37, 13, -0.1, 0.3),
-                                        ((128, 128, 256), 128, 3, 37, 13, -0.05, 0.3),
-                                        ((64, 64, 128), 8, 5, 301, 64, 0.0, 0.0),
-                                        ((128, 128, 256), 128, 5, 301, 29, -0.05, 0.3),
-                                        ((64, 64, 128), 8, 1, 1, 1, 0.0, 0.0)):
+    # (widths, cf, M, S, k, mean of W3, mean of b3, features in rows of their own)
+    for widths, cf, m, s, k, w3, b3, own in (((64, 64, 128), 8, 3, 37, 13, -0.1, 0.3, False),
+                                             ((128, 128, 256), 128, 3, 37, 13, -0.05, 0.3, False),
+                                             ((64, 64, 128), 8, 5, 301, 64, 0.0, 0.0, False),
+                                             ((128, 128, 256), 128, 5, 301, 29, -0.05, 0.3, False),
+                                             ((64, 64, 128), 8, 1, 1, 1, 0.0, 0.0, False),
+                                             ((64, 64, 128), 8, 16, 301, 13, 0.0, 0.0, False),
+                                             ((64, 64, 128), 8, 16, 301, 13, 0.0, 0.0, True),
+                                             ((128, 128, 256), 128, 8, 301, 13, 0.0, 0.0, True)):
         n = max(200, s)
         pts = torch.from_numpy(rng.normal(0, 0.3, (m, n, 3 + cf)).astype(np.float32)).to(device, dt)
         cidx = torch.from_numpy(rng.choice(n, s, replace=False).astype(np.int32)).to(device)
@@ -410,9 +430,10 @@ def check_sa_edges(torch, sa, device, bf16=False):
                                .astype(np.float32)).to(device, dt) for i in range(3)]
         bs = [torch.from_numpy(rng.normal(b3 * (i == 2), 0.2, dims[i + 1]).astype(np.float32)).to(device)
               for i in range(3)]
-        args = (pts[..., :3], pts[..., 3:], cidx, gidx, Ws, bs)
+        args = (pts[..., :3], pts[..., 3:].contiguous() if own else pts[..., 3:], cidx, gidx, Ws, bs)
         want = sa.sa_mlp_max_plain(*args)
-        label = f"{'bf16, ' if bf16 else ''}widths {widths}, M={m}, S={s}, k={k}, W3 mean {w3}, b3 mean {b3}"
+        label = (f"{'bf16, ' if bf16 else ''}widths {widths}, M={m}, S={s}, k={k}, W3 mean {w3}, b3 mean {b3}"
+                 f"{', aligned features' if own else ''}")
         if w3:
             x, pad = sa._grouped(*args[:4]), torch.zeros(dims[0], device=device, dtype=dt)
             for w, b in zip(Ws, bs):
@@ -547,20 +568,24 @@ def perturb_heads(net, seed):
 
 def dw_bwd_cases(torch, device, bf16=False):
     """The finetune's two calls of the backward (per-sample x and k, batch 8)
-    and edge inputs: B = 1 with C = 4, W = 13 (not a multiple of the run
-    length 8) with k broadcast over B, and x broadcast over B. Each case is
-    (label, x, k, dout); a broadcast input is a stride-0 expand. bf16: the
-    same in bf16 with C = 8 and 16 for 4 and 12 (dx runs kernel 1b, whose
-    vectors are 8 channels)."""
+    and edge inputs: B = 1 with C = 4, W = 13 with k broadcast over B, x
+    broadcast over B, and a last channel slice only partly filled (C = 80:
+    dk's plan takes slices of 16 vectors, 20 vectors in all, in clusters of
+    6 bands of 2 rows over H = 12, W = 21). At the head, H = 29 is not a
+    multiple of dk's 5-row bands and W = 39 not of its column lanes. Each
+    case is (label, x, k, dout); a broadcast input is a stride-0 expand.
+    bf16: the same in bf16 with C = 8, 16 and 160 for 4, 12 and 80 (a
+    thread reads 16 bytes, 8 bf16 channels)."""
     g = torch.Generator(device=device).manual_seed(4)
     r = lambda *shape: torch.randn(*shape, device=device, generator=g)
-    c1, c2 = (8, 16) if bf16 else (4, 12)
+    c1, c2, c3 = (8, 16, 160) if bf16 else (4, 12, 80)
     cases = [
         ("correlation head", r(8, 29, 39, 640), r(8, 3, 3, 640), r(8, 29, 39, 640)),
         ("image-encoder stem", r(8, 240, 320, 64), r(8, 3, 3, 64), r(8, 240, 320, 64)),
         (f"B 1, C {c1}", r(1, 5, 7, c1), r(1, 3, 3, c1), r(1, 5, 7, c1)),
         ("W 13, k stride 0 over B", r(3, 6, 13, c2), r(1, 3, 3, c2).expand(3, 3, 3, c2), r(3, 6, 13, c2)),
         ("W 39, x stride 0 over B", r(1, 6, 39, 64).expand(4, 6, 39, 64), r(4, 3, 3, 64), r(4, 6, 39, 64)),
+        (f"C {c3}, a partial slice", r(16, 12, 21, c3), r(16, 3, 3, c3), r(16, 12, 21, c3)),
     ]
     return [(label, *map(as_bf16, ts)) for label, *ts in cases] if bf16 else cases
 
@@ -952,9 +977,8 @@ def main() -> int:
     print(f"built {[s.name for s in build.sources()]} and native/ppf.cpp, native/rasterizer.cpp "
           f"in {time.perf_counter() - t0:.1f} s")
     for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+        for kernel, report in ptxas_report(log):
+            print(f"  ptxas {src} {kernel}: {report}")
 
     # -- 2. kernels against their plain versions ----------------------------
     device = torch.device("cuda")

@@ -19,27 +19,47 @@
 // centres, k 64, 11 -> 64 -> 64 -> 128) is ~109 GFLOP and SA2 (128 centres,
 // 131 -> 128 -> 128 -> 256) ~138 GFLOP against a few MB of points, indices,
 // weights and output: 0.11 / 0.14 ms on the tensor cores at the dense bf16
-// rate of 989 TFLOP/s.
+// rate of 989 TFLOP/s. A group's MMAs take an SM ~0.22 µs (SA1) / ~1.1 µs
+// (SA2) at that rate, so what a group waits on besides them (the gather's
+// dependent loads, each layer's wgmma round trip, the epilogues and the
+// max) has to hide behind other groups' MMAs. The first instance (one
+// group at a time, gathered by plain loads, 3 warpgroups on SA1) spent
+// 4.3 µs (SA1) and 8 µs (SA2) of a warpgroup's time on a group.
 //
-// What the design does about it (a first instance: right before fast):
+// What the design does about it:
 //  * wgmma.mma_async m64nNk16 .f32.bf16.bf16 (sm_90a), one pass (no hi/lo
 //    split: the operands are bf16 already). One group per warpgroup: its
 //    k <= 64 rows are one 64-row tile, so the max over the group is a
-//    reduction of that warpgroup's accumulator rows (shuffles, then the 4
-//    warps through shared memory; rows r >= K masked; no atomics);
+//    reduction of that warpgroup's accumulator rows (halving shuffle
+//    exchanges, then the 4 warps through shared memory; rows r >= K
+//    masked; no atomics);
 //  * A (activations) comes from registers, B = W^T (Cout, Cin) from shared
 //    memory, K-major. Layers chain in registers with no reordering: the f32
 //    accumulator fragment of one layer (bias, relu, rounded to bf16 pairs)
 //    is exactly the bf16 A fragment of the next (columns 2 tig, 2 tig + 1
 //    of 8-column block 2t are k 2 tig, 2 tig + 1 of k-step t, block 2t + 1
 //    its k + 8);
-//  * all three layers' weights stay resident in shared memory for the
-//    block's lifetime (bf16 halves them: SA1 27 KB, SA2 135 KB), copied in
-//    once per block from the layout that pack_sa_weights_bf16 writes;
-//  * persistent blocks, one per SM; each warpgroup loops over its own
-//    groups and meets the others only at the start. The gather is plain
-//    loads into a zero-padded shared tile (16-byte vectors where the
-//    features allow), not overlapped with the MMAs.
+//  * all three layers' weights and biases stay resident in shared memory
+//    for the block's lifetime (bf16 halves the weights: SA1 27 KB, SA2 135
+//    KB), copied in once per block from the layout that
+//    pack_sa_weights_bf16 writes;
+//  * the gather runs a group ahead: each warpgroup has two tiles and two
+//    index buffers. Once layer 1 has its A fragments from tile i, the
+//    warpgroup issues group i + 1's feature rows into the other tile with
+//    16-byte cp.async (feature rows 16-byte aligned, `vec8`), its xyz rows
+//    (and features that are not 16-byte aligned) as plain loads into
+//    registers, and group i + 2's indices with cp.async; all of it lands
+//    while layers 1-3 of group i run, and the registers are stored into the
+//    tile (xyz as the bf16 offset from the centre) after layer 3. A group
+//    then waits on no load at all: one barrier at its start;
+//  * a group's per-thread work has no division (group, hypothesis and
+//    centre indices and the 16-byte chunks of a row advance by sums) and no
+//    local memory (the max's exchanges select with selp); the max keeps two
+//    reduction buffers, so each layer-3 part costs one warpgroup barrier;
+//  * persistent blocks, one per SM, each warpgroup looping over its own
+//    groups and meeting the others only at the start: SA1 runs 4
+//    warpgroups a block (its weights leave room), SA2 2 (135 KB of weights
+//    and 4 tiles fill 219 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +71,9 @@ using bf16 = __nv_bfloat16;
 
 constexpr int ROWS = 64;   // rows of one group's tile (k <= ROWS)
 constexpr int NMAX = 128;  // widest wgmma N used (SA2's layer 3 runs in two parts)
+constexpr int IDXN = ROWS + 4;  // ints of one index buffer: k member indices, the centre's at [ROWS]
+constexpr int XPF = (3 * ROWS + 127) / 128;  // xyz values a thread prefetches for a group
+constexpr int FPF = 4;     // unaligned feature values a thread prefetches (more are loaded late)
 
 // Width set, layer-1 depth (3 + cf padded to a multiple of 16), groups
 // (warpgroups) per block.
@@ -64,14 +87,17 @@ struct Cfg {
   // Row stride of the gathered tile in bf16: K1 / 2 + 4 = 4 mod 8 words, so
   // the A fragment loads (8 rows x 4 words per warp) hit 32 distinct banks.
   static constexpr int LDA = K1 + 8;
+  static constexpr int TILE = ROWS * LDA;
+  // weights | tiles [GROUPS][2] | index buffers [GROUPS][2] | max buffers [GROUPS][2][4 warps][NMAX] | biases
   static constexpr size_t OFF_BUF = 2 * (size_t)WELEMS;
-  static constexpr size_t OFF_IDX = OFF_BUF + 2 * (size_t)GROUPS * ROWS * LDA;
-  static constexpr size_t OFF_CEN = OFF_IDX + sizeof(int) * GROUPS * ROWS;
-  static constexpr size_t OFF_RED = OFF_CEN + sizeof(float) * GROUPS * 4;
-  static constexpr size_t SMEM = OFF_RED + sizeof(float) * GROUPS * 4 * NMAX;
+  static constexpr size_t OFF_IDX = OFF_BUF + 2 * (size_t)GROUPS * 2 * TILE;
+  static constexpr size_t OFF_RED = OFF_IDX + sizeof(int) * GROUPS * 2 * IDXN;
+  static constexpr size_t OFF_BIAS = OFF_RED + sizeof(float) * GROUPS * 2 * 4 * NMAX;
+  static constexpr size_t SMEM = OFF_BIAS + sizeof(float) * (C1 + C2 + C3);
   static_assert(K1 % 16 == 0 && C1 % 16 == 0 && C2 % 16 == 0, "k16 steps");
   static_assert(C1 <= NMAX && C2 <= NMAX && C3 % NP3 == 0 && (LDA / 2) % 8 == 4, "widths");
-  static_assert(WELEMS % 8 == 0 && (ROWS * LDA) % 8 == 0, "16-byte regions");
+  static_assert(WELEMS % 8 == 0 && TILE % 8 == 0 && IDXN % 4 == 0, "16-byte regions");
+  static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
 // ---- PTX wrappers -----------------------------------------------------------
@@ -155,8 +181,7 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4],
 // acc (64 x N) = A (64 x 16 * STEPS, fragments in registers) * W^T of one
 // layer (N rows, kc = 16 * STEPS deep, resident in shared memory).
 template <int N, int STEPS>
-__device__ __forceinline__ void layer_mma(float (&acc)[N / 2], const uint32_t (&a)[STEPS][4],
-                                          const bf16* w) {
+__device__ __forceinline__ void layer_mma(float (&acc)[N / 2], const uint32_t (&a)[STEPS][4], const bf16* w) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
   // wgmma.fence orders the register writes above (zeroed accumulator, A
@@ -180,14 +205,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // bf16(relu(acc + b)) as the A fragments of the next layer (see wgmma_n64).
 template <int N>
-__device__ __forceinline__ void epilogue(const float (&acc)[N / 2], const float* __restrict__ b, int tig,
+__device__ __forceinline__ void epilogue(const float (&acc)[N / 2], const float* b, int tig,
                                          uint32_t (&h)[N / 16][4]) {
 #pragma unroll
   for (int t = 0; t < N / 16; ++t)
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       const int j = 2 * t + jj;
-      const float2 bv = __ldg(reinterpret_cast<const float2*>(b + 8 * j + 2 * tig));
+      const float2 bv = *reinterpret_cast<const float2*>(b + 8 * j + 2 * tig);
       h[t][2 * jj] = pack_bf16(fmaxf(acc[4 * j] + bv.x, 0.f), fmaxf(acc[4 * j + 1] + bv.y, 0.f));
       h[t][2 * jj + 1] = pack_bf16(fmaxf(acc[4 * j + 2] + bv.x, 0.f), fmaxf(acc[4 * j + 3] + bv.y, 0.f));
     }
@@ -198,118 +223,307 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ float bf16_bits_to_float(uint16_t v) { return __uint_as_float((uint32_t)v << 16); }
+
+// c ? a : b as one selp. A plain ?: between two elements of a register
+// array may be compiled as a select of their addresses, which moves the
+// array to local memory (a 128-byte stack frame in max_columns<128>).
+__device__ __forceinline__ float select(bool c, float a, float b) {
+  float r;
+  asm("{\n.reg .pred p;\nsetp.ne.u32 p, %3, 0;\nselp.f32 %0, %1, %2, p;\n}\n"
+      : "=f"(r) : "f"(a), "f"(b), "r"((uint32_t)c));
+  return r;
+}
+
+// Max over the 64 rows of a warpgroup's accumulator (N columns), masked to
+// rows < K, into this warp's N entries of red: first the thread's two rows,
+// then the warp's 8 row groups (lanes xor 16, 8, 4) by halving exchanges, so
+// each lane ends with N / 32 of the N / 4 column maxima it started with (the
+// columns 8 (o >> 1) + 2 tig + (o & 1) for o = N / 8 b16 + N / 16 b8 +
+// N / 32 b4 + i, b16 b8 b4 the bits of gid).
+// One halving exchange of max_columns: lanes whose `mask` bit is set keep
+// the upper HALF of m, the others the lower, each taking the max with its
+// partner's copy of the half it keeps.
+template <int HALF, int MASK, int NV>
+__device__ __forceinline__ void max_exchange(float (&m)[NV]) {
+  const bool upper = (threadIdx.x & MASK) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = select(upper, m[i], m[i + HALF]);
+    const float keep = select(upper, m[i + HALF], m[i]);
+    m[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, MASK));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void max_columns(const float (&acc)[N / 2], bool v0, bool v1, int gid, int tig,
+                                            float* red) {
+  constexpr int NV = N / 4;
+  const float NEG_INF = __int_as_float(0xff800000);
+  float m[NV];
+  if (v1) {  // both rows real (every thread at K = 64, the main path)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) m[2 * j + e] = fmaxf(acc[4 * j + e], acc[4 * j + 2 + e]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) m[2 * j + e] = select(v0, acc[4 * j + e], NEG_INF);
+  }
+  max_exchange<NV / 2, 16>(m);
+  max_exchange<NV / 4, 8>(m);
+  max_exchange<NV / 8, 4>(m);
+  const int base = NV / 2 * ((gid >> 2) & 1) + NV / 4 * ((gid >> 1) & 1) + NV / 8 * (gid & 1);
+#pragma unroll
+  for (int i = 0; i < NV / 8; ++i) {
+    const int o = base + i;
+    red[8 * (o >> 1) + 2 * tig + (o & 1)] = m[i];
+  }
+}
+
+// Cycle counts of a group's phases, summed over warpgroups (thread 0 of
+// each), when built with -DSA_PHASES (tools/kernel_phases.py reads them):
+// 0 wait for the tile, 1 fragments and the next gather's issue, 2 layer 1,
+// 3 layer 2, 4 layer 3's MMAs, 5 the max, 6 the prefetched rows' stores
+// (and the loop's own cost).
+#ifdef SA_PHASES
+__device__ unsigned long long g_phases[8];
+#define PHASE_START() long long t_last = clock64(); unsigned long long t_ph[8] = {}
+#define PHASE(i) do { const long long t_now = clock64(); t_ph[i] += t_now - t_last; t_last = t_now; } while (0)
+#define PHASE_END() do { if (t128 == 0) for (int i = 0; i < 8; ++i) atomicAdd(&g_phases[i], t_ph[i]); } while (0)
+#else
+#define PHASE_START() do {} while (0)
+#define PHASE(i) do {} while (0)
+#define PHASE_END() do {} while (0)
+#endif
+
 template <class P>
 __global__ void __launch_bounds__(P::THREADS, 1)
 sa_mlp_max_bf16_kernel(const bf16* __restrict__ xyz, long long xyz_ms, long long xyz_rs,
                        const bf16* __restrict__ feats, long long f_ms, long long f_rs, int cf, int vec8,
                        const int* __restrict__ cidx, const int* __restrict__ gidx,
-                       long long G, int S, int K, const uint4* __restrict__ packed,
-                       const float* __restrict__ b1, const float* __restrict__ b2,
-                       const float* __restrict__ b3, bf16* __restrict__ out) {
+                       int G, int S, int K, const uint4* __restrict__ packed,
+                       const float* b1, const float* b2, const float* b3, bf16* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, wg = tid >> 7, t128 = tid & 127;
   const int warp = t128 >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
   const bf16* w1 = reinterpret_cast<const bf16*>(smem);
   const bf16* w2 = w1 + P::W1;
   const bf16* w3 = w2 + P::W2;
-  bf16* buf = reinterpret_cast<bf16*>(smem + P::OFF_BUF) + wg * ROWS * P::LDA;
-  int* idx = reinterpret_cast<int*>(smem + P::OFF_IDX) + wg * ROWS;
-  float* cen = reinterpret_cast<float*>(smem + P::OFF_CEN) + wg * 4;
-  float* red = reinterpret_cast<float*>(smem + P::OFF_RED) + wg * 4 * NMAX;
+  bf16* tiles = reinterpret_cast<bf16*>(smem + P::OFF_BUF) + wg * 2 * P::TILE;
+  int* idxs = reinterpret_cast<int*>(smem + P::OFF_IDX) + wg * 2 * IDXN;
+  float* reds = reinterpret_cast<float*>(smem + P::OFF_RED) + wg * 2 * 4 * NMAX;
 
   for (int i = tid; i < P::WELEMS / 8; i += P::THREADS) reinterpret_cast<uint4*>(smem)[i] = __ldg(packed + i);
   // Cin = 3 + cf is padded to K1 and rows r >= K are padding. Both stay zero
-  // for the kernel's lifetime: the gather writes only columns < cf + 3 of
-  // rows < K, and K is fixed per launch. The packed weights' pad rows are
-  // zero as well.
-  for (int i = tid; i < P::GROUPS * ROWS * P::LDA / 8; i += P::THREADS)
+  // for the kernel's lifetime in both tiles: the gather writes only columns
+  // < cf + 3 of rows < K, and K is fixed per launch. The packed weights' pad
+  // rows are zero as well.
+  for (int i = tid; i < P::GROUPS * 2 * P::TILE / 8; i += P::THREADS)
     reinterpret_cast<uint4*>(smem + P::OFF_BUF)[i] = make_uint4(0, 0, 0, 0);
+  // the biases, read by every epilogue: shared memory, not the L1 path
+  // (SA2 0.34 -> 0.30 ms at M = 128 on an H100)
+  float* bs = reinterpret_cast<float*>(smem + P::OFF_BIAS);
+  for (int i = tid; i < P::C1 + P::C2 + P::C3; i += P::THREADS)
+    bs[i] = i < P::C1 ? b1[i] : i < P::C1 + P::C2 ? b2[i - P::C1] : b3[i - P::C1 - P::C2];
   __syncthreads();
+  b1 = bs;
+  b2 = bs + P::C1;
+  b3 = bs + P::C1 + P::C2;
+
+  // The tile elements this thread gathers through registers, the same for
+  // every group: xyz value c = t128 + 128 j is (row c / 3, coordinate c % 3);
+  // an unaligned feature value c is (row c / cf, feature c % cf).
+  int xr[XPF], xd[XPF], fr[FPF], ff[FPF];
+  bool xv[XPF], fv[FPF];
+#pragma unroll
+  for (int j = 0; j < XPF; ++j) {
+    const int c = t128 + 128 * j;
+    xv[j] = c < 3 * K;
+    xr[j] = c / 3;
+    xd[j] = c - 3 * xr[j];
+  }
+#pragma unroll
+  for (int j = 0; j < FPF; ++j) {
+    const int c = t128 + 128 * j;
+    fv[j] = !vec8 && c < K * cf;
+    fr[j] = cf ? c / cf : 0;
+    ff[j] = c - fr[j] * cf;
+  }
+  uint16_t px[XPF], pc[XPF], pf[FPF];  // raw bf16 in flight: member xyz, centre xyz, features
+  // 16-byte feature chunks: this thread copies chunk c = t128 + 128 j, (row
+  // c / nch, chunk c % nch), stepped without a division per copy
+  const int nch = vec8 ? cf >> 3 : 0, nch1 = nch > 0 ? nch : 1;
+  const int r8 = t128 / nch1, q8 = t128 - r8 * nch1, dr8 = 128 / nch1, dq8 = 128 - dr8 * nch1;
+
+  // Group g = m * S + s of this warpgroup, advanced by gstep groups with no
+  // division in the loop.
+  struct At { int g, m, s; };
+  const int gstep = gridDim.x * P::GROUPS, dm = gstep / S, ds = gstep - dm * S;
+  auto advance = [&](At a) {
+    a.g += gstep;
+    a.m += dm;
+    a.s += ds;
+    if (a.s >= S) { a.s -= S; ++a.m; }
+    return a;
+  };
+
+  // group a's member and centre indices into ib, by cp.async
+  auto issue_idx = [&](At a, int* ib) {
+    if (a.g >= G) return;
+    if (t128 < K) cp_async4(ib + t128, gidx + a.s * K + t128);
+    if (t128 == 127) cp_async4(ib + ROWS, cidx + a.s);
+  };
+  // group a's rows (indices in ib): 16-byte feature rows straight into tile
+  // tb by cp.async, xyz and unaligned features into registers
+  // x_r = [feats, xyz - centre, 0 ...]: pack_sa_weights_bf16 orders W1's rows the same way
+  auto issue_rows = [&](At a, const int* ib, bf16* tb) {
+    if (a.g >= G) return;
+    const bf16* xm = xyz + a.m * xyz_ms;
+    const bf16* fm = feats + a.m * f_ms;
+    if (nch > 0) {
+      for (int r = r8, q = q8; r < K;) {
+        cp_async16(tb + r * P::LDA + 8 * q, fm + (long long)ib[r] * f_rs + 8 * q);
+        r += dr8;
+        q += dq8;
+        if (q >= nch) { q -= nch; ++r; }
+      }
+    }
+    const long long cen = ib[ROWS];
+#pragma unroll
+    for (int j = 0; j < XPF; ++j) {
+      if (xv[j]) {
+        px[j] = __ldg(reinterpret_cast<const unsigned short*>(xm + (long long)ib[xr[j]] * xyz_rs + xd[j]));
+        pc[j] = __ldg(reinterpret_cast<const unsigned short*>(xm + cen * xyz_rs + xd[j]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < FPF; ++j)
+      if (fv[j]) pf[j] = __ldg(reinterpret_cast<const unsigned short*>(fm + (long long)ib[fr[j]] * f_rs + ff[j]));
+  };
+  // the registers of issue_rows into tile tb, and the unaligned features
+  // beyond FPF a thread (loaded here, late: off the main path's shapes)
+  auto store_rows = [&](At a, const int* ib, bf16* tb) {
+    if (a.g >= G) return;
+    unsigned short* t16 = reinterpret_cast<unsigned short*>(tb);
+#pragma unroll
+    for (int j = 0; j < XPF; ++j)
+      if (xv[j])
+        tb[xr[j] * P::LDA + cf + xd[j]] = __float2bfloat16_rn(bf16_bits_to_float(px[j]) - bf16_bits_to_float(pc[j]));
+#pragma unroll
+    for (int j = 0; j < FPF; ++j)
+      if (fv[j]) t16[fr[j] * P::LDA + ff[j]] = pf[j];
+    if (!vec8) {
+      const bf16* fm = feats + a.m * f_ms;
+      for (int c = t128 + 128 * FPF; c < K * cf; c += 128) {
+        const int r = c / cf, f = c - r * cf;
+        tb[r * P::LDA + f] = fm[(long long)ib[r] * f_rs + f];
+      }
+    }
+  };
+
+  // this group, the next (its rows in flight) and the one after (its indices in flight)
+  const int g0 = blockIdx.x * P::GROUPS + wg, m0 = g0 / S;
+  At at = {g0, m0, g0 - m0 * S};
+  At at1 = advance(at);
+  issue_idx(at, idxs);
+  cp_async_commit();
+  cp_async_wait_all();
+  wg_sync(wg);
+  issue_rows(at, idxs, tiles);
+  issue_idx(at1, idxs + IDXN);
+  cp_async_commit();
+  store_rows(at, idxs, tiles);
 
   const int row = warp * 16 + gid;  // this thread's two rows of the tile: row, row + 8
-  const bf16* r0 = buf + row * P::LDA;
-  const bf16* r1 = buf + (row + 8) * P::LDA;
   const bool v0 = row < K, v1 = row + 8 < K;
-  for (long long grp = (long long)blockIdx.x * P::GROUPS + wg; grp < G;
-       grp += (long long)gridDim.x * P::GROUPS) {
-    const long long m = grp / S;
-    const int s = (int)(grp - m * S);
-    const bf16* xm = xyz + m * xyz_ms;
-    const bf16* fm = feats + m * f_ms;
-    wg_sync(wg);  // the previous group's layer 1 has read the tile
-    if (t128 < K) idx[t128] = __ldg(gidx + (long long)s * K + t128);
-    if (t128 < 3) cen[t128] = __bfloat162float(xm[(long long)__ldg(cidx + s) * xyz_rs + t128]);
+  int cur = 0, q = 0;  // q: layer-3 parts reduced so far (red's double buffer)
+  PHASE_START();
+  for (; at.g < G; cur ^= 1) {
+    const At at2 = advance(at1);
+    const bf16* tb = tiles + cur * P::TILE;
+    bf16* tn = tiles + (cur ^ 1) * P::TILE;
+    const int* in = idxs + (cur ^ 1) * IDXN;
+    // this group's tile complete (every thread's copies and stores), the
+    // next group's indices landed; the other tile was read last iteration
+    cp_async_wait_all();
     wg_sync(wg);
-    // x_r = [feats, xyz - centre, 0 ...]: pack_sa_weights_bf16 orders W1's rows the same way
-    if (vec8) {
-      const int nch = cf >> 3;
-      for (int c = t128; c < K * nch; c += 128) {
-        const int r = c / nch, q = c - r * nch;
-        reinterpret_cast<uint4*>(buf + r * P::LDA)[q] =
-            __ldg(reinterpret_cast<const uint4*>(fm + (long long)idx[r] * f_rs) + q);
-      }
-    } else {
-      for (int c = t128; c < K * cf; c += 128) {
-        const int r = c / cf, f = c - r * cf;
-        buf[r * P::LDA + f] = fm[(long long)idx[r] * f_rs + f];
-      }
-    }
-    for (int c = t128; c < K * 3; c += 128) {
-      const int r = c / 3, d = c - r * 3;
-      buf[r * P::LDA + cf + d] = __float2bfloat16_rn(__bfloat162float(xm[(long long)idx[r] * xyz_rs + d]) - cen[d]);
-    }
-    wg_sync(wg);
-
+    PHASE(0);
     uint32_t a1[P::K1 / 16][4];
+    {
+      const bf16* r0 = tb + row * P::LDA;
+      const bf16* r1 = tb + (row + 8) * P::LDA;
 #pragma unroll
-    for (int t = 0; t < P::K1 / 16; ++t) {
-      const int k = 16 * t + 2 * tig;
-      a1[t][0] = *reinterpret_cast<const uint32_t*>(r0 + k);
-      a1[t][1] = *reinterpret_cast<const uint32_t*>(r1 + k);
-      a1[t][2] = *reinterpret_cast<const uint32_t*>(r0 + k + 8);
-      a1[t][3] = *reinterpret_cast<const uint32_t*>(r1 + k + 8);
+      for (int t = 0; t < P::K1 / 16; ++t) {
+        const int k = 16 * t + 2 * tig;
+        a1[t][0] = *reinterpret_cast<const uint32_t*>(r0 + k);
+        a1[t][1] = *reinterpret_cast<const uint32_t*>(r1 + k);
+        a1[t][2] = *reinterpret_cast<const uint32_t*>(r0 + k + 8);
+        a1[t][3] = *reinterpret_cast<const uint32_t*>(r1 + k + 8);
+      }
     }
+    // the next group's gather and the one after's indices, in flight
+    // while this group's layers run
+    issue_rows(at1, in, tn);
+    issue_idx(at2, idxs + cur * IDXN);
+    cp_async_commit();
+    PHASE(1);
+
     uint32_t h1[P::C1 / 16][4];
     {
       float acc[P::C1 / 2];
       layer_mma<P::C1>(acc, a1, w1);
       epilogue<P::C1>(acc, b1, tig, h1);
     }
+    PHASE(2);
     uint32_t h2[P::C2 / 16][4];
     {
       float acc[P::C2 / 2];
       layer_mma<P::C2>(acc, h1, w2);
       epilogue<P::C2>(acc, b2, tig, h2);
     }
-    // Rows r >= K compute relu of the bias chain (> 0 for some columns), so
-    // they are masked out of the max; relu >= 0 and K >= 1 make 0 a neutral
-    // start.
+    PHASE(3);
+    // The max over the group's rows of relu(acc + b3) is relu(max(acc) + b3)
+    // (adding b3 and relu are monotone, and float rounding keeps them so),
+    // so the bias and relu come after the max, once a column. Rows r >= K
+    // are padding (-inf); K >= 1 leaves every column a real row. Part q
+    // reduces through red buffer q & 1: its next writer, part q + 2, comes
+    // after part q + 1's barrier, which every reader of part q has passed.
+    auto reduce_part = [&](const float (&acc)[P::NP3 / 2], int p) {
+      float* red = reds + (q & 1) * 4 * NMAX;
+      max_columns<P::NP3>(acc, v0, v1, gid, tig, red + warp * NMAX);
+      wg_sync(wg);
+      if (t128 < P::NP3) {
+        const float v = fmaxf(fmaxf(red[t128], red[NMAX + t128]), fmaxf(red[2 * NMAX + t128], red[3 * NMAX + t128]));
+        out[(long long)at.g * P::C3 + p * P::NP3 + t128] = __float2bfloat16_rn(fmaxf(v + b3[p * P::NP3 + t128], 0.f));
+      }
+      ++q;
+    };
 #pragma unroll
     for (int p = 0; p < P::C3 / P::NP3; ++p) {
       float acc[P::NP3 / 2];
       layer_mma<P::NP3>(acc, h2, w3 + p * P::NP3 * P::C2);
-#pragma unroll
-      for (int j = 0; j < P::NP3 / 8; ++j) {
-        const float2 bv = __ldg(reinterpret_cast<const float2*>(b3 + p * P::NP3 + 8 * j + 2 * tig));
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float bias = e ? bv.y : bv.x;
-          float v = fmaxf(v0 ? fmaxf(acc[4 * j + e] + bias, 0.f) : 0.f,
-                          v1 ? fmaxf(acc[4 * j + 2 + e] + bias, 0.f) : 0.f);
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
-          if (gid == 0) red[warp * NMAX + 8 * j + 2 * tig + e] = v;
-        }
-      }
-      wg_sync(wg);
-      if (t128 < P::NP3) {
-        const float v = fmaxf(fmaxf(red[t128], red[NMAX + t128]), fmaxf(red[2 * NMAX + t128], red[3 * NMAX + t128]));
-        out[grp * P::C3 + p * P::NP3 + t128] = __float2bfloat16_rn(v);
-      }
-      wg_sync(wg);
+      PHASE(4);
+      reduce_part(acc, p);
+      PHASE(5);
     }
+    store_rows(at1, in, tn);
+    PHASE(6);
+    at = at1;
+    at1 = at2;
   }
+  PHASE_END();
 }
 
 constexpr int MAX_DEVICES = 64;
@@ -332,21 +546,31 @@ int launch(const bf16* xyz, long long xyz_ms, long long xyz_rs, const bf16* feat
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
   }
-  const long long G = (long long)M * S;
-  const long long ntiles = (G + P::GROUPS - 1) / P::GROUPS;
-  const int grid = (int)(ntiles < sms[dev] ? ntiles : sms[dev]);
+  const int G = M * S;  // the caller checked that G + 3 grids of groups fit an int
+  const int ntiles = (G + P::GROUPS - 1) / P::GROUPS;
+  const int grid = ntiles < sms[dev] ? ntiles : sms[dev];
   sa_mlp_max_bf16_kernel<P><<<grid, P::THREADS, P::SMEM, stream>>>(
       xyz, xyz_ms, xyz_rs, feats, f_ms, f_rs, cf, vec8, cidx, gidx, G, S, K,
       static_cast<const uint4*>(packed), b1, b2, b3, out);
   return (int)cudaGetLastError();
 }
 
-// SA1: 3 warpgroups a block (27 KB of weights); SA2: 2 warpgroups (135 KB of
-// weights and 2 gather tiles, 175 KB of shared memory). Not tuned.
-using SA1 = Cfg<64, 64, 128, 16, 3>;
+// SA1: 4 warpgroups a block (27 KB of weights, 68 KB in all); SA2: 2
+// warpgroups (135 KB of weights and 4 gather tiles, 217 KB of shared memory).
+using SA1 = Cfg<64, 64, 128, 16, 4>;
 using SA2 = Cfg<128, 128, 256, 144, 2>;
 
 }  // namespace
+
+#ifdef SA_PHASES
+// The phase counters since the last call (then zeroed), into out[8].
+extern "C" int sa_mlp_max_bf16_phases(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phases, sizeof(g_phases));
+  const unsigned long long zero[8] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_phases, zero, sizeof(zero));
+  return (int)err;
+}
+#endif
 
 // The packed-weight layout of the instance for widths (c1, c2, c3): layer-1
 // depth K1 (3 + cf padded to a multiple of 16; cf <= K1 - 3), which must
@@ -366,7 +590,8 @@ extern "C" int sa_mlp_max_bf16_layout(int c1, int c2, int c3, int* k1) {
 // N; packed: the folded bf16 weights as pack_sa_weights_bf16 lays them out
 // for sa_mlp_max_bf16_layout's K1, 16-byte aligned; b_i (C_i,) float32,
 // contiguous, 8-byte aligned; out contiguous (M, S, C3) bf16. Widths
-// (64, 64, 128) with cf <= 13 or (128, 128, 256) with cf <= 141; 1 <= K <= 64.
+// (64, 64, 128) with cf <= 13 or (128, 128, 256) with cf <= 141; 1 <= K <= 64;
+// M * S <= 2^30.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
 // unsupported shape).
 extern "C" int sa_mlp_max_bf16(const void* xyz, long long xyz_ms, long long xyz_rs,
@@ -377,6 +602,7 @@ extern "C" int sa_mlp_max_bf16(const void* xyz, long long xyz_ms, long long xyz_
                                void* out, void* stream) {
   if (K < 1 || K > ROWS || cf < 0) return (int)cudaErrorInvalidValue;
   if ((long long)M * S == 0) return 0;
+  if ((long long)M * S > (1LL << 30)) return (int)cudaErrorInvalidValue;  // group indices in an int
   cudaStream_t st = (cudaStream_t)stream;
   const bf16* x = static_cast<const bf16*>(xyz);
   const bf16* f = static_cast<const bf16*>(feats);

@@ -7,8 +7,11 @@ CPU tensor takes the plain PyTorch version (whose autograd is PyTorch's), a
 CUDA tensor the autograd Function `DwCorr3x3`, whose forward is the
 hand-written kernel `csrc/dw_corr3x3.cu` and whose backward is that kernel
 again on the output gradient with the taps turned by 180 degrees (dx) and
-the reduction kernel `csrc/dw_corr3x3_bwd.cu` (dk). The wrappers raise on
-what their kernels do not take. There is no other switch and no fallback.
+the reduction kernel `csrc/dw_corr3x3_bwd.cu` (dk: 16-byte vectors of 4
+float32 or 8 bf16 channels, one launch whose bands meet in a thread-block
+cluster, no scratch in device memory; `dw_corr3x3_dk_plan` sizes it). The
+wrappers raise on what their kernels do not take. There is no other switch
+and no fallback.
 
 Both operands are float32 or both bfloat16; each kernel has an instance of
 each (1 / 1b, 3 / 3b) and the wrappers choose it by dtype, a mix raises. In
@@ -20,6 +23,8 @@ launches per dtype: `.launches` (float32) and `.launches_bf16`.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -78,26 +83,23 @@ def _inner_contiguous(t: torch.Tensor) -> bool:
 _FWD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
              ctypes.c_int)
 _SIGNATURES = {"dw_corr3x3_f32": _FWD_ARGS, "dw_corr3x3_bf16": _FWD_ARGS}
-_DK_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int)
-_BWD_SIGNATURES = {
-    "dw_corr3x3_dk_chunks": ([ctypes.c_int] * 3, ctypes.c_int),
-    "dw_corr3x3_dk_f32": _DK_ARGS,
-    "dw_corr3x3_dk_bf16": _DK_ARGS,
-}
+_DK_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p], ctypes.c_int)
+_BWD_SIGNATURES = {"dw_corr3x3_dk_f32": _DK_ARGS, "dw_corr3x3_dk_bf16": _DK_ARGS,
+                   "dw_corr3x3_dk_clusters": ([ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)], ctypes.c_int)}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}  # channels in 16 bytes
 
 
-def _check_operands(what: str, x: torch.Tensor, other: torch.Tensor, other_shape: tuple,
-                    bf16_vector: int) -> torch.dtype:
+def _check_operands(what: str, x: torch.Tensor, other: torch.Tensor, other_shape: tuple) -> torch.dtype:
     """Raise on what the kernels do not take; returns the common dtype. A
-    thread reads one vector of channels: 4 float32 (16 bytes), or
-    `bf16_vector` bf16 (8 for kernel 1b, 4 for kernel 3b)."""
+    thread reads one 16-byte vector of channels: 4 float32 or 8 bf16."""
     dtype = _dtype_of(x, other, what)
     if not (x.is_cuda and other.is_cuda and x.device == other.device):
         raise ValueError(f"{what} needs both tensors on one CUDA device")
     if other.shape != other_shape:
         raise ValueError(f"{what}: shape {tuple(other.shape)} does not fit x {tuple(x.shape)}")
-    vec = 4 if dtype == torch.float32 else bf16_vector
+    vec = _VEC[dtype]
     if x.shape[3] % vec:
         raise ValueError(f"{what} needs C % {vec} == 0 in {dtype}, got C={x.shape[3]}")
     if not (_inner_contiguous(x) and _inner_contiguous(other)):
@@ -117,7 +119,7 @@ def _count(fn, dtype: torch.dtype) -> None:
 
 def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str) -> torch.Tensor:
     b, h, w, c = x.shape
-    dtype = _check_operands(what, x, kernel, (b, 3, 3, c), 8)
+    dtype = _check_operands(what, x, kernel, (b, 3, 3, c))
     out = torch.empty((b, h, w, c), device=x.device, dtype=dtype)
     err = getattr(library("dw_corr3x3", _SIGNATURES), f"dw_corr3x3_{_SUFFIX[dtype]}")(
         x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, c,
@@ -151,23 +153,89 @@ def dw_corr3x3_dx_cuda(dout: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor
     return out
 
 
+class DkPlan(NamedTuple):
+    """Kernel 3's launch: block (band, slice, b) of grid (bands, slices, B)
+    sums rows [band * band_rows, + band_rows) of channel vectors [slice *
+    slice_vectors, + slice_vectors) of sample b, in `tiles` column tiles of
+    tile_cols columns (the last may be narrower): each of the block's 256
+    threads owns one column of a tile and 4 channels; the bands of one
+    (b, slice) are one thread-block cluster."""
+    slice_vectors: int
+    slices: int
+    band_rows: int
+    bands: int
+    tile_cols: int
+    tiles: int
+
+
+# Kernel 3's geometry, as csrc/dw_corr3x3_bwd.cu names it (THREADS,
+# SLICE_CHANNELS, MAX_BANDS); the kernel rejects a plan beyond these limits.
+_DK_THREADS = 256
+_DK_SLICE_CHANNELS = 128   # a slice's channels, at most
+_DK_MAX_BANDS = 8          # blocks of a cluster: the portable limit
+
+
+def dw_corr3x3_dk_plan(b: int, h: int, w: int, c: int, vec: int, sms: int,
+                       fits: Callable[[int, int], int] | None = None) -> DkPlan:
+    """Kernel 3's launch plan for dk of x (b, h, w, c) in vectors of `vec`
+    channels on a card of `sms` SMs: the widest channel slice (a power of
+    two, at most 32 vectors and 128 channels) whose blocks, at up to 8
+    bands, outnumber the SMs, then as few bands as give about two blocks an
+    SM (the kernel's occupancy); a tile is as many columns as 256 threads of
+    4 channels cover. `fits(cs, bands)`, where given, is how many clusters
+    of that plan the card holds at once: the plan then takes the most
+    bands, at most those, whose b * slices clusters all fit, so that no
+    cluster waits for a second wave (none at all fitting leaves the bands as
+    they are). Finetune shapes on an H100 (132 SMs; slice vectors x bands
+    of rows x tiles of columns): head (8, 29, 39, 640) float32 32 x 5 of 6
+    x 5 of 8, bf16 16 x 5 of 6 x 5 of 8; stem (8, 240, 320, 64) float32 4 x
+    7 of 35 x 5 of 64, bf16 2 x 7 of 35 x 5 of 64 (without `fits`: 6 of 5
+    rows and 8 of 30)."""
+    cv, h1, w1 = max(c // vec, 1), max(h, 1), max(w, 1)
+    blocks = lambda cs, nb: b * -(-cv // cs) * nb
+    cs = min(32, _DK_SLICE_CHANNELS // vec)
+    while cs > 1 and (cs // 2 >= cv or blocks(cs, min(_DK_MAX_BANDS, h1)) <= sms):
+        cs //= 2
+    slices = -(-cv // cs)
+    bands = max(1, min(_DK_MAX_BANDS, h1, -(-2 * sms // (b * slices))))
+    if fits is not None:
+        bands = next((nb for nb in range(bands, 0, -1) if b * slices <= fits(cs, nb)), bands)
+    rows = -(-h1 // bands)
+    cols = _DK_THREADS // (cs * vec // 4)
+    return DkPlan(cs, slices, rows, -(-h1 // rows), cols, -(-w1 // cols))
+
+
+@functools.cache
+def _dk_clusters(bf16: bool, cs: int, bands: int, device: int) -> int:
+    """Clusters of kernel 3's (3b's) plan (cs, bands) that card `device`
+    holds at once (0 where the runtime cannot say)."""
+    n = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = library("dw_corr3x3_bwd", _BWD_SIGNATURES).dw_corr3x3_dk_clusters(int(bf16), cs, bands, ctypes.byref(n))
+    return n.value if err == 0 else 0
+
+
 def dw_corr3x3_dk_cuda(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """Kernel 3 (float32) or 3b (bf16): dk (B, 3, 3, C) of kernel 1, the sum
     over H * W of the padded x window times dout, in float32 in a fixed
-    order (bitwise repeatable), stored in the operands' dtype. x as kernel 1
-    takes it (any batch stride); dout contiguous (B, H, W, C). The gradient
-    is per sample even where k was broadcast: autograd's expand sums it."""
+    order (bitwise repeatable), stored in the operands' dtype; one launch,
+    no scratch (the bands' partial sums meet in a thread-block cluster's
+    shared memory). x as kernel 1 takes it (any batch stride); dout
+    contiguous (B, H, W, C); C % 4 == 0 in float32, C % 8 == 0 in bf16 (one
+    16-byte vector). The gradient is per sample even where k was broadcast:
+    autograd's expand sums it."""
     b, h, w, c = x.shape
     if not dout.is_contiguous():
         raise ValueError("dw_corr3x3_dk_cuda needs a contiguous dout")
-    dtype = _check_operands("dw_corr3x3_dk_cuda", x, dout, (b, h, w, c), 4)
-    lib = library("dw_corr3x3_bwd", _BWD_SIGNATURES)
-    partial = torch.empty((b, lib.dw_corr3x3_dk_chunks(h, w, c), 9, c), device=x.device,
-                          dtype=torch.float32)
+    dtype = _check_operands("dw_corr3x3_dk_cuda", x, dout, (b, h, w, c))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = dw_corr3x3_dk_plan(b, h, w, c, _VEC[dtype], sms,
+                              lambda cs, nb: _dk_clusters(dtype == torch.bfloat16, cs, nb, x.device.index))
     dk = torch.empty((b, 3, 3, c), device=x.device, dtype=dtype)
     name = f"dw_corr3x3_dk_{_SUFFIX[dtype]}"
-    err = getattr(lib, name)(x.data_ptr(), dout.data_ptr(), partial.data_ptr(), dk.data_ptr(),
-                             b, h, w, c, _batch_stride(x), stream_ptr(x.device))
+    err = getattr(library("dw_corr3x3_bwd", _BWD_SIGNATURES), name)(
+        x.data_ptr(), dout.data_ptr(), dk.data_ptr(), b, h, w, c, _batch_stride(x),
+        plan.slice_vectors, plan.band_rows, plan.bands, stream_ptr(x.device))
     check(err, name)
     _count(dw_corr3x3_dk_cuda, dtype)
     return dk

@@ -18,7 +18,11 @@ kernel by dtype:
     package's bf16 scorer): `csrc/sa_mlp_max_bf16.cu` (kernel 2b), one
     bf16 `wgmma` pass from weights that `pack_sa_weights_bf16` lays out.
     As in JAX, each layer sums in float32, adds the float32 bias, applies
-    relu and rounds to bf16; the xyz offsets are bf16 differences.
+    relu and rounds to bf16; the xyz offsets are bf16 differences. Each
+    warpgroup gathers its next group while the current one's layers run:
+    feature rows 16-byte aligned (rows of their own, as SA2's input) by
+    16-byte `cp.async`, others (a view into the point rows, as SA1's) and
+    the xyz rows through registers.
 """
 
 from __future__ import annotations

@@ -75,6 +75,85 @@ def test_dtype_mix_raises():
             fn(p16[..., :3], p16[..., 3:], *idx, [w.bfloat16() for w in Ws], [b.bfloat16() for b in bs])
 
 
+# dk launch plans: the finetune's shapes and edges, each in float32 (4
+# channels a vector) and bf16 (8), planned for an H100's 132 SMs without and
+# with a cluster capacity (one that falls as clusters grow)
+_dk_plan_shape = pytest.mark.parametrize("shape", [
+    (8, 29, 39, 640), (8, 240, 320, 64), (1, 5, 7, 8), (3, 6, 13, 16),
+    (4, 6, 39, 64), (16, 12, 21, 80), (16, 12, 21, 160), (2, 1, 1, 8)])
+_dk_plan_vec = pytest.mark.parametrize("vec", [4, 8])
+_dk_plan_fits = pytest.mark.parametrize("fits", [None, lambda cs, bands: 264 // (bands + 1)], ids=["any", "one wave"])
+_H100_SMS = 132
+
+
+@_dk_plan_shape
+@_dk_plan_vec
+@_dk_plan_fits
+def test_dk_plan_covers_every_row_column_and_channel_once(shape, vec, fits):
+    """Kernel 3's launch plan (ops/conv.py::dw_corr3x3_dk_plan), walked as
+    the kernel walks it: block (band, slice) of a sample takes rows [band *
+    BH, band * BH + BH) within H and column tiles [t * TW, t * TW + TW)
+    within W; its thread i owns, in every tile, column i // L and the 4
+    channels of lane i % L, L = CS * vec / 4 lanes a column, vector slice *
+    CS + (i % L) // (vec / 4). Every (row, column, 4 channels) is summed
+    exactly once; slices, bands and clusters stay within what the kernel
+    takes (a power of two of at most 32 vectors and 128 channels a slice,
+    256 threads a tile, 8 bands a cluster, no empty band or tile). The
+    finetune's shapes keep every SM busy: at least 128 blocks. With `fits`
+    (how many clusters of a plan a card holds at once; here one whose
+    capacity falls as clusters grow), every cluster fits one wave."""
+    b, h, w, c = shape
+    plan = tconv.dw_corr3x3_dk_plan(b, h, w, c, vec, _H100_SMS, fits)
+    cs, slices, bh, bands, tw, tiles = plan
+    lanes, nquads = cs * vec // 4, c // 4
+    assert cs in (1, 2, 4, 8, 16, 32) and cs * vec <= 128 and tw * lanes == 256
+    assert slices == -(-(c // vec) // cs) and 1 <= bands <= 8 and bh * bands >= h and bh * (bands - 1) < h
+    assert tiles * tw >= w and tw * (tiles - 1) < w
+    seen = np.zeros((h, w, slices * lanes), np.int32)
+    for band in range(bands):
+        rows = slice(band * bh, min(h, band * bh + bh))
+        for sl in range(slices):
+            for t in range(tiles):
+                for i in range(256):
+                    col = t * tw + i // lanes
+                    if col < w:
+                        seen[rows, col, sl * lanes + i % lanes] += 1
+    assert (seen[..., :nquads] == 1).all()
+    if shape in ((8, 29, 39, 640), (8, 240, 320, 64)):
+        assert b * slices * bands >= 128
+    if fits is not None and b * slices <= fits(cs, 1):
+        assert b * slices <= fits(cs, bands)
+
+
+@pytest.mark.cuda
+@_dk_plan_shape
+@_dk_plan_vec
+@_dk_plan_fits
+def test_dk_kernel_takes_every_plan_the_cpu_test_walks(cuda, shape, vec, fits):
+    """Kernels 3 / 3b launched directly with each plan that
+    test_dk_plan_covers_every_row_column_and_channel_once walks: the kernel
+    accepts it (its own copy of the geometry agrees with ops/conv.py's) and
+    sums every row, column and channel, against the plain version (float32:
+    1e-4 of the largest magnitude; bf16: one bf16 step of it, at least
+    1e-4)."""
+    b, h, w, c = shape
+    dtype = torch.float32 if vec == 4 else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(b, h, w, c, device="cuda", generator=g).to(dtype)
+    dout = torch.randn(b, h, w, c, device="cuda", generator=g).to(dtype)
+    plan = tconv.dw_corr3x3_dk_plan(b, h, w, c, vec, _H100_SMS, fits)
+    dk = torch.empty((b, 3, 3, c), device="cuda", dtype=dtype)
+    lib = tconv.library("dw_corr3x3_bwd", tconv._BWD_SIGNATURES)
+    err = getattr(lib, f"dw_corr3x3_dk_{tconv._SUFFIX[dtype]}")(
+        x.data_ptr(), dout.data_ptr(), dk.data_ptr(), b, h, w, c, x.stride(0),
+        plan.slice_vectors, plan.band_rows, plan.bands, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, plan
+    want = tconv.dw_corr3x3_dk_plain(x.float(), dout.float())
+    scale = want.abs().max().item()
+    tol = 1e-4 * scale if vec == 4 else max(BF16_STEP * scale, 1e-4)
+    assert (dk.float() - want).abs().max().item() <= tol, plan
+
+
 @pytest.mark.cuda
 def test_sa_layout_is_the_kernels(cuda):
     """The packed layout that the wrapper and the CPU tests use is the one
@@ -128,6 +207,7 @@ def _dw_plain_grads(x, k, dout):
     ((1, 5, 7, 4), False, False),        # B = 1, C = 4
     ((3, 6, 13, 12), False, True),       # W = 13, not a multiple of the run length 8; k broadcast
     ((4, 6, 39, 64), True, False),       # x broadcast (as at detect's correlation head)
+    ((16, 12, 21, 80), False, False),    # dk: a partly filled last channel slice, 6-band clusters
 ])
 def test_dw_corr3x3_backward_matches_plain(cuda, shape, x_broadcast, k_broadcast):
     """depthwise_corr's gradients on the card (kernel 1 for dx, kernel 3 for
@@ -152,11 +232,13 @@ def test_dw_corr3x3_backward_matches_plain(cuda, shape, x_broadcast, k_broadcast
 
 
 @pytest.mark.cuda
-def test_dw_corr3x3_dk_is_bitwise_repeatable(cuda):
-    """Kernel 3 reduces in a fixed order without atomics."""
+@pytest.mark.parametrize("shape", [(8, 240, 320, 64), (8, 29, 39, 640)])
+def test_dw_corr3x3_dk_is_bitwise_repeatable(cuda, shape):
+    """Kernel 3 reduces in a fixed order without atomics (the finetune's
+    stem and head shapes)."""
     g = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.randn(8, 240, 320, 64, device="cuda", generator=g)
-    dout = torch.randn(8, 240, 320, 64, device="cuda", generator=g)
+    x = torch.randn(*shape, device="cuda", generator=g)
+    dout = torch.randn(*shape, device="cuda", generator=g)
     first = tconv.dw_corr3x3_dk_cuda(x, dout)
     for _ in range(3):
         assert torch.equal(tconv.dw_corr3x3_dk_cuda(x, dout), first)
@@ -281,6 +363,7 @@ def test_dw_corr3x3_bf16_matches_plain(cuda, shape, x_broadcast, k_broadcast):
     ((1, 5, 7, 8), False, False),        # B = 1, C = 8
     ((3, 6, 13, 16), False, True),       # W = 13; k broadcast
     ((4, 6, 39, 64), True, False),       # x broadcast
+    ((16, 12, 21, 160), False, False),   # dk: a partly filled last channel slice, 6-band clusters
 ])
 def test_dw_corr3x3_bf16_backward_matches_plain(cuda, shape, x_broadcast, k_broadcast):
     """depthwise_corr's bf16 gradients on the card (kernel 1b for dx,
@@ -308,11 +391,12 @@ def test_dw_corr3x3_bf16_backward_matches_plain(cuda, shape, x_broadcast, k_broa
 
 
 @pytest.mark.cuda
-def test_dw_corr3x3_dk_bf16_is_bitwise_repeatable(cuda):
+@pytest.mark.parametrize("shape", [(8, 240, 320, 64), (8, 29, 39, 640)])
+def test_dw_corr3x3_dk_bf16_is_bitwise_repeatable(cuda, shape):
     """Kernel 3b keeps kernel 3's fixed reduction order."""
     g = torch.Generator(device="cuda").manual_seed(12)
-    x = torch.randn(8, 240, 320, 64, device="cuda", generator=g).bfloat16()
-    dout = torch.randn(8, 240, 320, 64, device="cuda", generator=g).bfloat16()
+    x = torch.randn(*shape, device="cuda", generator=g).bfloat16()
+    dout = torch.randn(*shape, device="cuda", generator=g).bfloat16()
     first = tconv.dw_corr3x3_dk_cuda(x, dout)
     for _ in range(3):
         assert torch.equal(tconv.dw_corr3x3_dk_cuda(x, dout), first)
@@ -328,14 +412,19 @@ def test_dw_corr3x3_dk_bf16_is_bitwise_repeatable(cuda):
     ((128, 128, 256), 128, 256, 512, 128, 64, 0.0, 0.0),   # SA2 at the gating bucket M = 256
     ((64, 64, 128), 8, 3, 200, 37, 13, -0.1, 0.3),         # layer 3 mostly negative
     ((128, 128, 256), 128, 5, 301, 301, 29, -0.05, 0.3),
-    ((64, 64, 128), 8, 1, 1, 1, 1, 0.0, 0.0),              # one group of one row
+    ((64, 64, 128), 8, 1, 1, 1, 1, 0.0, 0.0),              # one group of one row: fewer groups than warpgroups
+    ((64, 64, 128), 8, 16, 301, 301, 13, 0.0, 0.0),        # k = 13, several groups a warpgroup: the next
+    ((128, 128, 256), 128, 8, 301, 301, 13, 0.0, 0.0),     # group's gather in flight
 ])
-def test_sa_mlp_max_bf16_matches_plain(cuda, widths, cf, m, n, s, k, w3, b3):
+@pytest.mark.parametrize("aligned", [False, True])
+def test_sa_mlp_max_bf16_matches_plain(cuda, widths, cf, m, n, s, k, w3, b3, aligned):
     """Kernel 2b (one bf16 pass of wgmma) against the plain bf16 version
     (float32 sums, float32 bias, relu, a round to bf16 per layer): a
     layer's float32 sum in another order may round to the other bf16
     neighbour and move the next layers by a step; two steps of the largest
-    magnitude, 1% of the elements beyond one step of their own."""
+    magnitude, 1% of the elements beyond one step of their own. Features
+    as a view into the point rows (2-byte aligned: gathered through
+    registers) or in rows of their own (16-byte aligned: cp.async)."""
     rng = np.random.default_rng(13)
     pts, cidx, gidx = _sa_inputs(rng, m, n, cf, s, k)
     dims = (3 + cf,) + widths
@@ -344,7 +433,8 @@ def test_sa_mlp_max_bf16_matches_plain(cuda, widths, cf, m, n, s, k, w3, b3):
     bs = [torch.from_numpy(rng.normal(b3 * (i == 2), 0.2, dims[i + 1]).astype(np.float32)).cuda()
           for i in range(3)]
     p = torch.from_numpy(pts).cuda().bfloat16()
-    args = (p[..., :3], p[..., 3:], torch.from_numpy(cidx).cuda(), torch.from_numpy(gidx).cuda(), Ws, bs)
+    feats = p[..., 3:].contiguous() if aligned else p[..., 3:]
+    args = (p[..., :3], feats, torch.from_numpy(cidx).cuda(), torch.from_numpy(gidx).cuda(), Ws, bs)
     before = tsa.sa_mlp_max_cuda.launches_bf16
     with torch.inference_mode():
         got = tsa.sa_mlp_max_cuda(*args)
