@@ -46,11 +46,26 @@ Phases, each of which exits non-zero on failure:
      BatchNorm running statistics; 7b. one bf16_finetune step against the
      card's own float32 step from the same weights (batch 8): the loss, the
      gradients leaf by leaf, float32 master state, and the loss falling
-     over 3 bf16 steps.
-Weights are random, from fixed seeds. The float32 paths run with TF32 off
+     over 3 bf16 steps; the host-clock split of a float32 and of a bf16
+     step by span (DtoidModel.step_spans) beside their times, and the two
+     steps timed in turns on the same weights;
+  8. the end-to-end demo (ossid_code_torch/scripts/demo_e2e.py) with the JAX
+     bench's reduced quality protocol (--hard --n_objects 2 --frames 24
+     --epochs 8 --zephyr_epochs 6 --pretrain_frames 12; 240x320,
+     DenseNet-121, T=6, a 256-point scorer, batch 4): first kernels 1, its
+     dx, 3 and 2 against their plain versions at the demo's shapes, then
+     the demo itself (world, DTOID evaluation, offline pretraining, PPF with
+     host ICP, scorer training and calibration, the full-scene bootstrap,
+     the online loop with host ICP, BOP AR) with each kernel's launches per
+     stage checked against the schedule, AR >= 0.30 (the JAX bench's floor),
+     and the bf16 scorer on the trained weights against the float32 one on
+     the calibration sets (pick agreement, ADD-correct picks, which must
+     be float32's within BF16_SCORER_ADD_SLACK).
+Weights are random, from fixed seeds (the demo trains its own). The float32 paths run with TF32 off
 for cuDNN convolutions and cuBLAS matmuls (main path and comparisons).
 
-Before the last line it prints a `kernels` JSON line (six kernel instances);
+Before the last line it prints a `kernels` JSON line (six kernel instances;
+the float32 ones with their launches in the loop and in the demo);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or without the ossid_code_torch package beside it, it exits
@@ -84,6 +99,9 @@ REFINE_TOP = 24
 DEPTH_CROP = 256
 FINETUNE_INTERVAL = 8    # the gating profile's 32, cut so 16 targets give 2 events
 FINETUNE_BATCH = 8
+# 7b times the float32 and bf16 steps in turns (f32, bf16, bf16, f32, ...),
+# this many readings of each; the loop phases time each once, minutes apart
+STEP_TURNS = 4
 # one step on the card against the CPU. Loss and BatchNorm statistics:
 # relative to the largest magnitude. Gradients, leaf by leaf: the L2 norm of
 # the difference over the L2 norm of the CPU gradient. At full width the
@@ -148,6 +166,16 @@ BF16_SCORE_TOL = 0.2
 # the 90th percentile, the statistic that parts sound runs from all three.
 STEP16_LOSS_TOL = 0.05
 STEP16_GRAD_P90_TOL = 1.35
+# the JAX bench's reduced hard-world quality protocol (bench.py:454-461) and
+# its AR floor (bench.py:462-469)
+DEMO_ARGV = ["--hard", "--n_objects", "2", "--frames", "24", "--epochs", "8", "--zephyr_epochs", "6",
+             "--pretrain_frames", "12"]
+DEMO_AR_FLOOR = 0.30
+# the bf16 scorer on the demo's trained weights: its picks ADD-correct on as
+# many calibration sets as float32's, within this many (PERF.md's criterion)
+BF16_SCORER_ADD_SLACK = 2
+DEMO_TEMPLATES = 6
+DEMO_POINTS = 256
 SLEEP_CYCLES = 20_000_000  # ~10 ms of a 1.98 GHz SM clock: longer than enqueueing one timed run
 
 
@@ -209,9 +237,11 @@ def profile_call(torch, fn) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if by_name else None,
-            "top_kernels_ms": [(name[:70], ms) for name, ms in top]}
+            "top_kernels_ms": [(name[:70], ms) for name, ms in top],
+            "host_top_ops_self_ms": [(a.key[:50], a.self_cpu_time_total / 1e3, a.count) for a in host]}
 
 
 def bound_ms(bytes_moved: float, flops: float, flops_per_s: float = FP32_FLOPS):
@@ -286,6 +316,28 @@ def dw_corr_cases(torch, device):
     ]
 
 
+def demo_dw_corr_cases(torch, device):
+    """Kernel 1 at the demo's detection shapes (240x320, T = 6): the
+    correlation head and the image-encoder stem."""
+    g = torch.Generator(device=device).manual_seed(11)
+    feat = torch.randn(1, 14, 19, 640, device=device, generator=g)
+    return [
+        ("demo correlation head", feat.expand(DEMO_TEMPLATES, 14, 19, 640),
+         torch.randn(DEMO_TEMPLATES, 3, 3, 640, device=device, generator=g)),
+        ("demo image-encoder stem", torch.randn(1, 120, 160, 64, device=device, generator=g),
+         torch.randn(1, 3, 3, 64, device=device, generator=g)),
+    ]
+
+
+def demo_dw_bwd_cases(torch, device):
+    """The backward (dx: kernel 1; dk: kernel 3) at the demo's training
+    shapes (batch 4 at 240x320)."""
+    g = torch.Generator(device=device).manual_seed(12)
+    r = lambda *shape: torch.randn(*shape, device=device, generator=g)
+    return [("demo correlation head", r(4, 14, 19, 640), r(4, 3, 3, 640), r(4, 14, 19, 640)),
+            ("demo image-encoder stem", r(4, 120, 160, 64), r(4, 3, 3, 64), r(4, 120, 160, 64))]
+
+
 def dw_corr_edge_cases(torch, device, bf16=False):
     """Shapes off the main path that reach the kernel's edges: a W that is
     not a multiple of the run length (4), k broadcast with stride 0 over B,
@@ -353,7 +405,7 @@ def measure_sa(torch, sa, zephyr, prep, m, bf16=False):
     clock."""
     dt = torch.bfloat16 if bf16 else torch.float32
     g = torch.Generator(device=zephyr.device).manual_seed(2)
-    point_x = (torch.randn(m, NUM_POINTS, 11, device=zephyr.device, generator=g) * 0.05).to(dt)
+    point_x = (torch.randn(m, zephyr.num_points, 11, device=zephyr.device, generator=g) * 0.05).to(dt)
     _, _, _, sa1c, sa1g, sa2c, sa2g = prep[:7]
     mods = zephyr.net.SA_modules
     folded = [[w.to(dt) for w in Ws] + list(bs) for Ws, bs in (mods[i].mlps[0].folded() for i in range(2))]
@@ -694,7 +746,7 @@ def hypo_gens(bop):
     from ossid_code_torch.hypo.ppf import PPFModelMeters
 
     return {oid: PPFModelMeters(bop.getObjPath(oid), ModelSamplingDist=0.04, scene_sampling_dist=0.05,
-                                ref_pt_rate=0.25, max_poses=LOOP_HYPOS) for oid in bop.obj_ids}
+                                ref_pt_rate=0.25, refine_top=0, max_poses=LOOP_HYPOS) for oid in bop.obj_ids}
 
 
 def run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens):
@@ -745,9 +797,11 @@ def finetune_batch(rng, b):
     }
 
 
-def time_train_step(torch, dtoid, rng, steps: int = 3) -> float:
+def time_train_step(torch, dtoid, rng, steps: int = 3):
     """Host-clock ms of one train_step_u8 at batch FINETUNE_BATCH, the
-    replay feed the loop uses, after one warm-up step, synchronised."""
+    replay feed the loop uses, after one warm-up step, synchronised; and the
+    host-clock ms of each of the step's spans (DtoidModel.step_spans: the
+    host's time to issue each part, without waiting for the device)."""
     b = FINETUNE_BATCH
     batch = finetune_batch(rng, b)
     feed = {"img_u8": torch.from_numpy((batch["img"] * 255).astype(np.uint8)).cuda(),
@@ -757,11 +811,15 @@ def time_train_step(torch, dtoid, rng, steps: int = 3) -> float:
             "bbox_gt": batch["bbox_gt"], "heatmap": batch["heatmap"]}
     dtoid.train_step_u8(feed)
     torch.cuda.synchronize()
+    dtoid.step_spans = {}
     t0 = time.perf_counter()
     for _ in range(steps):
         dtoid.train_step_u8(feed)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / steps
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    spans = {k: v * 1e3 / steps for k, v in dtoid.step_spans.items()}
+    dtoid.step_spans = None
+    return ms, spans
 
 
 def check_loop(rows, n_frames, launches, expected):
@@ -942,6 +1000,140 @@ def compare_step_bf16(torch, m16, m32, batch, steps: int = 3):
     return out
 
 
+def demo_kernels(torch, F, conv, sa, device):
+    """Kernels 1, its dx, 3 and 2 against their plain versions at the demo's
+    shapes, timed as in phases 2 and 5: detection at 240x320 with T = 6,
+    training steps at batch 4, and the 256-point scorer's SA stages at the
+    calibration's and the loop's bucket 128 and the bootstrap's 256."""
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+
+    with torch.inference_mode():
+        dw = measure_dw_corr(torch, F, conv, demo_dw_corr_cases(torch, device), dw_check(torch, False))
+    cases = demo_dw_bwd_cases(torch, device)
+    for case in cases:
+        check_dw_bwd(torch, conv, *case)
+    with torch.inference_mode():
+        bwd = measure_dw_bwd(torch, conv, cases)
+        z = ZephyrModel(num_points=DEMO_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False, align_feats=True,
+                        device=device)
+        scene = make_scene(np.random.default_rng(13))
+        prep = z.prepare_object(0, scene["model_points"], scene["model_colors"], scene["model_normals"])
+        sa_rows = measure_sa(torch, sa, z, prep, 128) + measure_sa(torch, sa, z, prep, 256)
+    return dw, bwd, sa_rows
+
+
+def demo_launch_schedule(stage: str, counts: dict) -> dict:
+    """The float32 kernels' launches that the demo's code fixes for one stage:
+    2 of kernel 1 per detect (stem and correlation head) and per train step
+    (its forward), 2 of dx and of dk per train step, 2 of kernel 2 per score
+    call (SA1, SA2), none in scorer training (unfused, as the JAX package
+    trains)."""
+    zero = {"dw_corr3x3": 0, "dw_corr3x3_dx": 0, "dw_corr3x3_dk": 0, "sa_mlp_max": 0}
+    if stage in ("eval_untrained", "eval_pretrained"):
+        return dict(zero, dw_corr3x3=2 * counts["detects_per_eval"])
+    if stage == "pretraining":
+        n = counts["pretrain_steps"]
+        return dict(zero, dw_corr3x3=2 * n, dw_corr3x3_dx=2 * n, dw_corr3x3_dk=2 * n)
+    if stage in ("calibration", "bootstrap"):
+        return dict(zero, sa_mlp_max=2 * counts[f"{stage}_scored"])
+    if stage == "loop":
+        n = counts["finetune_steps"]
+        return dict(zero, dw_corr3x3=2 * counts["loop_frames"] + 2 * n, dw_corr3x3_dx=2 * n,
+                    dw_corr3x3_dk=2 * n, sa_mlp_max=2 * counts["loop_scored"])
+    return zero
+
+
+def bf16_scorer_picks(torch, ztrainer) -> dict:
+    """The demo's trained scorer in bf16 (ZephyrModel(bf16=True) on the same
+    weights) against float32 on the calibration's real PPF sets: how often
+    the picks agree, and how often each pick is ADD-correct."""
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+    from ossid_code_torch.train.zephyr_offline import ZephyrOfflineTrainer
+
+    z32 = ztrainer.model
+    z16 = ZephyrModel(num_points=z32.num_points, inconst_ratio_th=z32.inconst_ratio_th, need_uv=False,
+                      align_feats=True, bf16=True, device=z32.device)
+    z16.load_state_dict(z32.state_dict())
+    t16 = ZephyrOfflineTrainer(z16, ztrainer.bop, ztrainer.model_clouds, hypo_gens=ztrainer.hypo_gens)
+    targets = list(ztrainer.bop.targets)
+    w, b = (t.detach().cpu().numpy() for t in (z32.net.align_head.weight, z32.net.align_head.bias))
+    out = {"frames": 0, "picks_equal": 0, "add_correct_f32": 0, "add_correct_bf16": 0, "winnable": 0}
+    for r32, r16 in zip(ztrainer._collect_real_sets(targets), t16._collect_real_sets(targets)):
+        if r32 is None:
+            continue
+        i32 = int(np.argmax(r32["scores"] + r32["stats9"] @ w[0] + b[0]))
+        i16 = int(np.argmax(r16["scores"] + r16["stats9"] @ w[0] + b[0]))
+        out["frames"] += 1
+        out["picks_equal"] += i32 == i16
+        out["add_correct_f32"] += bool(r32["errs"][i32] < r32["th"])
+        out["add_correct_bf16"] += bool(r16["errs"][i16] < r16["th"])
+        out["winnable"] += bool(r32["errs"].min() < r32["th"])
+    return out
+
+
+def scorer_step_split(torch, ztrainer, steps: int = 3) -> dict:
+    """Host-clock ms (synchronised) of one scorer train step on a demo
+    training frame, and of its in-graph grouping alone (FPS and ball query
+    of SA1 and SA2, as the step runs them)."""
+    from ossid_code_torch.ops.pointcloud import ball_query, farthest_point_sample, gather_points
+
+    point_x, labels, valid = ztrainer.make_training_batch(ztrainer.bop.targets[0])
+    n = point_x.shape[1]
+
+    def grouping():
+        xyz = point_x[..., :3]
+        idx = farthest_point_sample(xyz, min(512, n))
+        c1 = gather_points(xyz, idx)
+        ball_query(c1, xyz, 0.2, min(64, n))
+        idx2 = farthest_point_sample(c1, min(128, n))
+        ball_query(gather_points(c1, idx2), c1, 0.4, 64)
+
+    out = {"hypotheses": int(point_x.shape[0]), "points": int(n)}
+    for name, fn in (("train_step_ms", lambda: ztrainer.model.train_step(point_x, labels, valid, seed=0)),
+                     ("grouping_ms", grouping)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / steps
+    out["grouping_share"] = out["grouping_ms"] / out["train_step_ms"]
+    return out
+
+
+def run_demo(torch, conv, sa):
+    """The demo through its entry point, every launch counter at 0 just
+    before, read at the end of each stage; then, in its world, the bf16
+    scorer against the float32 one (bf16_scorer_picks) and the scorer
+    step's grouping share (scorer_step_split). Returns (summary, launches
+    by stage, wall s of the demo, the bf16 picks, the step split)."""
+    import tempfile
+
+    from ossid_code_torch.scripts import demo_e2e
+
+    counters = {"dw_corr3x3": conv.dw_corr3x3_cuda, "dw_corr3x3_dx": conv.dw_corr3x3_dx_cuda,
+                "dw_corr3x3_dk": conv.dw_corr3x3_dk_cuda, "sa_mlp_max": sa.sa_mlp_max_cuda}
+    by_stage, seen, kept = {}, {}, {}
+
+    def on_stage(name, **objects):
+        now = {k: c.launches for k, c in counters.items()}
+        now.update({f"{k}_bf16": c.launches_bf16 for k, c in counters.items()})
+        by_stage[name] = {k: v - seen.get(k, 0) for k, v in now.items()}
+        seen.update(now)
+        if "ztrainer" in objects:
+            kept["ztrainer"] = objects["ztrainer"]
+
+    with tempfile.TemporaryDirectory(prefix="ossid_demo_") as root:
+        for c in counters.values():
+            c.launches = c.launches_bf16 = 0
+        t0 = time.perf_counter()
+        out = demo_e2e.main(DEMO_ARGV + ["--root", root], on_stage=on_stage)
+        wall_s = time.perf_counter() - t0
+        picks = bf16_scorer_picks(torch, kept["ztrainer"])
+        return out, by_stage, wall_s, picks, scorer_step_split(torch, kept["ztrainer"])
+
+
 def main() -> int:
     import torch
 
@@ -972,9 +1164,9 @@ def main() -> int:
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
     logs = build.build()
-    for lib in ("ppf", "rasterizer"):
+    for lib in ("ppf", "rasterizer", "icp"):
         build.build_native(lib)
-    print(f"built {[s.name for s in build.sources()]} and native/ppf.cpp, native/rasterizer.cpp "
+    print(f"built {[s.name for s in build.sources()]} and native/ppf.cpp, native/rasterizer.cpp, native/icp.cpp "
           f"in {time.perf_counter() - t0:.1f} s")
     for src, log in logs.items():
         for kernel, report in ptxas_report(log):
@@ -1151,7 +1343,7 @@ def main() -> int:
         perturb_heads(dtoid_loop.net, 2)
         zephyr_loop = ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0,
                                   need_uv=False, refine_top=REFINE_TOP, device=device)
-        step_ms = time_train_step(torch, dtoid_loop, np.random.default_rng(5))
+        step_ms, step_spans = time_train_step(torch, dtoid_loop, np.random.default_rng(5))
         dtoid_loop.reset_optimizer()
         # warm-up of the refined score program (solver and cuBLAS handles)
         warm = FakeHypoGen(n_hypos=LOOP_HYPOS, seed=0)
@@ -1163,7 +1355,7 @@ def main() -> int:
         cfg_loop16 = cfg_loop.merged({"model": {"bf16_finetune": True}})
         dtoid_loop16 = DtoidModel(cfg_loop16, seed=1, device=device)
         perturb_heads(dtoid_loop16.net, 2)
-        step16_ms = time_train_step(torch, dtoid_loop16, np.random.default_rng(5))
+        step16_ms, step16_spans = time_train_step(torch, dtoid_loop16, np.random.default_rng(5))
         dtoid_loop16.reset_optimizer()
         loop16 = drive_loop(torch, conv, sa, dtoid_loop16, zephyr_loop, cfg_loop16, bop, zr_list, gens)
     for label, (rows, wall_s, loop, launches, peak_gib, loop_profile), ms, bf16 in (
@@ -1206,6 +1398,51 @@ def main() -> int:
     step16_cmp = compare_step_bf16(torch, m16, m32, finetune_batch(np.random.default_rng(6), FINETUNE_BATCH))
     print(f"bf16 finetune step against the float32 step on the card, batch {FINETUNE_BATCH} at 480x640 "
           f"({time.perf_counter() - t0:.1f} s): {json.dumps(step16_cmp)}")
+    print(f"train step at batch {FINETUNE_BATCH}, host clock: float32 {step_ms:.1f} ms, bf16 {step16_ms:.1f} ms "
+          f"(bf16 {'faster' if step16_ms < step_ms else 'not faster'}); host spans (ms, issue time): "
+          f"float32 {json.dumps(step_spans)}, bf16 {json.dumps(step16_spans)}")
+    turns = {"float32": [], "bf16": []}
+    for i in range(STEP_TURNS):
+        for name, m in (("float32", m32), ("bf16", m16))[::1 if i % 2 == 0 else -1]:
+            turns[name].append(time_train_step(torch, m, np.random.default_rng(5))[0])
+    t32, t16 = (float(np.median(turns[k])) for k in ("float32", "bf16"))
+    print(f"train step at batch {FINETUNE_BATCH} in turns on the same weights, host clock, median of "
+          f"{STEP_TURNS}: float32 {t32:.1f} ms, bf16 {t16:.1f} ms (bf16 {'faster' if t16 < t32 else 'not faster'}); "
+          f"readings {json.dumps(turns)}")
+
+    # -- 8. the end-to-end demo at the bench's reduced quality protocol -------
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    demo_dw, demo_bwd, demo_sa = demo_kernels(torch, F, conv, sa, device)
+    for r in demo_dw + demo_sa:
+        print(f"{'sa_mlp_max' if 'S=' in r['shape'] else 'dw_corr3x3'} at the demo's {r['shape']}: err "
+              f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for r in demo_bwd:
+        print(f"dw_corr3x3 backward at the demo's {r['shape']}: dk rel err {r['dk_rel_err']:.3g}, dk {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']}); "
+              f"dx rel err {r['dx_rel_err']:.3g}, dx {r['dx_ms']:.4f} ms (plain {r['dx_plain_ms']:.4f}, cuDNN "
+              f"{r['dx_library_ms']:.4f}, bound {r['dx_bound_ms']:.4f})")
+    demo, demo_by_stage, demo_wall_s, picks16, zsplit = run_demo(torch, conv, sa)
+    counts = demo["counts"]
+    print(f"demo {' '.join(DEMO_ARGV)}: {demo_wall_s:.1f} s; stages (s) {json.dumps(demo['stage_s'])}; "
+          f"counts {json.dumps(counts)}")
+    print(f"demo launches by stage: {json.dumps(demo_by_stage)}")
+    for stage, got in demo_by_stage.items():
+        want = demo_launch_schedule(stage, counts)
+        if any(got[k] != v for k, v in want.items()) or any(got[f"{k}_bf16"] for k in want):
+            fail(f"demo stage {stage}: launches {got} differ from the schedule's {want}")
+    if demo["n_finetunes"] < 1 or not all(np.isfinite(demo[k]) for k in ("AR", "AR_vsd", "AR_mssd", "AR_mspd")):
+        fail(f"demo summary {demo}: expected finite ARs and at least one finetune")
+    if demo["AR"] < DEMO_AR_FLOOR:
+        fail(f"demo AR {demo['AR']} below the JAX bench's floor {DEMO_AR_FLOOR}")
+    demo_launches = {k: sum(st[k] for st in demo_by_stage.values()) for k in demo_by_stage["loop"]}
+    # the bf16 scorer on the trained weights (run after the counts were read)
+    print(f"bf16 scorer on the demo's trained weights against float32, calibration sets: {json.dumps(picks16)}")
+    if picks16["frames"] < 1 or \
+            abs(picks16["add_correct_bf16"] - picks16["add_correct_f32"]) > BF16_SCORER_ADD_SLACK:
+        fail(f"bf16 scorer on trained weights: {picks16['add_correct_bf16']} ADD-correct picks against float32's "
+             f"{picks16['add_correct_f32']} over {picks16['frames']} sets (limit {BF16_SCORER_ADD_SLACK} apart)")
+    print(f"scorer train step on a demo frame, host clock: {json.dumps(zsplit)}")
 
     hbm = f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"
     dw_src, bwd_src = "ossid_code_torch/csrc/dw_corr3x3.cu", "ossid_code_torch/csrc/dw_corr3x3_bwd.cu"
@@ -1216,14 +1453,18 @@ def main() -> int:
     # kernels' in the bf16 serving run (1b, 2b) and the bf16-finetune loop
     # run (1b, its dx, 3b), added, with each run's count beside
     by_path = lambda name: {"serving_bf16": serve16_launches.get(name, 0), "loop_bf16": loop16_launches[name]}
+    by_path32 = lambda name: {"loop": loop_launches[name], "demo": demo_launches[name]}
     kernels = [
         dict(summary("dw_corr3x3", dw_src, dw_replaces, loop_launches["dw_corr3x3"], dw_rows, dw_edge_err, hbm),
-             dtype="float32"),
+             dtype="float32", launches_by_path=by_path32("dw_corr3x3"), demo_shapes=demo_dw),
         dict(summary("dw_corr3x3_bwd", bwd_src, bwd_replaces, loop_launches["dw_corr3x3_dk"], bwd_rows,
-                     bwd_edge_err, hbm), dtype="float32", dx_launches=loop_launches["dw_corr3x3_dx"]),
+                     bwd_edge_err, hbm), dtype="float32", dx_launches=loop_launches["dw_corr3x3_dx"],
+             launches_by_path=by_path32("dw_corr3x3_dk"), dx_launches_by_path=by_path32("dw_corr3x3_dx"),
+             demo_shapes=demo_bwd),
         dict(summary("sa_mlp_max", "ossid_code_torch/csrc/sa_mlp_max.cu", "ossid_code_tpu/ops/sa_fused.py:85",
                      loop_launches["sa_mlp_max"], sa_rows, sa_edge_err,
-                     f"TF32 tensor cores {TF32_FLOPS / 1e12} TFLOP/s"), dtype="float32"),
+                     f"TF32 tensor cores {TF32_FLOPS / 1e12} TFLOP/s"), dtype="float32",
+             launches_by_path=by_path32("sa_mlp_max"), demo_shapes=demo_sa),
         dict(summary("dw_corr3x3_bf16", dw_src, dw_replaces, sum(by_path("dw_corr3x3_bf16").values()),
                      dw16_rows, dw16_edge_err, hbm), dtype="bfloat16", launches_by_path=by_path("dw_corr3x3_bf16")),
         dict(summary("dw_corr3x3_bwd_bf16", bwd_src, bwd_replaces, loop16_launches["dw_corr3x3_dk_bf16"],

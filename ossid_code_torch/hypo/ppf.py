@@ -55,9 +55,11 @@ class PPFModel(HypothesisGenerator):
             pts_m, _, nrm = model_cloud_from_ply(mesh, n_points=4096)
             points = pts_m * 1000.0  # model file is mm; cloud sampler returns m
             normals = nrm
+            self.model_points_m = pts_m
         else:
             points = np.asarray(model_path_or_points, np.float64)
             normals = None if normals is None else np.asarray(normals, np.float64)
+            self.model_points_m = points / 1000.0
 
         points = np.ascontiguousarray(points, np.float64)
         nptr = None
@@ -108,20 +110,49 @@ class PPFModel(HypothesisGenerator):
 
 class PPFModelMeters(PPFModel):
     """Convenience wrapper trained/matched in meters (used by the loop to
-    skip the reference's mm round trip). The JAX package's host ICP of the
-    top hypotheses (refine_top > 0) is not ported: the loop refines on the
-    device instead (ZephyrModel refine_top)."""
+    skip the reference's mm round trip).
 
-    def __init__(self, *args, refine_top: int = 0, **kwargs):
-        if refine_top > 0:
-            raise NotImplementedError(
-                "PPFModelMeters(refine_top > 0) needs the host ICP (hypo/icp.py), which is "
-                "not ported: ROADMAP.md, 'Still to port', host ICP")
+    refine_top > 0 runs point-to-point host ICP (hypo/icp.py) of the top-N
+    hypotheses against the (subsampled) scene cloud, the equivalent of
+    Halcon's DensePoseRefinement (the reference's LM-O hypotheses arrive
+    pre-refined, which is why its loop skips ICP there, ref
+    scripts/online_learning.py:172)."""
+
+    def __init__(self, *args, refine_top: int = 10, refine_max_dist: float = 0.01,
+                 model_points_m: np.ndarray | None = None, **kwargs):
         super().__init__(*args, **kwargs)
+        self.refine_top = refine_top
+        self.refine_max_dist = refine_max_dist
+        self._refine_model_pts = model_points_m if model_points_m is not None else self.model_points_m
 
     def find_surface_model(self, scene_pc_m, **kwargs):
         t0 = time.perf_counter()
         poses, scores, _ = super().find_surface_model(np.asarray(scene_pc_m) * 1000.0, **kwargs)
         poses = poses.copy()
         poses[:, :3, 3] /= 1000.0
+
+        if self.refine_top > 0 and self._refine_model_pts is not None and len(scene_pc_m) > 50:
+            from scipy.spatial import cKDTree
+
+            from ossid_code_torch.hypo.icp import icp_point_cloud, icp_refine_native
+
+            scene = np.asarray(scene_pc_m, np.float64)
+            if len(scene) > 1200:
+                scene = scene[np.linspace(0, len(scene) - 1, 1200).round().astype(int)]
+            mp = self._refine_model_pts
+            if len(mp) > 400:
+                mp = mp[np.linspace(0, len(mp) - 1, 400).round().astype(int)]
+            tree = None
+            for i in range(min(self.refine_top, len(poses))):
+                out = icp_refine_native(poses[i], mp, scene, icp_max_dist=self.refine_max_dist, max_iter=12)
+                if out is not None:
+                    poses[i] = out[0]
+                    continue
+                # the C++ solver found too few correspondences
+                if tree is None:
+                    tree = cKDTree(scene)
+                refined, err, _ = icp_point_cloud(poses[i], mp, tree, scene,
+                                                  icp_max_dist=self.refine_max_dist, max_iter=12)
+                if np.isfinite(err):
+                    poses[i] = refined
         return poses, scores, time.perf_counter() - t0

@@ -4,7 +4,8 @@ ossid_code_tpu/loop/online_learning.py, on its synchronous path).
 Each frame, in order: DTOID detection over all templates -> confidence gate
 (0.5) -> region mask -> host PPF (or fake) hypotheses in the region ->
 Zephyr scoring, with device ICP of the top hypotheses (`refine_top`) ->
-render of the picked pose -> visible pseudo-mask -> Zephyr gate (20) ->
+with `use_icp`, host ICP of the picked pose (hypo/icp.py) -> render of the
+picked pose -> visible pseudo-mask -> Zephyr gate (20) ->
 the frame joins the finetune buffer, and every `finetune_interval` buffered
 frames DTOID is finetuned from the device replay buffer (loop/replay.py).
 
@@ -14,17 +15,21 @@ next one starts, which is the JAX loop's `pipeline_scoring=False` path with
 inline fetches and one frame per fetch; the speculative detection, fetch
 threads, fetch bundling and the YUV transport of the JAX loop served its
 remote TPU link and are not ported. Result rows keep the JAX loop's schema.
+`test_dtoid_model` is the detection-only pass (`--raw_dtoid`).
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 import time
 
 import numpy as np
 import torch
 
+from ossid_code_torch.core.checkpoint import save_checkpoint
 from ossid_code_torch.data.dtoid_bop import NumpyLoader
+from ossid_code_torch.hypo.icp import icp_refinement
 from ossid_code_torch.loop.replay import DeviceReplayBuffer
 from ossid_code_torch.eval.pose_metrics import (
     add_err, adi_err, object_diameter, pp_err_batch_async, pp_err_fetch,
@@ -45,8 +50,6 @@ _NOT_PORTED = {
     "use_sift_hypos": "SIFT hypotheses",
     "use_maskrcnn": "the class-conditional detector",
     "yuv_transfer": "the pipelined transport",
-    "save_each": "per-finetune checkpoints",
-    "raw_dtoid": "the detection-only evaluation",
 }
 
 
@@ -99,11 +102,9 @@ class OnlineLearningLoop:
             if getattr(args, flag, False):
                 raise NotImplementedError(
                     f"--{flag} is not ported: ROADMAP.md, 'Still to port', {item}")
-        if use_icp:
-            raise NotImplementedError(
-                "use_icp (host ICP of the picked pose) is not ported: ROADMAP.md, "
-                "'Still to port', host ICP")
         self.args = args
+        # host ICP (hypo/icp.py) of the picked pose against the frame's depth
+        self.use_icp = bool(use_icp)
         self.cfg = cfg
         self.model = dtoid_model
         # share the test dataset's reader when it reads the same data, so
@@ -330,6 +331,17 @@ class OnlineLearningLoop:
         times["time_pperr"] = t_pp.interval
         times["time_zephyr"] = t.interval - t_pp.interval
         ctx["n_hypos"] = len(poses)
+        if self.use_icp:
+            with Timer() as t:
+                # crop box from the model points projected on the host under
+                # the picked pose (the device uv map's row for the pick)
+                pose = ctx["zout"]["pred_pose"]
+                cam = pts @ pose[:3, :3].T + pose[:3, 3]
+                z = np.clip(cam[:, 2], 1e-6, None)
+                uv = np.stack([cam_K[0, 0] * cam[:, 0] / z + cam_K[0, 2],
+                               cam_K[1, 1] * cam[:, 1] / z + cam_K[1, 2]], axis=1).round().astype(int)
+                ctx["zout"]["pred_pose"], _ = icp_refinement(depth, uv, pose, cam_K, pts, icp_max_dist=0.01)
+            times["time_icp"] = t.interval
 
     def _complete_frame(self, ctx, test_results, progress):
         """Pseudo-label render, self-supervision gate, finetune and the result
@@ -384,6 +396,8 @@ class OnlineLearningLoop:
                                           batch_size=args.finetune_batch_size, replay=self.replay)
                 times["time_finetune"] = t.interval
                 self.finetune_logs.append(logs)
+                if args.save_each:
+                    self._save_each_ckpt(iteration)
                 if args.non_cum:
                     self.train_dataset.clearTargets()
                     self.next_finetune_number = args.finetune_interval
@@ -423,6 +437,19 @@ class OnlineLearningLoop:
             print(f"[{iteration + 1}/{len(self.test_loader)}] obj {obj_id} "
                   f"score {pred_score:.2f} add01d {result['pred_add01d']:.0f} "
                   f"dtoid {ctx['time_dtoid'] * 1000:.0f}ms", flush=True)
+
+    def _save_each_ckpt(self, iteration: int) -> None:
+        """--save_each: the weights right after each finetune, as
+        <save_root>/<exp_name>/epoch_<iteration>.ckpt (ref
+        online_learning.py:535-546), a torch file with the iteration and the
+        configuration beside the state_dict, under `args.save_root`."""
+        root = getattr(self.args, "save_root", None)
+        if not root:
+            raise ValueError("--save_each needs args.save_root")
+        folder = os.path.join(root, self.args.exp_name)
+        os.makedirs(folder, exist_ok=True)
+        save_checkpoint(os.path.join(folder, f"epoch_{iteration}.ckpt"), self.model.state_dict(),
+                        extra={"iteration": iteration, "conf": self.cfg.to_dict()})
 
     def save_results(self, path: str, test_results: list) -> None:
         """The JAX CLI's results pickle: rows, arguments, finetune logs and
@@ -522,3 +549,25 @@ def finetune_dtoid(model, train_dataset, epochs: int = 1, batch_size: int = 8, r
         loss_per_epoch.append(epoch_losses)
     model.clear_cache()
     return _collect_loss_logs(loss_per_epoch)
+
+
+def test_dtoid_model(model, test_loader, bop_dataset=None):
+    """Detection-only evaluation pass (`--raw_dtoid`, ref
+    online_learning.py:620-648): one row per target."""
+    test_results = []
+    for batch in test_loader:
+        obj_id = int(batch["obj_id"][0])
+        out = model.forward_test_time({
+            "img": batch["img"][0], "obj_id": obj_id, "limg": batch["limg"][0],
+            "lmask": batch["lmask"][0], "mask": batch["mask"][0]})
+        test_results.append({
+            "obj_id": obj_id,
+            "scene_id": int(batch["scene_id"][0]),
+            "im_id": int(batch["im_id"][0]),
+            "dtoid_bbox": out["final_bbox"][0],
+            "dtoid_score": out["final_score"][0],
+            "dtoid_iou": float(out.get("seg_IoU", 0.0)),
+            "dtoid_pred_mask": out["segmentation"],
+            "gt_bbox": np.asarray(batch["bbox_gt"][0, 0, :4]),
+        })
+    return test_results

@@ -23,12 +23,33 @@ back in float32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 
+@functools.cache
+def _bf16(v: float) -> float:
+    """v rounded to bf16."""
+    return float(torch.tensor(v).to(torch.bfloat16))
+
+
+def bf16_running_update(buf: torch.Tensor, stat: torch.Tensor, momentum: float) -> None:
+    """flax's bf16 rule, in place on float32 running statistics of any shape:
+    buf = float32(bf16(bf16(1 - momentum) * bf16(buf))) + momentum * stat.
+    bf16(0.9) times a bf16 value is exact in float32, so the bf16 result of
+    this product is flax's bf16 product."""
+    buf.copy_((buf.to(torch.bfloat16) * _bf16(1.0 - momentum)).float().add_(stat, alpha=momentum))
+
+
 class BatchNorm2d(nn.BatchNorm2d):
+    # A dict, when set on a layer: its bf16 batch statistics go there as
+    # (mean, var) instead of into its running statistics, for the bf16
+    # step's one update of every layer (models/dtoid/module.py::_Bf16Step).
+    stats_sink: dict | None = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
@@ -46,15 +67,18 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def _train_bf16(self, x: torch.Tensor) -> torch.Tensor:
         # in float32 and rounded once (PyTorch's own bf16 batch_norm on the CPU
-        # rounds intermediates)
+        # rounds intermediates); a float32 scale and bias (the bf16 step's
+        # upcasts of its bf16 parameters) are used as they are
         xf = x.float()
         y = F.batch_norm(xf, None, None, self.weight.float(), self.bias.float(), True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(xf.detach(), (0, 2, 3), unbiased=False)
-            # bf16(0.9) times a bf16 value is exact in float32, so the bf16
-            # result of this product is flax's bf16 product
-            decay = float(torch.tensor(1.0 - self.momentum).to(torch.bfloat16))
-            for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
-                buf.copy_((buf.to(torch.bfloat16) * decay).float().add_(stat, alpha=self.momentum))
-            self.num_batches_tracked.add_(1)
+            if self.stats_sink is not None:
+                if self in self.stats_sink:
+                    raise RuntimeError("a BatchNorm layer ran twice in one bf16 step")
+                self.stats_sink[self] = (mean, var)
+            else:
+                bf16_running_update(self.running_mean, mean, self.momentum)
+                bf16_running_update(self.running_var, var, self.momentum)
+                self.num_batches_tracked.add_(1)
         return y.to(torch.bfloat16)

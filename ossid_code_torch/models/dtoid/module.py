@@ -12,11 +12,19 @@ optax-rule optimizer of core/optim.py).
 The JAX package's two bf16 switches, read the same way (`cfg.model.get(...,
 False)`):
   * `bf16_finetune`: the mixed-precision step (JAX `train_step_mp`). The
-    network runs on bf16 casts of the float32 parameters (gradients flow
-    back through the casts into the float32 masters), on bf16 inputs, with
-    the running statistics updated in float32 by flax's bf16 rule
+    network runs on bf16 casts of the float32 parameters, on bf16 inputs,
+    with the running statistics updated in float32 by flax's bf16 rule
     (models/batchnorm.py); the losses run on float32 upcasts of the outputs
-    and the optimizer in float32.
+    and the optimizer in float32. The casts are one pass a step: the float32
+    parameters (and their gradients) are views of one flat float32 buffer,
+    a persistent bf16 copy of the network (`_Bf16Step`) takes its
+    parameters as views of one flat bf16 leaf, and shares the float32
+    network's BatchNorm statistics, which it updates for all layers at
+    once after the forward. Each step one `copy_` casts the flat float32
+    buffer into the flat bf16 one, and after the backward one `copy_`
+    upcasts the flat bf16 gradient into the float32 gradient views. The
+    arithmetic is that of per-parameter casts: the same bf16 roundings of
+    the same float32 values, float32 optimizer state.
   * `bf16_infer`: detection in bf16 on a cast of the weights that is kept
     on the device and refreshed when `weights_version` changes (JAX
     `_infer_vars`); template features are computed and cached in float32
@@ -26,6 +34,7 @@ False)`):
 from __future__ import annotations
 
 import copy
+import time
 from typing import Any
 
 import numpy as np
@@ -33,9 +42,171 @@ import torch
 
 from ossid_code_torch.core.optim import make_optimizer
 from ossid_code_torch.device import resolve_device
+from ossid_code_torch.models.batchnorm import BatchNorm2d, bf16_running_update
 from ossid_code_torch.models.dtoid.anchors import generate_anchor_grid
 from ossid_code_torch.models.dtoid.losses import dtoid_losses
 from ossid_code_torch.models.dtoid.network import DtoidNetwork, imagenet_normalize
+
+
+# each parameter's chunk of the flat buffers starts at a multiple of this many
+# elements (128 bytes in bf16): cuDNN takes its tensor-core kernels only for
+# aligned weights, and falls back to slow ones for a misaligned pointer
+_ALIGN = 64
+
+
+def _chunk_sizes(params: list) -> list:
+    """[n0, pad0, n1, pad1, ...]: each parameter's numel, then the padding
+    that aligns the next chunk (zero-size pads left out)."""
+    sizes = []
+    for p in params:
+        sizes.append(p.numel())
+        if p.numel() % _ALIGN:
+            sizes.append(_ALIGN - p.numel() % _ALIGN)
+    return sizes
+
+
+def _param_chunks(flat: torch.Tensor, params: list, sizes: list) -> list:
+    """The parameters' chunks of `flat` split by `sizes` (padding dropped),
+    each viewed with its parameter's shape and dense memory layout
+    (channels_last stays channels_last)."""
+    chunks = iter(flat.split(sizes))
+    out = []
+    for p in params:
+        out.append(_dense_view(next(chunks), p))
+        if p.numel() % _ALIGN:
+            next(chunks)
+    return out
+
+
+def _dense_order(p: torch.Tensor) -> list:
+    """p's dimensions from the largest stride to the smallest."""
+    return sorted(range(p.dim()), key=lambda d: -p.stride(d))
+
+
+def _dense_view(chunk: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`chunk` (1-D, like.numel() elements) viewed with like's shape and
+    dense stride order, by a view and a permute (no copy)."""
+    if like.dim() == 1:
+        return chunk
+    if like.dim() == 0:
+        return chunk.view(())
+    order = _dense_order(like)
+    t = chunk.view([like.shape[d] for d in order])
+    return t.permute([order.index(d) for d in range(like.dim())])
+
+
+class _Bf16Step:
+    """The persistent bf16 network of the mixed-precision step.
+
+    On construction the float32 network's parameters become views of one
+    flat float32 buffer (the BatchNorm scales and biases first), their
+    gradients views of another, and its BatchNorm running statistics and
+    counters views of two more; each parameter's chunk starts aligned
+    (_ALIGN). A copy of the network shares the float32 network's buffers and
+    has no parameters of its own. Each step `cast` casts the flat float32
+    buffer into a flat bf16 leaf in one `copy_`; `forward` splits the leaf
+    into per-parameter views (the BatchNorm part upcast to float32 in one
+    cast, as the layers use it) and runs the copy on them, its layers
+    handing their batch statistics to `sink`, then updates every layer's
+    running statistics with flax's bf16 rule in a few whole-buffer ops;
+    `upcast_grads` writes the flat bf16 gradient into the float32 gradient
+    views in one `copy_`. The arithmetic is that of per-parameter casts and
+    per-layer updates."""
+
+    def __init__(self, net: torch.nn.Module):
+        bns = [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+        if len({m.momentum for m in bns}) > 1:
+            raise ValueError("the bf16 step updates all BatchNorm layers with one momentum")
+        self.momentum = bns[0].momentum if bns else 0.1
+        self.bn_params = [p for m in bns for p in (m.weight, m.bias)]
+        bn_ids = {id(p) for p in self.bn_params}
+        self.rest = [p for p in net.parameters() if id(p) not in bn_ids]
+        self.bn_sizes, self.rest_sizes = _chunk_sizes(self.bn_params), _chunk_sizes(self.rest)
+        self.parts = [sum(self.bn_sizes), sum(self.rest_sizes)]
+        dev = self.rest[0].device
+        self.flat32 = torch.zeros(sum(self.parts), dtype=torch.float32, device=dev)
+        self.grad32 = torch.zeros_like(self.flat32)
+        chans = [m.num_features for m in bns]
+        self.stats32 = torch.empty(2 * sum(chans), dtype=torch.float32, device=dev)
+        self.counts = torch.empty(len(bns), dtype=torch.int64, device=dev)
+        with torch.no_grad():
+            for params, sizes, flat, grad in zip((self.bn_params, self.rest), (self.bn_sizes, self.rest_sizes),
+                                                 self.flat32.split(self.parts), self.grad32.split(self.parts)):
+                for p, v, g in zip(params, _param_chunks(flat, params, sizes), _param_chunks(grad, params, sizes)):
+                    v.copy_(p)
+                    p.data = v
+                    p.grad = g
+            off = 0
+            for i, (m, c) in enumerate(zip(bns, chans)):
+                for name, view in (("running_mean", self.stats32[off:off + c]),
+                                   ("running_var", self.stats32[off + c:off + 2 * c])):
+                    view.copy_(m._buffers[name])
+                    m._buffers[name] = view
+                self.counts[i] = m.num_batches_tracked
+                m._buffers["num_batches_tracked"] = self.counts[i]
+                off += 2 * c
+        self.net16 = copy.deepcopy(net).train()
+        owner = {}  # float32 parameter -> (module of the copy, name)
+        for m16, m32 in zip(self.net16.modules(), net.modules()):
+            for name, p in list(m16._parameters.items()):
+                del m16._parameters[name]
+                if p is None:
+                    m16.__dict__[name] = None
+                    continue
+                key = id(getattr(m32, name))
+                if key in owner:
+                    raise RuntimeError("the bf16 step needs each parameter in one module only")
+                owner[key] = (m16, name)
+            for name in m32._buffers:
+                m16._buffers[name] = m32._buffers[name]
+        self.slots = [owner[id(p)] for p in self.bn_params + self.rest]
+        self.bns16 = [m for m in self.net16.modules() if isinstance(m, BatchNorm2d)]
+        self.sink: dict = {}
+        for m in self.bns16:
+            m.stats_sink = self.sink
+        self.flat16 = torch.empty(self.flat32.shape, dtype=torch.bfloat16, device=dev)
+        self.leaf = None
+
+    def cast(self) -> None:
+        with torch.no_grad():
+            self.flat16.copy_(self.flat32)
+
+    def forward(self, *inputs):
+        self.leaf = self.flat16.detach().requires_grad_(True)
+        bn16, rest16 = self.leaf.split(self.parts)
+        views = (_param_chunks(bn16.float(), self.bn_params, self.bn_sizes)
+                 + _param_chunks(rest16, self.rest, self.rest_sizes))
+        for (module, name), view in zip(self.slots, views):
+            module.__dict__[name] = view
+        try:
+            out = self.net16(*inputs)
+            self._update_statistics()
+        finally:
+            self.sink.clear()
+        return out
+
+    @torch.no_grad()
+    def _update_statistics(self) -> None:
+        """Every layer that ran: flax's bf16 rule on its running statistics,
+        in one update of the flat buffers when all layers ran."""
+        if len(self.sink) == len(self.bns16):
+            batch = torch.cat([t for m in self.bns16 for t in self.sink[m]])
+            bf16_running_update(self.stats32, batch, self.momentum)
+            self.counts.add_(1)
+            return
+        for m, (mean, var) in self.sink.items():
+            bf16_running_update(m.running_mean, mean, m.momentum)
+            bf16_running_update(m.running_var, var, m.momentum)
+            m.num_batches_tracked.add_(1)
+
+    def upcast_grads(self) -> None:
+        with torch.no_grad():
+            self.grad32.copy_(self.leaf.grad)
+        self.leaf = None
+
+
+# host-clock spans of one train step, in order (DtoidModel.step_spans)
+STEP_SPANS = ("feed", "cast", "forward", "losses", "backward", "upcast", "optimizer")
 
 
 class DtoidModel:
@@ -57,7 +228,13 @@ class DtoidModel:
         self.net.reset_parameters(torch.Generator().manual_seed(seed))
         self.net.to(device=self.device, memory_format=torch.channels_last).eval()
         self.anchors = torch.from_numpy(generate_anchor_grid(*self.feat_size)).to(self.device)
+        # the bf16 step's network, and the float32 parameters as views of one
+        # buffer; before the optimizer takes the parameters
+        self._bf16_step = _Bf16Step(self.net) if self.bf16_finetune else None
         self.optimizer = make_optimizer(self.net.parameters(), m.learning_rate, m.weight_decay)
+        # {span: host seconds} summed over train steps when set to a dict
+        # (STEP_SPANS); None records nothing
+        self.step_spans: dict | None = None
 
         # per-object template features, device-resident
         self.template_feature_cache: dict[Any, tuple] = {}
@@ -86,32 +263,55 @@ class DtoidModel:
         return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))).to(self.device)
                 for k, v in batch.items()}
 
-    def train_step(self, batch: dict) -> dict:
-        """One finetune step on a batch of float [0, 1] images: 'img'
+    def train_step(self, batch: dict, optimizer=None, bf16: bool | None = None) -> dict:
+        """One train step on a batch of float [0, 1] images: 'img'
         (B, H, W, 3), 'limg', 'lmask', 'gimg', 'gmask' (B, h, w, 3 | 1),
         'bbox_gt' (B, G, 5), 'heatmap' (B, fh, fw, 1), 'mask' (B, H, W, 1).
-        With `bf16_finetune` the forward and backward run in bf16 (module
-        doc); the parameters, statistics and optimizer state stay float32.
-        Returns the loss terms as device scalars (no host sync)."""
+        With `bf16_finetune` (or `bf16=True`) the forward and backward run in
+        bf16 (module doc); the parameters, statistics and optimizer state
+        stay float32. `optimizer` defaults to the finetune optimizer (an
+        offline trainer passes its own). Returns the loss terms as device
+        scalars (no host sync)."""
+        bf16 = self.bf16_finetune if bf16 is None else bf16
+        if bf16 and self._bf16_step is None:
+            raise ValueError("a bf16 step needs DtoidModel built with model.bf16_finetune")
+        opt = self.optimizer if optimizer is None else optimizer
+        marks = [time.perf_counter()]
         b = {k: t.to(torch.float32) for k, t in self._on_device(batch).items()}
         m = self.cfg.model
         images = [b[k] for k in ("img", "limg", "lmask", "gimg", "gmask")]
+        marks.append(time.perf_counter())
         self.net.train()
         try:
-            if self.bf16_finetune:
-                casts = {n: p.to(torch.bfloat16) for n, p in self.net.named_parameters()}
-                out = torch.func.functional_call(self.net, casts, tuple(t.to(torch.bfloat16) for t in images))
+            if bf16:
+                step = self._bf16_step
+                step.cast()
+                marks.append(time.perf_counter())
+                out = step.forward(*(t.to(torch.bfloat16) for t in images))
                 out = {k: v.float() for k, v in out.items()}
             else:
+                marks.append(time.perf_counter())
                 out = self.net(*images)
+            marks.append(time.perf_counter())
             loss, metrics = dtoid_losses(out, b, self.anchors, lam_seg=m.lam_seg,
                                          lam_center=m.lam_center, lam_cls=m.lam_cls,
                                          lam_reg=m.lam_reg)
-            self.optimizer.zero_grad(set_to_none=True)
+            marks.append(time.perf_counter())
+            if not bf16:
+                # the bf16 step's float32 gradients are views that stay set
+                opt.zero_grad(set_to_none=self._bf16_step is None)
             loss.backward()
-            self.optimizer.step()
+            marks.append(time.perf_counter())
+            if bf16:
+                step.upcast_grads()
+            marks.append(time.perf_counter())
+            opt.step()
+            marks.append(time.perf_counter())
         finally:
             self.net.eval()
+        if self.step_spans is not None:
+            for name, t0, t1 in zip(STEP_SPANS, marks, marks[1:]):
+                self.step_spans[name] = self.step_spans.get(name, 0.0) + t1 - t0
         self.weights_version += 1
         return {k: v.detach() for k, v in metrics.items()}
 

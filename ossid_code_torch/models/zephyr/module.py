@@ -15,8 +15,13 @@ the depth before they are scored, and the refined rows replace them where
 they are valid. With `bf16=True` (the JAX package's OSSID_BF16_SCORER) the
 network runs in bf16 on a cached bf16 copy of its weights: geometry, ICP,
 feature assembly and the alignment statistic stay float32, and the point
-features are cast to bf16 just before the network. Training the scorer
-belongs to a later slice of the port.
+features are cast to bf16 just before the network.
+
+`train_step` trains the scorer as the JAX package does: the network in
+training mode (in-graph grouping, flax-rule BatchNorm, dropout from a
+generator seeded per step), class-balanced sigmoid BCE plus `RANK_WEIGHT`
+times a listwise softmax term over the hypothesis set, and optax's plain
+Adam (lr 1e-3) on every parameter but the calibrated alignment head.
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ import hashlib
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ossid_code_torch.core.optim import OptaxAdam
 from ossid_code_torch.device import resolve_device
 from ossid_code_torch.models.dtoid.network import lecun_init_
 from ossid_code_torch.models.zephyr.features import DIM_POINT, assemble_score_features
@@ -37,6 +44,8 @@ from ossid_code_torch.ops.icp_device import batched_icp, sample_valid_points
 # device ICP of the refined hypotheses (the JAX package's defaults)
 REFINE_MAX_DIST = 0.01
 REFINE_ITERS = 16
+# weight of the listwise ranking term in the scorer loss (the JAX package's default)
+RANK_WEIGHT = 1.0
 
 
 def _bucket(m: int, minimum: int = 64) -> int:
@@ -86,6 +95,27 @@ def _blur5(img: torch.Tensor) -> torch.Tensor:
     return sum(float(_BLUR_K[i]) * x[:, i:i + w] for i in range(5))
 
 
+def scorer_loss(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Class-balanced sigmoid BCE (optax's `sigmoid_binary_cross_entropy`,
+    positives and negatives weighted equally) plus `RANK_WEIGHT` times the
+    listwise term: softmax cross-entropy of the valid logits (invalid ones at
+    -1e9) against a uniform target over the positives, shifted by its
+    log(npos) floor, counted only when the set holds both classes."""
+    losses = -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
+    pos = (labels > 0.5) & valid
+    neg = (labels <= 0.5) & valid
+    zero = torch.zeros_like(losses)
+    wpos = torch.where(pos, losses, zero).sum() / pos.sum().clamp(min=1)
+    wneg = torch.where(neg, losses, zero).sum() / neg.sum().clamp(min=1)
+    masked = torch.where(valid, logits, torch.full_like(logits, -1e9))
+    logz = torch.logsumexp(masked, 0)
+    npos = pos.sum()
+    tgt = pos.to(logits.dtype) / npos.clamp(min=1)
+    rank = -(tgt * (masked - logz)).sum() - torch.log(npos.to(logits.dtype).clamp(min=1.0))
+    has_both = (npos > 0) & (npos < valid.sum())
+    return 0.5 * (wpos + wneg) + RANK_WEIGHT * torch.where(has_both, rank, torch.zeros_like(rank))
+
+
 class ZephyrModel:
     def __init__(self, num_points: int = 512, inconst_ratio_th: float = 100.0, seed: int = 0,
                  need_uv: bool = True, refine_top: int = 0, rank_blend: float = 0.0, align_feats: bool = False,
@@ -108,6 +138,8 @@ class ZephyrModel:
         if self.net.align_head is not None:
             torch.nn.init.zeros_(self.net.align_head.weight)
         self.net.to(self.device).eval()
+        self.optimizer = OptaxAdam([p for name, p in self.net.named_parameters()
+                                    if not name.startswith("align_head.")], lr=1e-3)
         self._objects: dict = {}
 
     # ------------------------------------------------------------- weights
@@ -117,6 +149,24 @@ class ZephyrModel:
     def load_state_dict(self, sd: dict) -> None:
         self.net.load_state_dict(sd, strict=True)
         self._bf16_net = None
+
+    # ------------------------------------------------------------ training
+    def train_step(self, point_x, labels, valid, seed: int = 0) -> float:
+        """One Adam step on a frame's hypothesis set: point_x (M, N, D)
+        features, labels (M,) in {0, 1}, valid (M,) bool; the dropout masks
+        come from a generator seeded with `seed`. Returns the loss."""
+        dev = self.device
+        point_x = torch.as_tensor(point_x, device=dev)
+        labels = torch.as_tensor(labels, dtype=torch.float32, device=dev)
+        valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        logits = self.net(point_x, train=True, generator=gen)
+        loss = scorer_loss(logits, labels, valid)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self._bf16_net = None
+        return float(loss.detach())
 
     def _score_net(self):
         """The network in the scoring dtype: itself, or with `bf16` a bf16 copy

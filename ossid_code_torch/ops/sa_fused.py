@@ -60,8 +60,8 @@ def dense_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     float32): x and W rounded to bf16, their product summed in float32, the
     float32 bias added, relu, then one round to bf16."""
     if x.dtype == torch.bfloat16:
-        return torch.relu(torch.matmul(x.float(), w.to(torch.bfloat16).float()) + b).to(torch.bfloat16)
-    return torch.relu(torch.matmul(x, w) + b)
+        return torch.matmul(x.float(), w.to(torch.bfloat16).float()).add_(b).relu_().to(torch.bfloat16)
+    return torch.matmul(x, w).add_(b).relu_()  # in place: the grouped rows are large on the CPU
 
 
 def _check_dtypes(what: str, xyz, feats, Ws, bs) -> torch.dtype:

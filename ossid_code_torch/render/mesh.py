@@ -143,6 +143,39 @@ def make_box_mesh(sx, sy, sz, color=(0.8, 0.2, 0.2)) -> Mesh:
     return Mesh(corners, np.asarray(faces), colors=colors, normals=normals)
 
 
+def subdivide_mesh(mesh: Mesh, n: int = 1) -> Mesh:
+    """Midpoint subdivision (flat): each triangle -> 4; colors/normals averaged."""
+    verts = [np.asarray(v) for v in mesh.vertices]
+    colors = None if mesh.colors is None else [np.asarray(c) for c in mesh.colors]
+    normals = None if mesh.normals is None else [np.asarray(x) for x in mesh.normals]
+    faces = mesh.faces
+    for _ in range(n):
+        cache: dict = {}
+
+        def midpoint(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in cache:
+                verts.append((verts[i] + verts[j]) / 2.0)
+                if colors is not None:
+                    colors.append((colors[i] + colors[j]) / 2.0)
+                if normals is not None:
+                    nrm = normals[i] + normals[j]
+                    normals.append(nrm / max(np.linalg.norm(nrm), 1e-12))
+                cache[key] = len(verts) - 1
+            return cache[key]
+
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = np.asarray(new_faces)
+    return Mesh(
+        np.stack(verts), faces,
+        colors=None if colors is None else np.stack(colors),
+        normals=None if normals is None else np.stack(normals),
+    )
+
+
 def make_wedge_mesh(sx, sy, sz, taper=0.55, shear=0.35, color=(0.8, 0.5, 0.2)) -> Mesh:
     """Sheared tapered box (asymmetric hexahedron): the top face is scaled by
     `taper` and shifted by `shear * sx` along +x, killing every rotational
@@ -216,3 +249,41 @@ def make_icosphere(radius, subdiv=1, color=(0.2, 0.6, 0.8)) -> Mesh:
     colors = np.clip(colors, 0, 1)
     normals = verts / np.linalg.norm(verts, axis=1, keepdims=True)
     return Mesh(verts, faces, colors=colors, normals=normals)
+
+
+def concat_meshes(meshes) -> Mesh:
+    """Union of meshes into one (vertex/face concatenation; colors default to
+    gray where absent). Used to compose asymmetric compound shapes (L/T
+    brackets, stepped blocks) for the hard synthetic world. Piece-local
+    vertex normals are preserved when every piece has them — downstream
+    model-cloud sampling orients face normals by them, which stays correct in
+    the concave regions where a global-centroid rule flips the sign."""
+    verts, faces, colors, normals = [], [], [], []
+    have_n = all(m.normals is not None for m in meshes)
+    off = 0
+    for m in meshes:
+        verts.append(m.vertices)
+        faces.append(m.faces + off)
+        colors.append(m.colors if m.colors is not None
+                      else np.full((len(m.vertices), 3), 0.5))
+        if have_n:
+            normals.append(m.normals)
+        off += len(m.vertices)
+    return Mesh(np.concatenate(verts), np.concatenate(faces),
+                colors=np.concatenate(colors),
+                normals=np.concatenate(normals) if have_n else None)
+
+
+def translate_mesh(mesh: Mesh, offset) -> Mesh:
+    return Mesh(mesh.vertices + np.asarray(offset, np.float64), mesh.faces,
+                colors=mesh.colors, normals=mesh.normals)
+
+
+def texture_mesh(mesh: Mesh, amp: float = 0.25, subdiv: int = 2, seed: int = 0) -> Mesh:
+    """Subdivide and jitter per-vertex colors: high-frequency texture so both
+    SIFT featurization and appearance-based detection have something to grip."""
+    m = subdivide_mesh(mesh, subdiv)
+    rng = np.random.default_rng(seed)
+    cols = m.colors if m.colors is not None else np.full((len(m.vertices), 3), 0.5)
+    m.colors = np.clip(cols + rng.uniform(-amp, amp, cols.shape), 0, 1)
+    return m

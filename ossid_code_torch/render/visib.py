@@ -3,8 +3,9 @@
 The online loop turns a rendered depth of the predicted pose into a
 pseudo-label mask for DTOID finetuning via
 `bop_toolkit_lib.visibility.estimate_visib_mask_gt(depth, pred_depth, 15mm)`
-(ref scripts/online_learning.py:500). The port's copy of
-ossid_code_tpu/render/visib.py, with the pseudo-label's entry point only.
+(ref scripts/online_learning.py:500), and the VSD evaluator (eval/bop_ar.py)
+needs the same gt/est masks bop_toolkit computes. The port's copy of
+ossid_code_tpu/render/visib.py.
 
 bop19 mode (the default everywhere in BOP19+ evals): a rendered pixel is
 visible iff the rendered surface is not behind the observed surface by more
@@ -33,3 +34,17 @@ def estimate_visib_mask_gt(
 ) -> np.ndarray:
     return _estimate_visib_mask(d_test, d_gt, delta, visib_mode)
 
+
+
+def estimate_visib_mask_est(
+    d_test: np.ndarray,
+    d_est: np.ndarray,
+    visib_gt: np.ndarray,
+    delta: float,
+    visib_mode: str = "bop19",
+) -> np.ndarray:
+    """Estimated-pose visibility: the plain visibility mask, plus every
+    estimated-surface pixel that the GT sees (bop_toolkit
+    visibility.estimate_visib_mask_est)."""
+    visib_est = _estimate_visib_mask(d_test, d_est, delta, visib_mode)
+    return visib_est | (visib_gt & (d_est > 0))

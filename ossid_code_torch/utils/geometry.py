@@ -143,3 +143,20 @@ def heatmap_gaussian(img_h, img_w, cx, cy, sigma, normalize=False) -> np.ndarray
         gauss = gauss / gauss.sum()
     return gauss
 
+
+def estimate_rigid_body_transform(P: np.ndarray, Q: np.ndarray):
+    """Kabsch/Umeyama: find (R, t) with Q ~= R @ P + t.
+
+    P, Q: (3, N) corresponding points (ref utils/__init__.py:107-130).
+    """
+    d, _ = P.shape
+    p_cen = P.mean(axis=1, keepdims=True)
+    q_cen = Q.mean(axis=1, keepdims=True)
+    S = (P - p_cen) @ (Q - q_cen).T
+    u, _, vh = np.linalg.svd(S)
+    V, U = vh.T, u
+    middle = np.eye(d)
+    middle[-1, -1] = np.linalg.det(V @ U.T)
+    R = V @ middle @ U.T
+    t = q_cen - R @ p_cen
+    return R, t

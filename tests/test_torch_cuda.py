@@ -75,11 +75,12 @@ def test_dtype_mix_raises():
             fn(p16[..., :3], p16[..., 3:], *idx, [w.bfloat16() for w in Ws], [b.bfloat16() for b in bs])
 
 
-# dk launch plans: the finetune's shapes and edges, each in float32 (4
-# channels a vector) and bf16 (8), planned for an H100's 132 SMs without and
-# with a cluster capacity (one that falls as clusters grow)
+# dk launch plans: the finetune's shapes, the end-to-end demo's training
+# shapes (batch 4 at 240x320) and edges, each in float32 (4 channels a
+# vector) and bf16 (8), planned for an H100's 132 SMs without and with a
+# cluster capacity (one that falls as clusters grow)
 _dk_plan_shape = pytest.mark.parametrize("shape", [
-    (8, 29, 39, 640), (8, 240, 320, 64), (1, 5, 7, 8), (3, 6, 13, 16),
+    (8, 29, 39, 640), (8, 240, 320, 64), (4, 14, 19, 640), (4, 120, 160, 64), (1, 5, 7, 8), (3, 6, 13, 16),
     (4, 6, 39, 64), (16, 12, 21, 80), (16, 12, 21, 160), (2, 1, 1, 8)])
 _dk_plan_vec = pytest.mark.parametrize("vec", [4, 8])
 _dk_plan_fits = pytest.mark.parametrize("fits", [None, lambda cs, bands: 264 // (bands + 1)], ids=["any", "one wave"])
@@ -170,6 +171,7 @@ def test_sa_layout_is_the_kernels(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,k_broadcast", [((10, 29, 39, 640), False), ((1, 240, 320, 64), False),
+                                               ((6, 14, 19, 640), False), ((1, 120, 160, 64), False),
                                                ((3, 5, 7, 12), False), ((4, 6, 322, 64), True),
                                                ((3, 4, 1, 4), True)])
 def test_dw_corr3x3_cuda_matches_plain(cuda, shape, k_broadcast):
@@ -204,6 +206,8 @@ def _dw_plain_grads(x, k, dout):
 @pytest.mark.parametrize("shape,x_broadcast,k_broadcast", [
     ((8, 29, 39, 640), False, False),    # finetune: correlation head
     ((8, 240, 320, 64), False, False),   # finetune: image-encoder stem
+    ((4, 14, 19, 640), False, False),    # the demo's training steps at 240x320: head
+    ((4, 120, 160, 64), False, False),   # and stem
     ((1, 5, 7, 4), False, False),        # B = 1, C = 4
     ((3, 6, 13, 12), False, True),       # W = 13, not a multiple of the run length 8; k broadcast
     ((4, 6, 39, 64), True, False),       # x broadcast (as at detect's correlation head)
@@ -253,6 +257,7 @@ def test_dw_corr3x3_dk_is_bitwise_repeatable(cuda, shape):
     ((128, 128, 256), 128, 128, 512, 128, 64, 0.0, 0.0),   # SA2 at the scorer's size
     ((64, 64, 128), 8, 256, 512, 512, 64, 0.0, 0.0),       # SA1 at the gating bucket M = 256
     ((128, 128, 256), 128, 256, 512, 128, 64, 0.0, 0.0),   # SA2 at M = 256
+    ((64, 64, 128), 8, 256, 256, 256, 64, 0.0, 0.0),       # SA1 of the demo's 256-point scorer, M = 256
     ((64, 64, 128), 8, 3, 200, 37, 13, -0.1, 0.3),         # layer 3 mostly negative
     ((128, 128, 256), 128, 5, 301, 301, 29, -0.05, 0.3),
 ])
@@ -498,3 +503,37 @@ def test_bf16_paths_launch_the_bf16_kernels(cuda):
     got = z16.score_hypotheses(data, obj_id=1)
     assert tsa.sa_mlp_max_cuda.launches_bf16 - before == 2
     assert np.isfinite(got["scores"]).all()
+
+
+@pytest.mark.cuda
+def test_scorer_train_step_matches_cpu(cuda):
+    """One scorer train step (ZephyrModel.train_step: in-graph grouping,
+    flax-rule BatchNorm, dropout masks from a seeded generator, Adam) on the
+    card against the CPU from the same weights. The dropout generators of
+    the two devices draw different masks, so both run without dropout (the
+    test puts identity modules in their place). Loss within 1e-4 relative;
+    gradients leaf by leaf within 0.1 relative L2, as chip_smoke.py holds
+    DTOID's step."""
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+
+    rng = np.random.default_rng(8)
+    px = rng.normal(0, 0.1, (64, 256, 11)).astype(np.float32)
+    px[..., 3] = np.abs(px[..., 3])
+    px[..., 10] = rng.uniform(0, 1, (64, 256)) > 0.3
+    labels = (rng.uniform(0, 1, 64) > 0.8).astype(np.float32)
+    labels[0] = 1.0
+    class NoDropout(torch.nn.Module):
+        def forward(self, x, generator=None):
+            return x
+
+    models = [ZephyrModel(num_points=256, seed=0, align_feats=True, device=d) for d in ("cuda", "cpu")]
+    models[1].load_state_dict({k: v.cpu() for k, v in models[0].state_dict().items()})
+    losses = []
+    for m in models:
+        m.net.FC_layer[1] = m.net.FC_layer[3] = NoDropout()
+        losses.append(m.train_step(px, labels, np.ones(64, bool), seed=0))
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]), losses
+    grads = [{n: p.grad.double().cpu() for n, p in m.net.named_parameters() if p.grad is not None} for m in models]
+    assert set(grads[0]) == set(grads[1]) and "align_head.weight" not in grads[0]
+    for name, want in grads[1].items():
+        assert float((grads[0][name] - want).norm() / want.norm()) <= 0.1, name

@@ -233,12 +233,23 @@ def test_ppf_hypotheses_match(world):
     scene = depth2cloud(depth, depth > 0, np.asarray(data["scene_camera"]["cam_K"]))
     kw = dict(ModelSamplingDist=0.04, scene_sampling_dist=0.05, ref_pt_rate=0.25, max_poses=64)
     want = PPFModelMeters(bop.getObjPath(t["obj_id"]), refine_top=0, **kw).find_surface_model(scene)
-    got = TPPFModelMeters(bop.getObjPath(t["obj_id"]), **kw).find_surface_model(scene)
+    got = TPPFModelMeters(bop.getObjPath(t["obj_id"]), refine_top=0, **kw).find_surface_model(scene)
     assert len(want[0]) > 0
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPPFModelMeters(bop.getObjPath(t["obj_id"]), refine_top=5, **kw)
+    # host ICP of the top 5 against the object's visible cloud: the same C++
+    # solver (native/icp.cpp) on both sides, so the refined poses agree to
+    # rounding (1e-9)
+    from ossid_code_tpu.hypo.icp import _load_icp_lib
+
+    assert _load_icp_lib() is not None
+    obj = depth2cloud(depth, (data["mask_gt_visib"] > 0) & (depth > 0), np.asarray(data["scene_camera"]["cam_K"]))
+    unrefined = PPFModelMeters(bop.getObjPath(t["obj_id"]), refine_top=0, **kw).find_surface_model(obj)[0]
+    want = PPFModelMeters(bop.getObjPath(t["obj_id"]), refine_top=5, **kw).find_surface_model(obj)
+    got = TPPFModelMeters(bop.getObjPath(t["obj_id"]), refine_top=5, **kw).find_surface_model(obj)
+    assert np.abs(want[0][:5] - unrefined[:5]).max() > 1e-3  # ICP moved the top 5
+    np.testing.assert_array_equal(want[0][5:], unrefined[5:])
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-9)
 
 
 def test_synthetic_writer_matches_jax(tmp_path):

@@ -1,7 +1,9 @@
 """The port's device ICP (ops/icp_device.py) against the JAX package's, on
 the CPU: the pseudo-random valid-pixel sample (indices exactly equal, ties
 included), refined poses on a well-posed scene, Kabsch on degenerate input,
-and the scorer's refined score program with a depth crop."""
+and the scorer's refined score program with a depth crop. Host ICP
+(hypo/icp.py, native/icp.cpp) against the JAX package's on frames of the
+synthetic world."""
 
 import numpy as np
 import pytest
@@ -210,3 +212,56 @@ def test_refined_score_program_with_depth_crop():
     agree = np.abs(refined - want_refined).max(axis=(1, 2)) <= 1e-4
     assert agree.sum() >= 4, agree
     np.testing.assert_allclose(got["scores"][:8][agree], want["scores"][:8][agree], rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------------------------ host ICP
+@pytest.fixture(scope="module")
+def synth_world(tmp_path_factory):
+    """A synthetic world (2 frames of 120x160, 2 objects) and the JAX
+    package's ICP library, built as its own tests build it: without it the
+    JAX code would run its Python ICP instead of the C++ one."""
+    import subprocess
+    from pathlib import Path
+
+    from ossid_code_tpu.data.synthetic import make_synthetic_bop
+    from ossid_code_tpu.hypo.icp import _load_icp_lib
+
+    subprocess.run(["make", "-C", str(Path(__file__).resolve().parents[1] / "native"), "-s"], check=True)
+    assert _load_icp_lib() is not None
+    root = str(tmp_path_factory.mktemp("icpworld"))
+    make_synthetic_bop(root, n_frames=2, img_h=120, img_w=160)
+    return root
+
+
+@pytest.mark.parametrize("sigma_t", [0.0, 0.004, 0.012])
+def test_host_icp_refinement_matches_jax(synth_world, sigma_t):
+    """icp_refinement of the GT pose moved by a small rotation and a shift
+    of sigma_t per axis, on every target of the world: the same C++ solver on
+    the same inputs, so the refined poses and residuals agree to 1e-9 (and
+    the refinement moved the pose)."""
+    from ossid_code_tpu.data.bop import BopDataset, BopDatasetArgs
+    from ossid_code_tpu.hypo.icp import icp_refinement
+    from ossid_code_tpu.loop.online_learning import model_cloud_from_ply
+    from ossid_code_tpu.render.mesh import load_ply
+
+    from ossid_code_torch.hypo.icp import icp_refinement as t_icp_refinement
+
+    bop = BopDataset(BopDatasetArgs(bop_root=synth_world, dataset_name="synth"))
+    rng = np.random.default_rng(int(sigma_t * 1e4))
+    moved = 0
+    for t in bop.targets:
+        d = bop.getDataByIds(t["obj_id"], t["scene_id"], t["im_id"])
+        pts = model_cloud_from_ply(load_ply(bop.getObjPath(t["obj_id"])))[0]
+        cam_K = np.asarray(d["scene_camera"]["cam_K"])
+        pose = np.asarray(d["mat_gt"], np.float64).copy()
+        pose[:3, :3] = _rot(rng, 0.05) @ pose[:3, :3]
+        pose[:3, 3] += rng.normal(0, sigma_t, 3)
+        cam = pts @ pose[:3, :3].T + pose[:3, 3]
+        uv = np.stack([cam_K[0, 0] * cam[:, 0] / cam[:, 2] + cam_K[0, 2],
+                       cam_K[1, 1] * cam[:, 1] / cam[:, 2] + cam_K[1, 2]], 1).round().astype(int)
+        want = icp_refinement(d["depth"], uv, pose, cam_K, pts, icp_max_dist=0.01)
+        got = t_icp_refinement(d["depth"], uv, pose, cam_K, pts, icp_max_dist=0.01)
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-9)
+        assert abs(got[1] - want[1]) <= 1e-9
+        moved += not np.allclose(want[0], pose)
+    assert moved == len(bop.targets)

@@ -114,11 +114,24 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("rel", sorted(
-    str(p.relative_to(ROOT)) for p in [*(ROOT / "ossid_code_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+_PORT_FILES = sorted(
+    str(p.relative_to(ROOT)) for p in [*(ROOT / "ossid_code_torch").rglob("*.py"), ROOT / "chip_smoke.py"])
+
+
+@pytest.mark.parametrize("rel", _PORT_FILES)
 def test_port_imports_nothing_of_jax(rel):
     bad = [m for m in _imports(ROOT / rel) if m.split(".")[0] in _BANNED]
     assert not bad, f"{rel} imports {bad}"
+
+
+def test_import_scan_covers_the_training_and_script_modules():
+    """The scan above reaches the trainers, the demo script and the modules
+    they brought (the demo's imports)."""
+    for rel in ("ossid_code_torch/train/offline.py", "ossid_code_torch/train/zephyr_offline.py",
+                "ossid_code_torch/scripts/demo_e2e.py", "ossid_code_torch/core/checkpoint.py",
+                "ossid_code_torch/eval/bop_ar.py", "ossid_code_torch/hypo/icp.py",
+                "ossid_code_torch/ops/pointcloud.py"):
+        assert rel in _PORT_FILES, rel
 
 
 def test_entry_points_raise_without_cuda():
