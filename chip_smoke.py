@@ -60,12 +60,29 @@ Phases, each of which exits non-zero on failure:
      stage checked against the schedule, AR >= 0.30 (the JAX bench's floor),
      and the bf16 scorer on the trained weights against the float32 one on
      the calibration sets (pick agreement, ADD-correct picks, which must
-     be float32's within BF16_SCORER_ADD_SLACK).
+     be float32's within BF16_SCORER_ADD_SLACK);
+  9. the online-learning CLI (scripts/online_learning.py's main, in
+     process) at full width on a synthetic world named ycbv (8 frames of
+     480x640, 2 textured objects, one frame blanked; the grid and scorer
+     pickle under the JAX names, a model-shift JSON, two scorer checkpoints
+     of different seeds, a DTOID checkpoint with an empty segmentation
+     head) with --use_sift_hypos --always_dtoid_mask --use_dtoid_segmask
+     --use_oracle_gt --finetune_interval 8 --refine_device --refine_top 24
+     and PPF: a row a target, each scorer only its parity of object, SIFT's
+     poses on textured frames and its fallback (20 identity poses,
+     time_sift None) on the blanked one, the CSV read back equal to the
+     rows' picks, finite AR and mAP, a finetune, the launches the schedule
+     implies and no bf16 kernel; then SIFT on the card against the CPU on
+     the world's frames and templates (SIFT_MATCH_SHARE, SIFT_DESC_TOL), its
+     time a textured frame (the blanked frame's apart), one textured frame
+     under the profiler (kernels, device busy time, idle share) and the
+     loop's frames/s.
 Weights are random, from fixed seeds (the demo trains its own). The float32 paths run with TF32 off
 for cuDNN convolutions and cuBLAS matmuls (main path and comparisons).
 
-Before the last line it prints a `kernels` JSON line (six kernel instances;
-the float32 ones with their launches in the loop and in the demo);
+Before the last line it prints a `kernels` JSON line (six kernel instances,
+each with its launches by path: the loop, the demo and the CLI for float32,
+the bf16 runs and the CLI for bf16);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or without the ossid_code_torch package beside it, it exits
@@ -219,8 +236,9 @@ def host_ms(torch, fn, calls: int = 50) -> float:
 
 def profile_call(torch, fn) -> dict:
     """One call of fn under torch.profiler: the host-clock wall time, the
-    device's busy time (sum of its kernels and copies, one stream) and the
-    kernels that took most of it."""
+    device's busy time (sum of its kernels and copies, one stream), how many
+    kernels and copies (or memsets) ran on the device, and the kernels that
+    took most of the time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -231,15 +249,21 @@ def profile_call(torch, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
+    n_kernels = n_copies = 0
     for e in prof.events():
         # a user annotation's device range spans kernels counted on their own
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+            if e.name.startswith(("Memcpy", "Memset")):
+                n_copies += 1
+            else:
+                n_kernels += 1
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if by_name else None,
+            "device_kernels": n_kernels, "device_copies": n_copies,
             "top_kernels_ms": [(name[:70], ms) for name, ms in top],
             "host_top_ops_self_ms": [(a.key[:50], a.self_cpu_time_total / 1e3, a.count) for a in host]}
 
@@ -1134,6 +1158,276 @@ def run_demo(torch, conv, sa):
         return out, by_stage, wall_s, picks, scorer_step_split(torch, kept["ztrainer"])
 
 
+# phase 9: the online-learning CLI on a synthetic world named ycbv (so the
+# YCB-V branches run: two scorers by object parity, host ICP, its grid and
+# pickle names), 480x640, 2 textured objects, at the CLI's network defaults
+CLI_FRAMES = 8              # x 2 objects = 16 targets
+CLI_BLANK_IM = 1            # this frame's RGB is one grey: SIFT finds nothing there
+CLI_VIEWS = 10              # template views an object: T = 10
+CLI_FINETUNE_INTERVAL = 8   # the gating profile's 32, cut so 16 targets give 2 events
+# SIFT on the card against the CPU (ops/sift.py): the pyramid and the
+# refinement are elementwise float32 chains in a fixed order, so positions
+# agree; orientation histograms and descriptor norms are sums in another
+# order, so a histogram peak at its 0.8 threshold may flip and a descriptor
+# element may round to the next integer. Held: this share of the CPU's
+# keypoints has a card keypoint within 0.01 px in the same octave (and of
+# those, this share the same angle within 0.01 degree), and descriptors at
+# the same keypoint differ by at most SIFT_DESC_TOL of 255
+SIFT_MATCH_SHARE = 0.98
+SIFT_DESC_TOL = 2.0
+
+
+def compare_sift_runs(a: tuple, b: tuple, tol_px: float = 0.01, tol_deg: float = 0.01) -> dict:
+    """Two SIFT runs on one image (the card's and the CPU's), each
+    (Keypoints, (N, 128) descriptors): how many of a's keypoints have a
+    keypoint of b within `tol_px` in the same octave, how many of those also
+    its angle within `tol_deg`, and the largest descriptor difference (0-255
+    scale) over the latter."""
+    from scipy.spatial import cKDTree
+
+    (ka, da), (kb, db) = a, b
+    da, db = (np.asarray(d.cpu() if hasattr(d, "cpu") else d) for d in (da, db))
+    out = {"n_a": ka.count, "n_b": kb.count, "matched": 0, "same_angle": 0, "max_desc_diff": 0.0}
+    if not ka.count or not kb.count:
+        return out
+    tree = cKDTree(kb.pt)
+    for i, near in enumerate(tree.query_ball_point(ka.pt, tol_px)):
+        near = [j for j in near if (kb.octave[j] & 255) == (ka.octave[i] & 255)]
+        if not near:
+            continue
+        out["matched"] += 1
+        dang = [abs((kb.angle[j] - ka.angle[i] + 180.0) % 360.0 - 180.0) for j in near]
+        j = near[int(np.argmin(dang))]
+        if min(dang) <= tol_deg:
+            out["same_angle"] += 1
+            out["max_desc_diff"] = max(out["max_desc_diff"], float(np.abs(da[i] - db[j]).max()))
+    return out
+
+
+def cli_world(root):
+    """The CLI's inputs under `root`: the BOP dataset `ycbv` (CLI_FRAMES
+    frames of 480x640, 2 textured wedges, frame CLI_BLANK_IM blanked), its
+    template grid and precomputed scorer pickle under the JAX names in the
+    data root, a model-shift JSON, two scorer checkpoints of different seeds
+    and a DTOID checkpoint whose segmentation head predicts nothing (zero
+    weights, bias -6: the loop's <= 25-pixel fallback then makes SIFT's
+    region the whole frame)."""
+    from ossid_code_torch.core.checkpoint import save_checkpoint
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.data.bop import BopDataset, BopDatasetArgs
+    from ossid_code_torch.data.dtoid_bop import BOP_OBJECT_ID_OFFSETS
+    from ossid_code_torch.data.synthetic import make_synthetic_bop, make_template_grid, make_zephyr_results_pkl
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+    from ossid_code_torch.render.mesh import make_wedge_mesh, texture_mesh
+    from ossid_code_torch.utils.png import read_png, write_png
+
+    w = {k: os.path.join(root, k) for k in ("bop", "data", "ckpts", "results", "bop_results")}
+    objects = {1: texture_mesh(make_wedge_mesh(85, 62, 45, taper=0.55, shear=0.35), amp=0.3, subdiv=3, seed=1),
+               2: texture_mesh(make_wedge_mesh(70, 48, 55, taper=0.4, shear=-0.25), amp=0.3, subdiv=3, seed=2)}
+    make_synthetic_bop(w["bop"], dataset_name="ycbv", n_frames=CLI_FRAMES, img_h=480, img_w=640, objects=objects)
+    rgb = os.path.join(w["bop"], "ycbv", "test", "000000", "rgb", f"{CLI_BLANK_IM:06d}.png")
+    write_png(rgb, np.full_like(read_png(rgb), 128))
+    make_template_grid(os.path.join(w["data"], "templates_YCBV_BOP"), objects, n_views=CLI_VIEWS,
+                       obj_id_offset=BOP_OBJECT_ID_OFFSETS["ycbv"])
+    bop = BopDataset(BopDatasetArgs(bop_root=w["bop"], dataset_name="ycbv"))
+    make_zephyr_results_pkl(os.path.join(w["data"], "test_ycbv_boptest_zephyr_result_unseen.pkl"), bop)
+    os.makedirs(w["ckpts"])
+    w["shifts"] = os.path.join(root, "shifts.json")
+    with open(w["shifts"], "w") as f:
+        json.dump({"1": [0.002, -0.003, 0.001], "2": [-0.004, 0.0, 0.002]}, f)
+    dtoid = DtoidModel(default_config(), seed=1, device="cpu")
+    perturb_heads(dtoid.net, 2)
+    seg = dtoid.net.correlation_model.seg_final
+    import torch
+
+    with torch.no_grad():
+        seg.weight.zero_()
+        seg.bias.fill_(-6.0)
+    w["dtoid"] = os.path.join(w["ckpts"], "dtoid_empty_seg.ckpt")
+    save_checkpoint(w["dtoid"], dtoid.state_dict())
+    for parity, seed in (("even", 10), ("odd", 11)):
+        w[parity] = os.path.join(w["ckpts"], f"scorer_{parity}.ckpt")
+        save_checkpoint(w[parity], ZephyrModel(num_points=NUM_POINTS, seed=seed, device="cpu").state_dict())
+    return w, bop
+
+
+def run_cli(torch, conv, sa, w):
+    """The CLI's main in-process on the world (PPF + SIFT, two scorers, host
+    ICP, device ICP of the top 24, finetune), every launch counter at 0 just
+    before and read just after; the scorer calls and the hypotheses of each
+    frame are recorded on the way. Returns (summary, launches, calls
+    [(scorer, obj_id)], hypotheses a frame, wall s of main, of the loop)."""
+    import ossid_code_torch.scripts.online_learning as cli
+    from ossid_code_torch.loop.online_learning import OnlineLearningLoop
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+
+    env = {"OSSID_ROOT": os.path.dirname(w["bop"]), "BOP_DATASETS_ROOT": w["bop"], "OSSID_DATA_ROOT": w["data"],
+           "OSSID_CKPT_ROOT": w["ckpts"], "OSSID_RESULT_ROOT": w["results"], "BOP_RESULTS_FOLDER": w["bop_results"],
+           "BOP_TOOLKIT_PATH": os.path.join(w["ckpts"], "no_toolkit")}
+    argv = ["--dataset_name", "ycbv", "--exp_name", "chip", "--use_sift_hypos", "--always_dtoid_mask",
+            "--use_dtoid_segmask", "--use_oracle_gt", "--finetune_interval", str(CLI_FINETUNE_INTERVAL),
+            "--refine_device", "--refine_top", str(REFINE_TOP), "--hypo_backend", "ppf",
+            "--dtoid_weights_path", w["dtoid"], "--zephyr_ckpt_path_even", w["even"],
+            "--zephyr_ckpt_path_odd", w["odd"], "--model_shift_path", w["shifts"]]
+    calls, hypos, loop_wall = [], [], []
+    score, gen, run = (ZephyrModel.score_hypotheses_async, OnlineLearningLoop._generate_hypotheses,
+                       OnlineLearningLoop.run)
+
+    def counted_score(self, data, obj_id=None):
+        calls.append((self, obj_id))
+        return score(self, data, obj_id=obj_id)
+
+    def recorded_gen(self, obj_id, *a):
+        poses = gen(self, obj_id, *a)
+        hypos.append((obj_id, poses, a[-1]["time_sift"]))
+        return poses
+
+    def timed_run(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, *a, **k)
+        torch.cuda.synchronize()
+        loop_wall.append(time.perf_counter() - t0)
+        return out
+
+    counters = {"dw_corr3x3": conv.dw_corr3x3_cuda, "dw_corr3x3_dx": conv.dw_corr3x3_dx_cuda,
+                "dw_corr3x3_dk": conv.dw_corr3x3_dk_cuda, "sa_mlp_max": sa.sa_mlp_max_cuda}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    ZephyrModel.score_hypotheses_async = counted_score
+    OnlineLearningLoop._generate_hypotheses = recorded_gen
+    OnlineLearningLoop.run = timed_run
+    try:
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = c.launches_bf16 = 0
+        t0 = time.perf_counter()
+        out = cli.main(cli.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        launches.update({f"{name}_bf16": c.launches_bf16 for name, c in counters.items()})
+    finally:
+        ZephyrModel.score_hypotheses_async, OnlineLearningLoop._generate_hypotheses = score, gen
+        OnlineLearningLoop.run = run
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out, launches, calls, hypos, wall_s, loop_wall[0]
+
+
+def check_cli(out, launches, calls, hypos, bop):
+    """Phase 9's checks; returns the rows, the CSV's rows and counts."""
+    import pickle
+
+    from ossid_code_torch.eval.bop_csv import read_results_bop
+    from ossid_code_torch.loop.online_learning import SIFT_FALLBACK_POSES
+
+    loop = out["loop"]
+    with open(out["results_path"], "rb") as f:
+        saved = pickle.load(f)
+    rows = saved["test_results"]
+    if len(rows) != len(bop.targets) or set(saved) != {"test_results", "main_args", "finetune_logs",
+                                                        "final_state_dict"}:
+        fail(f"CLI results pickle: {len(rows)} rows for {len(bop.targets)} targets, keys {sorted(saved)}")
+    even, odd = loop.zephyr_model_even, loop.zephyr_model_odd
+    if even is None or odd is None or even is odd:
+        fail("the CLI did not build two scorers for ycbv")
+    by_scorer = {"even": sorted({o for m, o in calls if m is even}), "odd": sorted({o for m, o in calls if m is odd})}
+    if (any(o % 2 for o in by_scorer["even"]) or any(o % 2 == 0 for o in by_scorer["odd"])
+            or len(calls) != sum(r["n_hypos"] > 0 for r in rows) or not by_scorer["even"] or not by_scorer["odd"]):
+        fail(f"scorer calls by parity: {by_scorer}, {len(calls)} calls")
+    if len(hypos) != len(rows):
+        fail(f"{len(hypos)} hypothesis generations for {len(rows)} rows")
+    blank, joined = 0, 0
+    for r, (oid, poses, t_sift) in zip(rows, hypos):
+        if r["obj_id"] != oid or r["time_sift"] != t_sift or r["n_hypos"] != len(poses):
+            fail(f"row {r['obj_id'], r['im_id']} does not match its hypotheses")
+        if r["im_id"] == CLI_BLANK_IM:
+            blank += 1
+            if t_sift is not None or not np.array_equal(poses[:SIFT_FALLBACK_POSES],
+                                                        np.stack([np.eye(4)] * SIFT_FALLBACK_POSES)):
+                fail(f"blanked frame, obj {oid}: time_sift {t_sift}, expected SIFT's fallback")
+        elif t_sift is not None and t_sift > 0 and r["n_hypos"] > 0:
+            joined += 1
+    if blank != 2 or joined < 1:
+        fail(f"SIFT: {blank} blanked targets took the fallback, joined PPF on {joined} textured targets")
+    csv_rows = read_results_bop(out["csv_path"])
+    for c, r in zip(csv_rows, rows):
+        t_mm = np.asarray(r["pred_pose"], np.float64)[:3, 3] * 1000.0
+        if ((c["obj_id"], c["scene_id"], c["im_id"]) != (r["obj_id"], r["scene_id"], r["im_id"])
+                or c["score"] != r["pred_score"] or not np.array_equal(c["pose"][:3, :3], r["pred_pose"][:3, :3])
+                or not np.array_equal(c["pose"][:3, 3], t_mm)):
+            fail(f"the CSV's row {c['obj_id'], c['im_id']} differs from the results' pick")
+    if len(csv_rows) != len(rows):
+        fail(f"the CSV has {len(csv_rows)} rows for {len(rows)}")
+    if not all(np.isfinite(out[k]) for k in ("AR", "AR_vsd", "AR_mssd", "AR_mspd", "mAP")):
+        fail(f"CLI AR / mAP not finite: {out}")
+    n_steps = sum(len(ep) for logs in saved["finetune_logs"] for ep in logs)
+    if not saved["finetune_logs"] or n_steps < 1:
+        fail("the CLI ran no finetune event")
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"dw_corr3x3": 2 * len(rows) + 2 * n_steps, "dw_corr3x3_dx": 2 * n_steps,
+                     "dw_corr3x3_dk": 2 * n_steps, "sa_mlp_max": 2 * len(calls)})
+    if launches != expected:
+        fail(f"CLI launches {launches} differ from the schedule's {expected}")
+    return rows, {"scorer_objects": by_scorer, "score_calls": len(calls), "sift_fallback_targets": blank,
+                  "sift_joined_targets": joined, "finetune_events": len(saved["finetune_logs"]),
+                  "train_steps": n_steps, "csv_rows": len(csv_rows)}
+
+
+def sift_card_vs_cpu(torch, w, loop):
+    """The port's SIFT on the card against the CPU on the world's frames
+    (whole frame, 500 features) and template views (their masks, 200); its
+    time a textured frame on the card (the blanked frame's apart), and one
+    call on a textured frame under the profiler."""
+    from ossid_code_torch.ops import sift
+    from ossid_code_torch.utils.png import read_png
+
+    images = []
+    rgb_dir = os.path.join(w["bop"], "ycbv", "test", "000000", "rgb")
+    for name in sorted(os.listdir(rgb_dir)):
+        gray = sift.rgb_to_gray(torch.from_numpy(read_png(os.path.join(rgb_dir, name))[..., :3]))
+        images.append((gray, torch.ones(gray.shape, dtype=torch.bool), 500))
+    td = loop.test_loader.dataset.template_dataset
+    for oid in td.obj_ids:
+        for vid in td.view_ids:
+            img, _, mask = td.getTemplate(oid, vid)
+            images.append((sift.rgb_to_gray(torch.from_numpy((img * 255).astype(np.uint8))),
+                           torch.from_numpy(mask[..., 0] > 0), 200))
+    dev = torch.device("cuda")
+    total = {"n_cpu": 0, "n_card": 0, "matched": 0, "same_angle": 0, "max_desc_diff": 0.0}
+    frame_ms, blank_ms = [], []
+    sift.detect_and_compute(images[0][0].to(dev), images[0][1].to(dev), 500)  # warm-up
+    for i, (gray, mask, nf) in enumerate(images):
+        g, m = gray.to(dev), mask.to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = sift.detect_and_compute(g, m, nf)
+        torch.cuda.synchronize()
+        if i < CLI_FRAMES:
+            (blank_ms if i == CLI_BLANK_IM else frame_ms).append((time.perf_counter() - t0) * 1e3)
+        c = compare_sift_runs(sift.detect_and_compute(gray, mask, nf), card)
+        total["n_cpu"] += c["n_a"]
+        total["n_card"] += c["n_b"]
+        total["matched"] += c["matched"]
+        total["same_angle"] += c["same_angle"]
+        total["max_desc_diff"] = max(total["max_desc_diff"], c["max_desc_diff"])
+    total["images"] = len(images)
+    if (total["n_cpu"] < 100 or total["matched"] < SIFT_MATCH_SHARE * total["n_cpu"]
+            or total["same_angle"] < SIFT_MATCH_SHARE * total["matched"]
+            or total["max_desc_diff"] > SIFT_DESC_TOL):
+        fail(f"SIFT on the card against the CPU: {total} (limits: share {SIFT_MATCH_SHARE}, "
+             f"descriptor {SIFT_DESC_TOL})")
+    textured = 0 if CLI_BLANK_IM else 1
+    g, m = images[textured][0].to(dev), images[textured][1].to(dev)
+    profile = profile_call(torch, lambda: sift.detect_and_compute(g, m, 500))
+    return total, frame_ms, blank_ms, profile
+
+
 def main() -> int:
     import torch
 
@@ -1444,6 +1738,28 @@ def main() -> int:
              f"{picks16['add_correct_f32']} over {picks16['frames']} sets (limit {BF16_SCORER_ADD_SLACK} apart)")
     print(f"scorer train step on a demo frame, host clock: {json.dumps(zsplit)}")
 
+    # -- 9. the online-learning CLI at full width on a world named ycbv -------
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    with tempfile.TemporaryDirectory(prefix="ossid_cli_") as root:
+        t0 = time.perf_counter()
+        cli_w, cli_bop = cli_world(root)
+        world_s = time.perf_counter() - t0
+        cli_out, cli_launches, calls, cli_hypos, cli_wall, cli_loop_s = run_cli(torch, conv, sa, cli_w)
+        cli_rows, cli_counts = check_cli(cli_out, cli_launches, calls, cli_hypos, cli_bop)
+        sift_cmp, sift_ms, sift_blank_ms, sift_profile = sift_card_vs_cpu(torch, cli_w, cli_out["loop"])
+    stage = lambda key: float(np.mean([r[key] for r in cli_rows if r[key] is not None]) * 1e3)  # noqa: E731
+    print(f"CLI {len(cli_rows)} targets 480x640 (ycbv-named world, PPF + SIFT, two scorers, host ICP, device ICP "
+          f"top {REFINE_TOP}, finetune every {CLI_FINETUNE_INTERVAL}): world {world_s:.1f} s, main {cli_wall:.1f} s, "
+          f"loop {cli_loop_s:.1f} s = {len(cli_rows) / cli_loop_s:.2f} frames/s; stage means (ms): "
+          + json.dumps({k: stage(f"time_{k}") for k in ("data", "dtoid", "mask", "ppf", "sift", "zephyr", "icp",
+                                                        "label", "finetune", "iter", "complete")}))
+    print(f"CLI summary: {json.dumps({k: v for k, v in cli_out.items() if k not in ('loop', 'results_path', 'csv_path')})}; "
+          f"checks: {json.dumps(cli_counts)}; launches {json.dumps(cli_launches)}")
+    print(f"SIFT card against CPU on {sift_cmp['images']} images (frames, templates): {json.dumps(sift_cmp)}; "
+          f"SIFT a textured 480x640 frame on the card, ms: {json.dumps(sift_ms)}, median "
+          f"{float(np.median(sift_ms))}; the blanked frame, ms: {json.dumps(sift_blank_ms)}")
+    print(f"profile SIFT one textured 480x640 frame (500 features): {json.dumps(sift_profile)}")
+
     hbm = f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"
     dw_src, bwd_src = "ossid_code_torch/csrc/dw_corr3x3.cu", "ossid_code_torch/csrc/dw_corr3x3_bwd.cu"
     dw_replaces = "ossid_code_tpu/ops/pallas_kernels.py:49"
@@ -1452,8 +1768,9 @@ def main() -> int:
     # launches: the float32 kernels' in the float32 loop run; the bf16
     # kernels' in the bf16 serving run (1b, 2b) and the bf16-finetune loop
     # run (1b, its dx, 3b), added, with each run's count beside
-    by_path = lambda name: {"serving_bf16": serve16_launches.get(name, 0), "loop_bf16": loop16_launches[name]}
-    by_path32 = lambda name: {"loop": loop_launches[name], "demo": demo_launches[name]}
+    by_path = lambda name: {"serving_bf16": serve16_launches.get(name, 0), "loop_bf16": loop16_launches[name],
+                            "cli": cli_launches[name]}
+    by_path32 = lambda name: {"loop": loop_launches[name], "demo": demo_launches[name], "cli": cli_launches[name]}
     kernels = [
         dict(summary("dw_corr3x3", dw_src, dw_replaces, loop_launches["dw_corr3x3"], dw_rows, dw_edge_err, hbm),
              dtype="float32", launches_by_path=by_path32("dw_corr3x3"), demo_shapes=demo_dw),
@@ -1469,12 +1786,15 @@ def main() -> int:
                      dw16_rows, dw16_edge_err, hbm), dtype="bfloat16", launches_by_path=by_path("dw_corr3x3_bf16")),
         dict(summary("dw_corr3x3_bwd_bf16", bwd_src, bwd_replaces, loop16_launches["dw_corr3x3_dk_bf16"],
                      bwd16_rows, bwd16_edge_err, hbm), dtype="bfloat16",
-             dx_launches=loop16_launches["dw_corr3x3_dx_bf16"]),
+             dx_launches=loop16_launches["dw_corr3x3_dx_bf16"],
+             launches_by_path={"loop_bf16": loop16_launches["dw_corr3x3_dk_bf16"],
+                               "cli": cli_launches["dw_corr3x3_dk_bf16"]}),
         dict(summary("sa_mlp_max_bf16", "ossid_code_torch/csrc/sa_mlp_max_bf16.cu",
                      "ossid_code_tpu/ops/sa_fused.py:85", serve16_launches["sa_mlp_max_bf16"], sa16_rows,
                      sa16_edge_err, f"BF16 tensor cores {BF16_FLOPS / 1e12} TFLOP/s"), dtype="bfloat16",
              launches_by_path={"serving_bf16": serve16_launches["sa_mlp_max_bf16"],
-                               "loop_bf16": loop16_launches["sa_mlp_max_bf16"]}),
+                               "loop_bf16": loop16_launches["sa_mlp_max_bf16"],
+                               "cli": cli_launches["sa_mlp_max_bf16"]}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -8,7 +8,10 @@ reference implementation and the JAX package's `load_checkpoint` read them.
 networks load with strict=True:
   * torch files: the port's own, and the reference's `.ckpt` / `.pth`
     (their `state_dict` or `model_state_dict`, the Lightning `model.` prefix
-    dropped);
+    dropped), zip archives or the legacy (non-zip) format, such as the
+    original author's `dtoid_pretrained_original.pth.tar`; a legacy file is
+    known by its `.pth.tar` suffix or by not being a plain pickle, as in the
+    JAX package;
   * the JAX package's pickles of numpy trees (`{'state': {'params',
     'batch_stats'}}`, plain `{'params', 'batch_stats'}`, or a `--save_each`
     snapshot's `model_state_dict`), carried by `dtoid_from_jax` /
@@ -42,18 +45,16 @@ def load_checkpoint(path: str, align_feats: bool = False) -> dict:
     """A checkpoint of any of the three formats -> the port's state_dict
     (CPU tensors). `align_feats`: a scorer file without the alignment head
     gets a zero head, which leaves its scores as they were."""
-    if zipfile.is_zipfile(path):
-        payload = torch.load(path, map_location="cpu", weights_only=False)
-        sd = payload.get("state_dict", payload.get("model_state_dict", payload))
-        if any(k.startswith("model.") for k in sd):
-            sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
-        sd = {k: torch.as_tensor(v) for k, v in sd.items()}
-        if align_feats and _is_scorer(sd) and "align_head.weight" not in sd:
-            sd["align_head.weight"] = torch.zeros((1, 12))
-            sd["align_head.bias"] = torch.zeros((1,))
-        return sd
+    if zipfile.is_zipfile(path) or path.endswith(".pth.tar"):
+        return _load_torch(path, align_feats)
     with open(path, "rb") as f:
-        payload = pickle.load(f)
+        try:
+            payload = pickle.load(f)
+        except pickle.UnpicklingError:
+            return _load_torch(path, align_feats)
+    if not isinstance(payload, dict):
+        # a legacy torch file opens with a pickled magic number
+        return _load_torch(path, align_feats)
     state = payload.get("state", payload.get("model_state_dict", payload))
     if not (isinstance(state, dict) and "params" in state):
         raise ValueError(f"unrecognized checkpoint format: {path}")
@@ -64,3 +65,15 @@ def load_checkpoint(path: str, align_feats: bool = False) -> dict:
     from ossid_code_torch.models.dtoid.jax_import import dtoid_from_jax
 
     return dtoid_from_jax(state["params"], state["batch_stats"])
+
+
+def _load_torch(path: str, align_feats: bool) -> dict:
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    sd = payload.get("state_dict", payload.get("model_state_dict", payload))
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    sd = {k: torch.as_tensor(v) for k, v in sd.items()}
+    if align_feats and _is_scorer(sd) and "align_head.weight" not in sd:
+        sd["align_head.weight"] = torch.zeros((1, 12))
+        sd["align_head.bias"] = torch.zeros((1,))
+    return sd

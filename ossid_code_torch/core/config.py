@@ -7,6 +7,9 @@ The model group also names the JAX package's two bf16 switches,
 with (`m.get(..., False)`; its own defaults leave them out); the port's
 DtoidModel reads them the same way. The JAX package's transport knobs
 (packed single-buffer fetch) are not read by the port.
+
+`roots()` gives the path roots of the online-learning CLI, the JAX
+package's environment roots with its defaults, read when it is called.
 """
 
 from __future__ import annotations
@@ -71,6 +74,19 @@ class Config(dict):
 
         _merge(out, other)
         return out
+
+
+def roots() -> Config:
+    """The CLI's path roots from the environment, read now, with the JAX
+    package's defaults (ossid_code_tpu/core/config.py:78-89): OSSID_ROOT,
+    BOP_DATASETS_ROOT, OSSID_CKPT_ROOT, OSSID_DATA_ROOT, OSSID_RESULT_ROOT,
+    BOP_RESULTS_FOLDER and BOP_TOOLKIT_PATH."""
+    env = os.environ
+    base = env.get("OSSID_ROOT", os.path.join(os.path.expanduser("~"), "ossid_workspace"))
+    defaults = {"BOP_DATASETS_ROOT": "bop", "OSSID_CKPT_ROOT": "ckpts", "OSSID_DATA_ROOT": "data",
+                "OSSID_RESULT_ROOT": "results", "BOP_RESULTS_FOLDER": "bop_results",
+                "BOP_TOOLKIT_PATH": "bop_toolkit"}
+    return Config(OSSID_ROOT=base, **{k: env.get(k, os.path.join(base, d)) for k, d in defaults.items()})
 
 
 def dtoid_model_config() -> Config:

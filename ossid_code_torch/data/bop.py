@@ -203,3 +203,15 @@ class BopDataset:
             "mask_gt": mask,
             "mask_gt_visib": mask_visib,
         }
+
+    def getMaskByIds(self, obj_id, scene_id, im_id, visib=True):
+        """The object's (visible, with `visib`) mask PNG of one frame."""
+        scene_dir = os.path.join(self.split_dir, f"{scene_id:06d}")
+        gi = self._gt_index(scene_id, im_id, obj_id)
+        sub = "mask_visib" if visib else "mask"
+        return read_png(os.path.join(scene_dir, sub, f"{im_id:06d}_{gi:06d}.png"))
+
+    def getMetaDataByIds(self, obj_id, scene_id, im_id):
+        """The object's scene_gt_info.json entry in one frame."""
+        gi = self._gt_index(scene_id, im_id, obj_id)
+        return self._scene_json(scene_id, "scene_gt_info.json")[str(im_id)][gi]

@@ -2,8 +2,10 @@
 ossid_code_tpu/loop/online_learning.py, on its synchronous path).
 
 Each frame, in order: DTOID detection over all templates -> confidence gate
-(0.5) -> region mask -> host PPF (or fake) hypotheses in the region ->
-Zephyr scoring, with device ICP of the top hypotheses (`refine_top`) ->
+(0.5) -> region mask -> host PPF (or fake) hypotheses in the region, after
+SIFT hypotheses with `use_sift_hypos` -> Zephyr scoring by the object's
+scorer (one, or two by object-id parity as on YCB-V), with device ICP of the
+top hypotheses (`refine_top`) ->
 with `use_icp`, host ICP of the picked pose (hypo/icp.py) -> render of the
 picked pose -> visible pseudo-mask -> Zephyr gate (20) ->
 the frame joins the finetune buffer, and every `finetune_interval` buffered
@@ -34,10 +36,11 @@ from ossid_code_torch.loop.replay import DeviceReplayBuffer
 from ossid_code_torch.eval.pose_metrics import (
     add_err, adi_err, object_diameter, pp_err_batch_async, pp_err_fetch,
 )
+from ossid_code_torch.ops.sift import SiftError
 from ossid_code_torch.render.mesh import load_ply
 from ossid_code_torch.render.rasterizer import Renderer
 from ossid_code_torch.render.visib import estimate_visib_mask_gt
-from ossid_code_torch.utils.geometry import K2meta, depth2cloud, expand_box
+from ossid_code_torch.utils.geometry import K2meta, depth2cloud, expand_box, shift_model_points
 from ossid_code_torch.utils.image import resize_linear
 from ossid_code_torch.utils.timing import Timer
 
@@ -47,10 +50,18 @@ ZEPHYR_CONFIDENT_THRESHOLD = 20  # ref online_learning.py:85
 # options of the JAX loop that the port does not take, with the ROADMAP.md
 # item that ports them
 _NOT_PORTED = {
-    "use_sift_hypos": "SIFT hypotheses",
-    "use_maskrcnn": "the class-conditional detector",
-    "yuv_transfer": "the pipelined transport",
+    "use_maskrcnn": "item 8, the MaskRCNN alternative detector",
+    "yuv_transfer": "item 6, the pipelined transport",
 }
+# identity poses that stand in for SIFT's when SIFT fails on a frame
+SIFT_FALLBACK_POSES = 20
+
+
+def refuse_unported(args) -> None:
+    """Raise for an option that the port does not take, naming its item."""
+    for flag, item in _NOT_PORTED.items():
+        if getattr(args, flag, False):
+            raise NotImplementedError(f"--{flag} is not ported: ROADMAP.md §1, {item}")
 
 
 def model_cloud_from_ply(mesh, n_points: int = 2048, seed: int = 0):
@@ -96,12 +107,10 @@ def model_cloud_from_ply(mesh, n_points: int = 2048, seed: int = 0):
 
 class OnlineLearningLoop:
     def __init__(self, args, cfg, dtoid_model, bop_dataset, train_dataset, test_loader,
-                 zephyr_results: dict, zephyr_model=None, hypo_gens: dict | None = None,
-                 use_icp: bool = False):
-        for flag, item in _NOT_PORTED.items():
-            if getattr(args, flag, False):
-                raise NotImplementedError(
-                    f"--{flag} is not ported: ROADMAP.md, 'Still to port', {item}")
+                 zephyr_results: dict, zephyr_model=None, zephyr_model_even=None,
+                 zephyr_model_odd=None, hypo_gens: dict | None = None, sift_gens: dict | None = None,
+                 use_icp: bool = False, model_shifts: dict | None = None):
+        refuse_unported(args)
         self.args = args
         # host ICP (hypo/icp.py) of the picked pose against the frame's depth
         self.use_icp = bool(use_icp)
@@ -118,17 +127,29 @@ class OnlineLearningLoop:
         self.test_loader = test_loader
         self.zephyr_results = zephyr_results
         self.zephyr_model = zephyr_model
+        # YCB-V: two scorers chosen by object-id parity, each trained with
+        # the other half of the objects held out (_zephyr_for)
+        self.zephyr_model_even = zephyr_model_even
+        self.zephyr_model_odd = zephyr_model_odd
         self.hypo_gens = hypo_gens or {}
+        self.sift_gens = sift_gens or {}
 
         # model clouds (points m, colors, normals) sampled from the meshes
-        self.model_clouds = model_clouds = {
-            oid: model_cloud_from_ply(load_ply(bop_dataset.getObjPath(oid)))
-            for oid in bop_dataset.obj_ids}
+        model_clouds = {oid: model_cloud_from_ply(load_ply(bop_dataset.getObjPath(oid)))
+                        for oid in bop_dataset.obj_ids}
+        if model_shifts:
+            # per-object model-frame offsets: YCB-V scorer checkpoints expect
+            # clouds in the original YCB frame
+            model_clouds = {oid: ((shift_model_points(pc[0], model_shifts[oid]), pc[1], pc[2])
+                                  if oid in model_shifts else pc)
+                            for oid, pc in model_clouds.items()}
+        self.model_clouds = model_clouds
         self.diameters = {oid: object_diameter(pc[0]) for oid, pc in model_clouds.items()}
-        if zephyr_model is not None:
+        for zm in {id(m): m for m in (zephyr_model, zephyr_model_even, zephyr_model_odd)
+                   if m is not None}.values():
             # per-object model data and grouping indices go to the card once
             for oid, (pts, cols, nrms) in model_clouds.items():
-                zephyr_model.prepare_object(oid, pts, cols, nrms)
+                zm.prepare_object(oid, pts, cols, nrms)
 
         self.initial_state_dict = dtoid_model.state_dict()
         self.renderers: dict = {}
@@ -168,14 +189,38 @@ class OnlineLearningLoop:
                 has_depth_mask = bool(depth_pos[region].any())
         return mask
 
-    def _generate_hypotheses(self, obj_id, depth, dist_mask, cam_K, times):
-        """Host-side hypothesis generation (ref online_learning.py:410-449)."""
+    def _generate_hypotheses(self, obj_id, img, depth, dist_mask, cam_K, scene_meta, times):
+        """Hypothesis generation (ref online_learning.py:410-449): PPF or
+        fake on the host; with `use_sift_hypos`, SIFT's poses go first (its
+        keypoints on the image's device). When SIFT itself fails, 20
+        identity poses stand in and `time_sift` is None."""
         scene_pc = depth2cloud(depth, np.logical_and(dist_mask, depth > 0), cam_K)
         with Timer() as t:
             poses, _, gen_time = self.hypo_gens[obj_id].find_surface_model(scene_pc)
         times["time_ppf"] = gen_time if gen_time else t.interval
-        times["time_sift"] = 0
-        return poses
+        if not (getattr(self.args, "use_sift_hypos", False) and obj_id in self.sift_gens):
+            times["time_sift"] = 0
+            return poses
+        with Timer() as t:
+            try:
+                poses_sift = self.sift_gens[obj_id].match(img, depth, dist_mask, scene_meta)
+            except SiftError:
+                poses_sift = None
+        if poses_sift is None:
+            poses_sift = np.stack([np.eye(4)] * SIFT_FALLBACK_POSES)
+            times["time_sift"] = None
+        else:
+            times["time_sift"] = t.interval
+        return np.concatenate([poses_sift, poses], axis=0)
+
+    def _zephyr_for(self, obj_id):
+        """The object's scorer: the parity-selected one of a pair (YCB-V,
+        ref online_learning.py:461-464), else the single scorer."""
+        if self.zephyr_model_even is not None or self.zephyr_model_odd is not None:
+            zm = self.zephyr_model_even if obj_id % 2 == 0 else self.zephyr_model_odd
+            if zm is not None:
+                return zm
+        return self.zephyr_model
 
     def _depth_crop_window(self, dist_mask, img_hw):
         """Fixed-size square window centred on the detection mask (clamped to
@@ -308,25 +353,27 @@ class OnlineLearningLoop:
             y0, x0, sh, sw = self._depth_crop_window(dist_mask, depth.shape)
             depth_u16 = np.ascontiguousarray(depth_u16[y0:y0 + sh, x0:x0 + sw])
             depth_origin = np.asarray([y0, x0], np.int32)
-        poses = self._generate_hypotheses(obj_id, depth, dist_mask, cam_K, times)
+        frame = det_batch["_frame_dev"]
+        poses = self._generate_hypotheses(obj_id, frame[0] if frame is not None else bop_data["img"], depth,
+                                          dist_mask, cam_K, bop_data["scene_meta"], times)
         if len(poses) == 0:
             # no hypotheses: fall back to the precomputed result, else an
             # unconfident identity (ref online_learning.py:367-378)
             return
         pts, cols, nrms = self.model_clouds[obj_id]
-        frame = det_batch["_frame_dev"]
+        zephyr = self._zephyr_for(obj_id)
         data = {"img": frame[0] if frame is not None else bop_data["img"], "depth": depth_u16,
                 "cam_K": cam_K, "model_points": pts, "model_colors": cols,
                 "model_normals": nrms, "pose_hypos": poses}
         if depth_origin is not None:
             data["depth_origin"] = depth_origin
         with Timer() as t:
-            zhandle = self.zephyr_model.score_hypotheses_async(data, obj_id=obj_id)
+            zhandle = zephyr.score_hypotheses_async(data, obj_id=obj_id)
             with Timer() as t_pp:
                 pts_dev, pts_q_dev = self._pp_pts(obj_id)
                 pp = pp_err_batch_async(poses, ctx["mat_gt"], pts_dev,
                                         symmetric=ctx["err_func"] is adi_err, pts_q_dev=pts_q_dev)
-            ctx["zout"] = self.zephyr_model.fetch_scores(zhandle)
+            ctx["zout"] = zephyr.fetch_scores(zhandle)
             ctx["pp_err"] = pp_err_fetch(pp)
         times["time_pperr"] = t_pp.interval
         times["time_zephyr"] = t.interval - t_pp.interval

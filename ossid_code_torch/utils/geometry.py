@@ -160,3 +160,29 @@ def estimate_rigid_body_transform(P: np.ndarray, Q: np.ndarray):
     R = V @ middle @ U.T
     t = q_cen - R @ p_cen
     return R, t
+
+
+def mask_to_bbox(mask: np.ndarray):
+    """Tight (x1, y1, x2, y2) box of the nonzero region of a 2D mask; None if
+    empty."""
+    ys, xs = np.nonzero(mask)
+    if ys.size == 0:
+        return None
+    return float(xs.min()), float(ys.min()), float(xs.max()), float(ys.max())
+
+
+def load_model_shifts(path: str) -> dict:
+    """{obj_id: (3,) meters}: per-object model-frame offsets from a JSON file
+    {"1": [x, y, z], ...}. YCB-V scorer checkpoints were trained on model
+    clouds in the original YCB frame, whose origin differs per object from
+    the BOP models' (the role of zephyr's modelPointsShiftYcbv2Bop)."""
+    import json
+
+    with open(path) as f:
+        raw = json.load(f)
+    return {int(k): np.asarray(v, np.float32).reshape(3) for k, v in raw.items()}
+
+
+def shift_model_points(points: np.ndarray, shift: np.ndarray) -> np.ndarray:
+    """A constant object-frame offset added to a model cloud (meters)."""
+    return np.asarray(points, np.float32) + np.asarray(shift, np.float32).reshape(1, 3)

@@ -8,6 +8,8 @@ alone (without the JAX-side conftest):
 Tests marked `cuda` skip without a card: a CUDA kernel has no CPU mode.
 """
 
+import pickle
+
 import numpy as np
 import pytest
 import torch
@@ -537,3 +539,74 @@ def test_scorer_train_step_matches_cpu(cuda):
     assert set(grads[0]) == set(grads[1]) and "align_head.weight" not in grads[0]
     for name, want in grads[1].items():
         assert float((grads[0][name] - want).norm() / want.norm()) <= 0.1, name
+
+
+def _sift_image(rng, h, w):
+    img = rng.uniform(0, 255, (h // 4, w // 4)).astype(np.float32)
+    img = torch.nn.functional.interpolate(torch.from_numpy(img)[None, None], size=(h, w), mode="bicubic")[0, 0]
+    return (img.clamp(0, 255) + torch.from_numpy(rng.normal(0, 4, (h, w)).astype(np.float32))).clamp(0, 255).to(
+        torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,nfeatures", [((480, 640), 500), ((124, 124), 200)])
+def test_sift_on_card_matches_cpu(cuda, hw, nfeatures):
+    """The port's SIFT on the card against the CPU, held to chip_smoke.py's
+    limits (SIFT_MATCH_SHARE, SIFT_DESC_TOL, where the reasons stand)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import SIFT_DESC_TOL, SIFT_MATCH_SHARE, compare_sift_runs
+    from ossid_code_torch.ops import sift
+
+    rng = np.random.default_rng(3)
+    gray = _sift_image(rng, *hw)
+    mask = torch.zeros(hw, dtype=torch.bool)
+    mask[hw[0] // 8:, hw[1] // 6:] = True
+    cpu = sift.detect_and_compute(gray, mask, nfeatures)
+    gpu = sift.detect_and_compute(gray.to(cuda), mask.to(cuda), nfeatures)
+    cmp = compare_sift_runs(cpu, gpu)
+    assert cmp["n_a"] > 50, cmp
+    assert cmp["matched"] >= SIFT_MATCH_SHARE * cmp["n_a"] and abs(cmp["n_b"] - cmp["n_a"]) <= 0.02 * cmp["n_a"], cmp
+    assert cmp["same_angle"] >= SIFT_MATCH_SHARE * cmp["matched"], cmp
+    assert cmp["max_desc_diff"] <= SIFT_DESC_TOL, cmp
+
+
+@pytest.mark.cuda
+def test_cli_on_card(cuda, tmp_path, monkeypatch):
+    """The CLI's main on the card on a small synthetic world (2 textured
+    objects x 2 frames of 128x160, DenseNet (2, 2, 2), SIFT and fake
+    hypotheses, device ICP of the top 4, a finetune every 2 targets): a row
+    a target, finite AR and mAP, the kernels launched."""
+    from ossid_code_torch.core.config import Config
+    from ossid_code_torch.data.bop import BopDataset, BopDatasetArgs
+    from ossid_code_torch.data.synthetic import make_synthetic_bop, make_template_grid, make_zephyr_results_pkl
+    from ossid_code_torch.render.mesh import make_wedge_mesh, texture_mesh
+    from ossid_code_torch.scripts.online_learning import build_parser, main
+
+    root = str(tmp_path / "bop")
+    objects = {1: texture_mesh(make_wedge_mesh(85, 62, 45), amp=0.3, subdiv=3, seed=1),
+               2: texture_mesh(make_wedge_mesh(70, 48, 55, taper=0.4, shear=-0.25), amp=0.3, subdiv=3, seed=2)}
+    make_synthetic_bop(root, n_frames=2, img_h=128, img_w=160, objects=objects)
+    make_template_grid(str(tmp_path / "bop" / "grid"), objects, n_views=8)
+    make_zephyr_results_pkl(str(tmp_path / "bop" / "synth_zephyr_results.pkl"),
+                            BopDataset(BopDatasetArgs(bop_root=root, dataset_name="synth")), score=50.0)
+    Config(model={"densenet_blocks": [2, 2, 2]}).save(str(tmp_path / "conf.yaml"))
+    for k, v in (("OSSID_ROOT", tmp_path), ("BOP_DATASETS_ROOT", root), ("OSSID_CKPT_ROOT", tmp_path / "ckpts")):
+        monkeypatch.setenv(k, str(v))
+    before = (tconv.dw_corr3x3_cuda.launches, tsa.sa_mlp_max_cuda.launches)
+    out = main(build_parser().parse_args([
+        "--dataset_name", "synth", "--exp_name", "card", "--conf_path", str(tmp_path / "conf.yaml"),
+        "--hypo_backend", "fake", "--n_fake_hypos", "8", "--use_sift_hypos", "--always_dtoid_mask",
+        "--use_oracle_gt", "--n_local_test", "4", "--finetune_interval", "2", "--finetune_batch_size", "2",
+        "--refine_device", "--refine_top", "4"]))
+    rows = out["loop"].test_loader.dataset.bop_dataset.targets
+    with open(out["results_path"], "rb") as f:
+        saved = pickle.load(f)
+    assert len(saved["test_results"]) == len(rows) == 4
+    assert all(np.isfinite(out[k]) for k in ("AR", "AR_vsd", "AR_mssd", "AR_mspd", "mAP"))
+    assert len(saved["finetune_logs"]) == 2
+    assert any(r["time_sift"] for r in saved["test_results"])
+    assert tconv.dw_corr3x3_cuda.launches - before[0] >= 2 * len(rows)
+    assert tsa.sa_mlp_max_cuda.launches - before[1] == 2 * len(rows)

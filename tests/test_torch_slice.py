@@ -102,8 +102,9 @@ def test_serving_slice_matches_jax():
     assert tscore["pred_idx"] == jscore["pred_idx"]
 
 
-# JAX and the JAX package, and the image libraries the card's machine lacks
-_BANNED = {"jax", "jaxlib", "flax", "optax", "ossid_code_tpu", "cv2", "imageio", "PIL"}
+# JAX and the JAX package, and the image and table libraries the card's
+# machine lacks
+_BANNED = {"jax", "jaxlib", "flax", "optax", "ossid_code_tpu", "cv2", "imageio", "PIL", "pandas"}
 
 
 def _imports(path: Path):
@@ -125,12 +126,14 @@ def test_port_imports_nothing_of_jax(rel):
 
 
 def test_import_scan_covers_the_training_and_script_modules():
-    """The scan above reaches the trainers, the demo script and the modules
-    they brought (the demo's imports)."""
+    """The scan above reaches the trainers, the demo script, the CLI and the
+    modules they brought (SIFT among them: no cv2)."""
     for rel in ("ossid_code_torch/train/offline.py", "ossid_code_torch/train/zephyr_offline.py",
                 "ossid_code_torch/scripts/demo_e2e.py", "ossid_code_torch/core/checkpoint.py",
                 "ossid_code_torch/eval/bop_ar.py", "ossid_code_torch/hypo/icp.py",
-                "ossid_code_torch/ops/pointcloud.py"):
+                "ossid_code_torch/ops/pointcloud.py", "ossid_code_torch/scripts/online_learning.py",
+                "ossid_code_torch/ops/sift.py", "ossid_code_torch/hypo/sift.py",
+                "ossid_code_torch/eval/bop_csv.py", "ossid_code_torch/eval/detection_map.py"):
         assert rel in _PORT_FILES, rel
 
 
