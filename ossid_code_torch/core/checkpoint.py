@@ -14,8 +14,9 @@ networks load with strict=True:
     JAX package;
   * the JAX package's pickles of numpy trees (`{'state': {'params',
     'batch_stats'}}`, plain `{'params', 'batch_stats'}`, or a `--save_each`
-    snapshot's `model_state_dict`), carried by `dtoid_from_jax` /
-    `pointnet2_from_jax`.
+    snapshot's `model_state_dict`), carried by `dtoid_from_jax`,
+    `maskrcnn_from_jax` (a tree with `seg_final` and `neck_bn` at its top
+    level) or `pointnet2_from_jax`.
 """
 
 from __future__ import annotations
@@ -62,8 +63,10 @@ def load_checkpoint(path: str, align_feats: bool = False) -> dict:
         from ossid_code_torch.models.zephyr.jax_import import pointnet2_from_jax
 
         return pointnet2_from_jax(state["params"], state["batch_stats"])
-    from ossid_code_torch.models.dtoid.jax_import import dtoid_from_jax
+    from ossid_code_torch.models.dtoid.jax_import import dtoid_from_jax, maskrcnn_from_jax
 
+    if "seg_final" in state["params"] and "neck_bn" in state["params"]:
+        return maskrcnn_from_jax(state["params"], state["batch_stats"])
     return dtoid_from_jax(state["params"], state["batch_stats"])
 
 

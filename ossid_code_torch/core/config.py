@@ -157,9 +157,17 @@ def dtoid_bop_dataset_config() -> Config:
 
 
 def default_config() -> Config:
+    """The JAX package's default tree: the dataset and model groups, the
+    train group (`dp_devices`: the data-parallel axis of offline training,
+    -1 = all devices), the train CLI's `resume_path`, `weights_path`,
+    `debug` and `exp_name`, and the seed."""
     return Config(
         dataset=dtoid_bop_dataset_config(),
         model=dtoid_model_config(),
-        train=Config(batch_size=4, num_workers=0, val_shuffle=False, n_epochs=100),
+        train=Config(batch_size=4, num_workers=0, val_shuffle=False, n_epochs=100, dp_devices=-1),
+        resume_path=None,
+        weights_path=None,
+        debug=False,
+        exp_name="exp",
         seed=42,
     )

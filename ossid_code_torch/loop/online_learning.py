@@ -18,6 +18,11 @@ inline fetches and one frame per fetch; the speculative detection, fetch
 threads, fetch bundling and the YUV transport of the JAX loop served its
 remote TPU link and are not ported. Result rows keep the JAX loop's schema.
 `test_dtoid_model` is the detection-only pass (`--raw_dtoid`).
+
+With the class-conditional detector (`models/maskrcnn.py`, `--use_maskrcnn`)
+in DTOID's place, detection is its `forward_test_time` for the target's
+class, and the finetune trains it from the host loader through
+`_maskrcnn_feed` (no replay buffer: it has no `train_step_u8`).
 """
 
 from __future__ import annotations
@@ -50,7 +55,6 @@ ZEPHYR_CONFIDENT_THRESHOLD = 20  # ref online_learning.py:85
 # options of the JAX loop that the port does not take, with the ROADMAP.md
 # item that ports them
 _NOT_PORTED = {
-    "use_maskrcnn": "item 8, the MaskRCNN alternative detector",
     "yuv_transfer": "item 6, the pipelined transport",
 }
 # identity poses that stand in for SIFT's when SIFT fails on a frame
@@ -156,7 +160,10 @@ class OnlineLearningLoop:
         self._pp_pts_dev: dict = {}
         self.next_finetune_number = args.finetune_interval
         self.finetune_logs: list = []
-        self.replay = DeviceReplayBuffer()
+        # frames stay on the device for the finetune of a detector that
+        # trains from them (DtoidModel.train_step_u8); the class-conditional
+        # detector trains from the host loader
+        self.replay = DeviceReplayBuffer() if hasattr(dtoid_model, "train_step_u8") else None
 
     # ------------------------------------------------------------ stages
     def _dtoid_mask(self, out, depth):
@@ -302,10 +309,13 @@ class OnlineLearningLoop:
             # ---- DTOID detection ------------------------------------------
             with Timer() as t:
                 det_batch = self._det_batch(batch, bop_data)
-                out_dev = self.model.detect_async(det_batch)
-                times["time_det_miss"] = time.perf_counter() - t.start
-                out = self.model.fetch_detections(out_dev, det_batch)
-            times["time_det_fetch"] = t.interval - times["time_det_miss"]
+                if hasattr(self.model, "detect_async"):
+                    out_dev = self.model.detect_async(det_batch)
+                    times["time_det_miss"] = time.perf_counter() - t.start
+                    out = self.model.fetch_detections(out_dev, det_batch)
+                    times["time_det_fetch"] = time.perf_counter() - t.start - times["time_det_miss"]
+                else:  # the class-conditional detector: one call, results on the host
+                    out = self.model.forward_test_time(det_batch)
             final_score = out["final_score"][0]
             dtoid_confident = bool(final_score[0] > DTOID_CONFIDENT_THRESHOLD)
             if args.ignore_dtoid_mask:
@@ -431,7 +441,8 @@ class OnlineLearningLoop:
             self.train_dataset.addTarget(obj_id, scene_id, im_id)
             label_mask = gt_mask_visib if args.use_oracle_gt else pred_mask_visib
             self.train_dataset.updateZephyrMask(obj_id, scene_id, im_id, label_mask, pred_score)
-            self.replay.add((obj_id, scene_id, im_id), ctx["img_dev"], label_mask, mat_gt)
+            if self.replay is not None:
+                self.replay.add((obj_id, scene_id, im_id), ctx["img_dev"], label_mask, mat_gt)
             if len(self.train_dataset) == self.next_finetune_number:
                 finetune = True
                 if args.finetune_reset:
@@ -510,6 +521,25 @@ class OnlineLearningLoop:
             }, f)
 
 
+def _maskrcnn_feed(batch: dict, n_classes: int) -> dict:
+    """A DtoidBopDataset batch as the class-conditional detector's train feed
+    (JAX loop/online_learning.py:1196-1214): class index obj_id - 1,
+    per-class masks, and `cls_valid` marking only each row's labelled class:
+    a row annotates one object, and the frame's other objects, unlabelled,
+    must add no loss (trained as background they collapse the detector)."""
+    b, h, w, _ = batch["mask"].shape
+    masks = np.zeros((b, h, w, n_classes), np.float32)
+    cls_valid = np.zeros((b, n_classes), np.float32)
+    bbox = np.asarray(batch["bbox_gt"], np.float32).copy()
+    for i in range(b):
+        cls = int(batch["obj_id"][i]) - 1
+        masks[i, ..., cls] = batch["mask"][i, ..., 0]
+        cls_valid[i, cls] = 1.0
+        valid = bbox[i, :, 4] >= 0
+        bbox[i, valid, 4] = cls
+    return {"img": batch["img"], "bbox_gt": bbox, "masks": masks, "cls_valid": cls_valid}
+
+
 def _collect_loss_logs(loss_per_epoch: list) -> list:
     """[[loss tensor, ...], ...] -> reference-schema logs, fetched from the
     device in one copy."""
@@ -525,9 +555,10 @@ def _finetune_replay(model, train_dataset, replay, epochs: int, batch_size: int)
     held by the replay buffer (uint8 + bit-packed pseudo-masks); only
     templates, heat maps and boxes ship from the host. Returns None when the
     buffer cannot serve the pass (an uncovered target, a resolution mismatch,
-    a non-u8 frame), and the caller runs the host-loader pass."""
+    a non-u8 frame, a model without `train_step_u8`), and the caller runs
+    the host-loader pass."""
     targets = train_dataset.bop_dataset.targets
-    if not replay.covers(targets):
+    if not hasattr(model, "train_step_u8") or not replay.covers(targets):
         return None
     img_h, img_w = model.img_size
     keys = [(int(t["obj_id"]), int(t["scene_id"]), int(t["im_id"])) for t in targets]
@@ -590,8 +621,11 @@ def finetune_dtoid(model, train_dataset, epochs: int = 1, batch_size: int = 8, r
                 idx = np.resize(np.arange(b), batch_size)
                 batch = {k: v[idx] if isinstance(v, np.ndarray) and len(v) == b else v
                          for k, v in batch.items()}
-            feed = {k: batch[k] for k in ("img", "limg", "lmask", "gimg", "gmask",
-                                          "bbox_gt", "heatmap", "mask")}
+            if hasattr(model, "n_classes"):  # the class-conditional detector
+                feed = _maskrcnn_feed(batch, model.n_classes)
+            else:
+                feed = {k: batch[k] for k in ("img", "limg", "lmask", "gimg", "gmask",
+                                              "bbox_gt", "heatmap", "mask")}
             epoch_losses.append(model.train_step(feed)["loss"])
         loss_per_epoch.append(epoch_losses)
     model.clear_cache()

@@ -1,14 +1,17 @@
-"""Carry DTOID weights and BatchNorm statistics between the JAX package and
-the port.
+"""Carry DTOID and MaskRCNN weights and BatchNorm statistics between the JAX
+package and the port.
 
 `dtoid_from_jax(params, batch_stats)` takes the JAX package's nested dicts of
 numpy arrays (as `jax.device_get(model.params)` gives them) and returns a
 state_dict, under the reference's torch key names, that `DtoidNetwork` loads
 with strict=True; `dtoid_to_jax(state_dict)` is the inverse, to numpy, so a
 trained port model can be compared with the JAX one leaf by leaf.
-Conversions: conv kernels HWIO <-> OIHW; BatchNorm scale/bias/mean/var <->
-weight/bias/running_mean/running_var (flax momentum 0.9 is torch momentum
-0.1; BatchNorm's num_batches_tracked is filled in by the loader). The key
+`maskrcnn_from_jax` / `maskrcnn_to_jax` do the same for the class-conditional
+detector (`models/maskrcnn.py`), whose DenseNet trunk takes DTOID's entries
+at the top level of its tree. Conversions: conv kernels HWIO <-> OIHW;
+BatchNorm scale/bias/mean/var <-> weight/bias/running_mean/running_var
+(flax momentum 0.9 is torch momentum 0.1; BatchNorm's num_batches_tracked is
+filled in by the loader). The key
 tables are this package's own copy of the JAX package's export tables, with
 the DenseNet block repeats read from the tree.
 """
@@ -24,32 +27,34 @@ def _n_layers(tree: dict, path: str) -> int:
     return sum(1 for k in node if k.startswith("denselayer"))
 
 
-def _dense_entries(n_layers, p: str = "image_feature_extractor"):
-    """n_layers(torch block prefix, JAX block path) -> number of dense layers."""
-    f = "image_feature_extractor"
-    out = [
-        (f"{p}.backdense_0.0", f"{f}/stem/conv0", "conv"),
-        (f"{p}.backdense_1.0", f"{f}/early/norm0", "bn"),
-        (f"{p}.c1", f"{f}/c1", "conv"),
-        (f"{p}.n1", f"{f}/n1", "bn"),
-    ]
+def _densenet_entries(n_layers, trunk=("stem", "early", "late"), j: str = ""):
+    """The DenseNet trunk's entries: torch module prefixes of its stem, early
+    and late parts, and the JAX path prefix `j` of its stem/early/late;
+    n_layers(torch block prefix, JAX block path) -> number of dense layers."""
+    stem, early, late = trunk
+    out = [(f"{stem}.0", f"{j}stem/conv0", "conv"), (f"{early}.0", f"{j}early/norm0", "bn")]
     blocks = (
-        (f"{p}.backdense_1.3", f"{f}/early/denseblock1"),
-        (f"{p}.backdense_2.1", f"{f}/late/denseblock2"),
-        (f"{p}.backdense_2.3", f"{f}/late/denseblock3"),
-        (f"{p}.backdense_2.5", f"{f}/late/denseblock4"),
+        (f"{early}.3", f"{j}early/denseblock1"),
+        (f"{late}.1", f"{j}late/denseblock2"),
+        (f"{late}.3", f"{j}late/denseblock3"),
+        (f"{late}.5", f"{j}late/denseblock4"),
     )
     for tb, fb in blocks:
         for i in range(1, n_layers(tb, fb) + 1):
             for sub, kind in (("norm1", "bn"), ("conv1", "conv"), ("norm2", "bn"), ("conv2", "conv")):
                 out.append((f"{tb}.denselayer{i}.{sub}", f"{fb}/denselayer{i}/{sub}", kind))
-    for tname, fname in ((f"{p}.backdense_2.0", f"{f}/late/transition1"),
-                         (f"{p}.backdense_2.2", f"{f}/late/transition2"),
-                         (f"{p}.backdense_2.4", f"{f}/late/transition3")):
-        out.append((f"{tname}.norm", f"{fname}/norm", "bn"))
-        out.append((f"{tname}.conv", f"{fname}/conv", "conv"))
-    out.append((f"{p}.backdense_2.6", f"{f}/late/norm5", "bn"))
+    for i in range(3):
+        out.append((f"{late}.{2 * i}.norm", f"{j}late/transition{i + 1}/norm", "bn"))
+        out.append((f"{late}.{2 * i}.conv", f"{j}late/transition{i + 1}/conv", "conv"))
+    out.append((f"{late}.6", f"{j}late/norm5", "bn"))
     return out
+
+
+def _dense_entries(n_layers):
+    """DTOID's image encoder: the trunk, then its 1024 -> 640 conv and norm."""
+    p = "image_feature_extractor"
+    return _densenet_entries(n_layers, (f"{p}.backdense_0", f"{p}.backdense_1", f"{p}.backdense_2"),
+                             f"{p}/") + [(f"{p}.c1", f"{p}/c1", "conv"), (f"{p}.n1", f"{p}/n1", "bn")]
 
 
 def _squeeze_entries(name: str, with_global_head: bool):
@@ -111,10 +116,18 @@ def _entries(n_layers):
             + _correlation_entries() + _head_entries())
 
 
-def dtoid_from_jax(params: dict, batch_stats: dict) -> dict:
-    """JAX DTOID params + batch_stats (numpy) -> port state_dict (torch, CPU)."""
+def _maskrcnn_entries(n_layers):
+    """The class-conditional detector (JAX models/maskrcnn.py): the trunk at
+    the top level, the neck, the two heads and the segmentation decoder."""
+    out = _densenet_entries(n_layers) + [("neck", "neck", "conv"), ("neck_bn", "neck_bn", "bn")] + _head_entries()
+    for i in (1, 2, 3):
+        out += [(f"s{i}", f"s{i}", "conv"), (f"ns{i}", f"ns{i}", "bn")]
+    return out + [("seg_final", "seg_final", "conv")]
+
+
+def _from_jax(entries, params: dict, batch_stats: dict) -> dict:
     sd = {}
-    for tkey, fpath, kind in _entries(lambda tb, fb: _n_layers(params, fb)):
+    for tkey, fpath, kind in entries(lambda tb, fb: _n_layers(params, fb)):
         node = _get(params, fpath)
         if kind == "bn":
             stats = _get(batch_stats, fpath)
@@ -129,6 +142,17 @@ def dtoid_from_jax(params: dict, batch_stats: dict) -> dict:
     return sd
 
 
+def dtoid_from_jax(params: dict, batch_stats: dict) -> dict:
+    """JAX DTOID params + batch_stats (numpy) -> port state_dict (torch, CPU)."""
+    return _from_jax(_entries, params, batch_stats)
+
+
+def maskrcnn_from_jax(params: dict, batch_stats: dict) -> dict:
+    """JAX MaskRCNN params + batch_stats (numpy) -> the port's
+    MaskRCNNNetwork state_dict (torch, CPU)."""
+    return _from_jax(_maskrcnn_entries, params, batch_stats)
+
+
 def _put(tree: dict, path: str, leaf: dict) -> None:
     node = tree
     for p in path.split("/"):
@@ -136,9 +160,7 @@ def _put(tree: dict, path: str, leaf: dict) -> None:
     node.update(leaf)
 
 
-def dtoid_to_jax(sd: dict) -> tuple[dict, dict]:
-    """Port state_dict -> (params, batch_stats), nested dicts of float32
-    numpy arrays in the JAX package's layout."""
+def _to_jax(entries, sd: dict) -> tuple[dict, dict]:
     sd = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in sd.items()}
 
     def n_layers(tb, fb):
@@ -148,7 +170,7 @@ def dtoid_to_jax(sd: dict) -> tuple[dict, dict]:
         return n
 
     params, stats = {}, {}
-    for tkey, fpath, kind in _entries(n_layers):
+    for tkey, fpath, kind in entries(n_layers):
         if kind == "bn":
             _put(params, fpath, {"scale": sd[f"{tkey}.weight"], "bias": sd[f"{tkey}.bias"]})
             _put(stats, fpath, {"mean": sd[f"{tkey}.running_mean"], "var": sd[f"{tkey}.running_var"]})
@@ -158,3 +180,15 @@ def dtoid_to_jax(sd: dict) -> tuple[dict, dict]:
                 leaf["bias"] = sd[f"{tkey}.bias"]
             _put(params, fpath, leaf)
     return params, stats
+
+
+def dtoid_to_jax(sd: dict) -> tuple[dict, dict]:
+    """Port DTOID state_dict -> (params, batch_stats), nested dicts of
+    float32 numpy arrays in the JAX package's layout."""
+    return _to_jax(_entries, sd)
+
+
+def maskrcnn_to_jax(sd: dict) -> tuple[dict, dict]:
+    """Port MaskRCNNNetwork state_dict -> the JAX MaskRCNN's (params,
+    batch_stats), as dtoid_to_jax."""
+    return _to_jax(_maskrcnn_entries, sd)

@@ -6,6 +6,9 @@ summary line):
   2. evaluate DTOID before training (`test_dtoid_model`);
   3. pretrain DTOID offline (`OfflineTrainer`, GT masks); with --hard on a
      disjoint object world, as the reference pretrains on other objects;
+     with --use_maskrcnn, the class-conditional detector in DTOID's place,
+     pretrained on the test world's frames with every visible object
+     labelled (`data/detect.py`), which --hard then implies (--same_pretrain);
   4. evaluate DTOID again;
   5. build PPF hypothesis generators with host ICP of the top 30;
   6. train the Zephyr scorer offline (`ZephyrOfflineTrainer`) and calibrate
@@ -74,7 +77,8 @@ def parse_args(argv=None):
                         help="feed the 12-cell alignment-fraction grid to the scorer head "
                              "(0 reverts to the plain scorer)")
     parser.add_argument("--use_maskrcnn", action="store_true",
-                        help="the class-conditional detector (not ported)")
+                        help="the class-conditional detector (models/maskrcnn.py) in DTOID's place; implies "
+                             "--same_pretrain (it has no templates, so it trains on its classes)")
     parser.add_argument("--same_pretrain", action="store_true",
                         help="pretrain DTOID on the TEST objects (legacy upper-bound protocol)")
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
@@ -86,9 +90,6 @@ def parse_args(argv=None):
     args = parser.parse_args(argv)
     if args.frames is None:
         args.frames = 60 if args.hard else 12
-    if args.use_maskrcnn:
-        raise NotImplementedError("--use_maskrcnn is not ported: ROADMAP.md, 'Still to port', "
-                                  "the class-conditional detector")
     return args
 
 
@@ -102,7 +103,8 @@ def main(argv=None, on_stage=None):
 
     from ossid_code_torch.core.config import default_config
     from ossid_code_torch.data.bop import BopDataset, BopDatasetArgs
-    from ossid_code_torch.data.dtoid_bop import get_dataloaders
+    from ossid_code_torch.data.detect import DetectDataset
+    from ossid_code_torch.data.dtoid_bop import NumpyLoader, get_dataloaders
     from ossid_code_torch.data.synthetic import (
         default_objects, hard_objects, make_synthetic_bop, make_template_grid, make_zephyr_results_pkl,
         pretrain_objects, sampled_objects,
@@ -111,10 +113,11 @@ def main(argv=None, on_stage=None):
     from ossid_code_torch.eval.bop_ar import BopEvaluator
     from ossid_code_torch.hypo.ppf import PPFModelMeters
     from ossid_code_torch.loop.online_learning import OnlineLearningLoop, model_cloud_from_ply, test_dtoid_model
+    from ossid_code_torch.models.maskrcnn import MaskRCNN
     from ossid_code_torch.models.dtoid.module import DtoidModel
     from ossid_code_torch.models.zephyr.module import ZephyrModel
     from ossid_code_torch.render.mesh import load_ply
-    from ossid_code_torch.train.offline import OfflineTrainer
+    from ossid_code_torch.train.offline import GenericTrainer, OfflineTrainer
     from ossid_code_torch.train.zephyr_offline import ZephyrOfflineTrainer
     from ossid_code_torch.utils.geometry import depth2cloud
 
@@ -168,7 +171,17 @@ def main(argv=None, on_stage=None):
 
     train_loader, _, test_loader = get_dataloaders(cfg, zr_list)
     test_loader.dataset.sortTargets()
-    model = DtoidModel(cfg, seed=0, device=device)
+    if args.use_maskrcnn:
+        if args.hard and not args.same_pretrain:
+            log("--use_maskrcnn implies --same_pretrain (class-conditional detector; see --help)")
+            args.same_pretrain = True
+        cfg.dataset.n_classes = int(max(bop.obj_ids))
+        # its anchors and decoder follow the dataset's image size
+        cfg.dataset.img_h, cfg.dataset.img_w = h, w
+        model = MaskRCNN(cfg, seed=0, device=device)
+    else:
+        model = DtoidModel(cfg, seed=0, device=device)
+    detector = "MaskRCNN" if args.use_maskrcnn else "DTOID"
     disjoint = args.hard and not args.same_pretrain
     pre_updates = {"dataset": {"load_zephyr_result": False}}
     if disjoint:
@@ -187,24 +200,32 @@ def main(argv=None, on_stage=None):
     stage("world")
 
     # ---- detection quality before any training ----------------------------
-    log("eval: untrained DTOID ...")
+    log(f"eval: untrained {detector} ...")
     res0 = test_dtoid_model(model, test_loader)
     iou_untrained = float(np.mean([r["dtoid_iou"] for r in res0]))
     stage("eval_untrained", rows=res0)
 
     # ---- offline DTOID pretraining (GT masks, single templates) -----------
-    log(f"pretraining DTOID for {args.epochs} epochs ({'disjoint' if disjoint else 'test'} objects) ...")
-    trainer = OfflineTrainer(model, cfg, n_devices=1)
+    log(f"pretraining {detector} for {args.epochs} epochs ({'disjoint' if disjoint else 'test'} objects) ...")
+    if args.use_maskrcnn:
+        # one row a frame with every visible object labelled: rows of one
+        # object each would teach the detector that the others are background
+        pre_loader = NumpyLoader(DetectDataset(bop, cfg.dataset), batch_size=int(cfg.train.batch_size),
+                                 shuffle=True, seed=0, drop_last=True)
+        trainer = GenericTrainer(model, cfg)
+    else:
+        pre_loader, trainer = pre_train_loader, OfflineTrainer(model, cfg, n_devices=1)
     pretrain_steps = 0
     for ep in range(args.epochs):
-        m = trainer.train_epoch(pre_train_loader)
-        pretrain_steps += len(pre_train_loader)
+        m = trainer.train_epoch(pre_loader)
+        pretrain_steps += len(pre_loader)
         if ep % 5 == 0 or ep == args.epochs - 1:
-            log(f"  epoch {ep}: loss {m.get('loss', float('nan')):.3f} seg {m.get('loss_seg', float('nan')):.3f}")
+            seg = m.get("loss_mask" if args.use_maskrcnn else "loss_seg", float("nan"))
+            log(f"  epoch {ep}: loss {m.get('loss', float('nan')):.3f} seg {seg:.3f}")
     model.clear_cache()
     stage("pretraining", trainer=trainer)
 
-    log("eval: pretrained DTOID ...")
+    log(f"eval: pretrained {detector} ...")
     res1 = test_dtoid_model(model, test_loader)
     iou_pretrained = float(np.mean([r["dtoid_iou"] for r in res1]))
     stage("eval_pretrained", rows=res1)
@@ -277,7 +298,7 @@ def main(argv=None, on_stage=None):
         # disjoint protocol: masks only once the detector is confident; the
         # bootstrap rows carry the unconfident frames
         always_dtoid_mask=not disjoint, use_oracle_gt=False, use_sift_hypos=False, test_seen=False,
-        backward=False, use_maskrcnn=False, finetune_interval=8, finetune_warmup=0, finetune_epochs=1,
+        backward=False, use_maskrcnn=args.use_maskrcnn, finetune_interval=8, finetune_warmup=0, finetune_epochs=1,
         finetune_reset=False, finetune_batch_size=4, non_cum=False, save_each=False, raw_dtoid=False,
         no_finetune=False, fast=True, zephyr_confident_threshold=confident_th)
     train_ds = train_loader.dataset

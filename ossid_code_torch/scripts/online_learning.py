@@ -17,8 +17,10 @@ OSSID_CKPT_ROOT, OSSID_RESULT_ROOT, BOP_RESULTS_FOLDER, BOP_TOOLKIT_PATH
 (bop_toolkit's evaluation runs only where it is installed). On `ycbv` the
 scorers are two, chosen by object-id parity, and the pick gets host ICP.
 
-Not ported: `--use_maskrcnn` (ROADMAP.md §1 item 8) and `--yuv_transfer`
-(item 6) raise. Runs on the card unless `--device cpu`.
+`--use_maskrcnn` runs the class-conditional detector (models/maskrcnn.py)
+in DTOID's place, its weights chosen as DTOID's are. Not ported:
+`--yuv_transfer` (ROADMAP.md §1 item 6) raises. Runs on the card unless
+`--device cpu`.
 """
 
 from __future__ import annotations
@@ -51,8 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--use_sift_hypos", action="store_true")
     parser.add_argument("--test_seen", action="store_true")
     parser.add_argument("--backward", action="store_true")
-    parser.add_argument("--use_maskrcnn", action="store_true",
-                        help="not ported: raises (ROADMAP.md §1 item 8)")
+    parser.add_argument("--use_maskrcnn", action="store_true")
 
     parser.add_argument("--finetune_interval", type=int, default=8)
     parser.add_argument("--finetune_warmup", type=int, default=0)
@@ -278,7 +279,13 @@ def main(args) -> dict:
 
     if args.bf16_finetune:
         cfg.model.bf16_finetune = True
-    model = DtoidModel(cfg, seed=cfg.seed, device=args.device)
+    if args.use_maskrcnn:
+        from ossid_code_torch.models.maskrcnn import MaskRCNN
+
+        cfg.model.name = "maskrcnn"
+        model = MaskRCNN(cfg, seed=cfg.seed, device=args.device)
+    else:
+        model = DtoidModel(cfg, seed=cfg.seed, device=args.device)
     dtoid_ckpt = select_dtoid_weights(args)
     if dtoid_ckpt:
         print("Loading DTOID model weights from", dtoid_ckpt)

@@ -1,5 +1,5 @@
-"""Offline DTOID (pre)training on one device (the port's counterpart of
-ossid_code_tpu/train/offline.py's `OfflineTrainer`).
+"""Offline training on one device (the port of ossid_code_tpu/train/offline.py:
+`OfflineTrainer` for DTOID, `GenericTrainer` for the other families).
 
 Each step is `DtoidModel.train_step` (the forward in training mode and
 `dtoid_losses`, in float32) with the trainer's own optimizer: optax's
@@ -8,7 +8,15 @@ MultiStep learning-rate schedule (milestones [20, 40] epochs, gamma 0.1,
 ref models/dtoid/__init__.py:258). The model's finetune optimizer is left
 as it was. Checkpoints are torch files (core/checkpoint.py). The JAX
 package's data-parallel mesh is not ported (ROADMAP.md, multi-device
-families): `n_devices` other than 1 raises.
+families): `n_devices` other than 1 raises. `validate` keeps `best.ckpt` by
+the monitored segmentation IoU; the JAX trainer's periodic prediction
+figures (`log_figures`, utils/vis.py) are not ported (ROADMAP.md §1 item 9).
+
+`GenericTrainer` drives any model with `train_step(batch)` (loss terms as
+device scalars), `eval_metric(batch)` (a list of floats) and `state_dict()`:
+the class-conditional detector on `dataset=detect`. Its `last.ckpt` holds
+the weights, the epoch and the best metric (no optimizer state, as in the
+JAX package); `best.ckpt` the weights at the best monitored metric.
 """
 
 from __future__ import annotations
@@ -22,6 +30,63 @@ from ossid_code_torch.core.checkpoint import save_checkpoint
 from ossid_code_torch.core.optim import make_optimizer, piecewise_constant_schedule
 
 FEED_KEYS = ("img", "limg", "lmask", "gimg", "gmask", "bbox_gt", "heatmap", "mask")
+
+
+def _epoch_means(metrics: list) -> dict:
+    """[{name: device scalar}, ...] -> {name: mean}, fetched in one copy."""
+    if not metrics:
+        return {}
+    keys = list(metrics[0])
+    means = torch.stack([torch.stack([m[k] for m in metrics]).float().mean() for k in keys]).cpu()
+    return dict(zip(keys, means.tolist()))
+
+
+def _save_best(trainer, score: float, monitor: str) -> None:
+    """best.ckpt when `score` beats the trainer's best metric."""
+    if trainer.ckpt_dir and score > trainer.best_metric:
+        trainer.best_metric = score
+        os.makedirs(trainer.ckpt_dir, exist_ok=True)
+        save_checkpoint(os.path.join(trainer.ckpt_dir, "best.ckpt"), trainer.model.state_dict(),
+                        extra={"monitor": {monitor: score}})
+
+
+class GenericTrainer:
+    """Epoch trainer for the families other than DTOID (JAX
+    train/offline.py:65-121), with OfflineTrainer's checkpoint layout."""
+
+    def __init__(self, model, cfg, ckpt_dir: str | None = None):
+        self.model = model
+        self.cfg = cfg
+        self.ckpt_dir = ckpt_dir
+        self.history: list[dict] = []
+        self.best_metric = -np.inf
+        self.epoch = 0
+
+    def train_epoch(self, loader) -> dict:
+        out = _epoch_means([self.model.train_step(batch) for batch in loader])
+        self.history.append(out)
+        self.epoch += 1
+        if self.ckpt_dir:
+            save_checkpoint(os.path.join(self.ckpt_dir, "last.ckpt"), self.model.state_dict(),
+                            extra={"epoch": self.epoch, "best_metric": float(self.best_metric)})
+        return out
+
+    def restore_trainer_state(self, path: str) -> bool:
+        """Restore the weights, and the epoch and best metric where the file
+        has them (a `last.ckpt`); True when it had the epoch."""
+        payload = torch.load(path, map_location="cpu", weights_only=False)
+        self.model.load_state_dict({k: v.to(self.model.device) for k, v in payload["state_dict"].items()})
+        self.epoch = int(payload.get("epoch", 0))
+        self.best_metric = float(payload.get("best_metric", -np.inf))
+        return "epoch" in payload
+
+    def validate(self, loader, monitor: str = "metric") -> float:
+        scores = []
+        for batch in loader:
+            scores += list(self.model.eval_metric(batch))
+        score = float(np.mean(scores)) if scores else 0.0
+        _save_best(self, score, monitor)
+        return score
 
 
 def make_multistep_schedule(base_lr: float, steps_per_epoch: int, milestones=(20, 40), gamma: float = 0.1):
@@ -49,13 +114,8 @@ class OfflineTrainer:
     def train_epoch(self, loader, feed_keys=FEED_KEYS) -> dict:
         """One pass over `loader`, float32 steps; the epoch's mean of each loss
         term, fetched from the device once."""
-        metrics = [self.model.train_step({k: batch[k] for k in feed_keys}, optimizer=self.optimizer, bf16=False)
-                   for batch in loader]
-        out = {}
-        if metrics:
-            keys = list(metrics[0])
-            means = torch.stack([torch.stack([m[k] for m in metrics]).float().mean() for k in keys]).cpu()
-            out = dict(zip(keys, means.tolist()))
+        out = _epoch_means([self.model.train_step({k: batch[k] for k in feed_keys}, optimizer=self.optimizer,
+                                                  bf16=False) for batch in loader])
         self.history.append(out)
         self.epoch += 1
         if self.ckpt_dir:
@@ -85,3 +145,26 @@ class OfflineTrainer:
         self.epoch = int(payload.get("epoch", 0))
         self.best_metric = float(payload.get("best_metric", -np.inf))
         return True
+
+    @torch.inference_mode()
+    def validate(self, loader, monitor: str = "seg_IoU") -> float:
+        """The mean segmentation IoU of the eval-mode forward over `loader`
+        (the first local template of an all-templates batch), best.ckpt when
+        it is the best so far (JAX train/offline.py:237-267)."""
+        m = self.model
+        ious = []
+        for batch in loader:
+            limg, lmask = np.asarray(batch["limg"]), np.asarray(batch["lmask"])
+            if limg.ndim == 5:
+                limg, lmask = limg[:, 0], lmask[:, 0]
+            feed = m._on_device({"img": batch["img"], "limg": limg, "lmask": lmask, "gimg": batch["gimg"],
+                                 "gmask": batch["gmask"]})
+            out = m.net(*(feed[k].float() for k in ("img", "limg", "lmask", "gimg", "gmask")))
+            seg = (out["seg_logits"] > 0.0).cpu().numpy()
+            gt = np.asarray(batch["mask"]) > 0.5
+            inter = np.logical_and(seg, gt).sum(axis=(1, 2, 3))
+            union = np.logical_or(seg, gt).sum(axis=(1, 2, 3))
+            ious += list(inter / np.clip(union, 1, None))
+        score = float(np.mean(ious)) if ious else 0.0
+        _save_best(self, score, monitor)
+        return score

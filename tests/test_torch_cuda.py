@@ -610,3 +610,107 @@ def test_cli_on_card(cuda, tmp_path, monkeypatch):
     assert any(r["time_sift"] for r in saved["test_results"])
     assert tconv.dw_corr3x3_cuda.launches - before[0] >= 2 * len(rows)
     assert tsa.sa_mlp_max_cuda.launches - before[1] == 2 * len(rows)
+
+
+def _maskrcnn_pair(n_classes=3, hw=(128, 160), seed=5):
+    """The class-conditional detector on the card and a CPU copy of its
+    weights, output convs perturbed (segmentation bias 0)."""
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.models.maskrcnn import MaskRCNN
+
+    cfg = default_config()
+    cfg.dataset.n_classes = n_classes
+    cfg.dataset.img_h, cfg.dataset.img_w = hw
+    gpu = MaskRCNN(cfg, seed=seed, device="cuda")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for conv, std in ((gpu.net.classification.output, 0.05), (gpu.net.regression.output, 0.01),
+                          (gpu.net.seg_final, 0.1)):
+            conv.weight.copy_((torch.randn(conv.weight.shape, generator=g) * std).cuda())
+        gpu.net.seg_final.bias.zero_()
+    cpu = MaskRCNN(cfg, seed=seed, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    return gpu, cpu
+
+
+@pytest.mark.cuda
+def test_maskrcnn_frame_matches_cpu(cuda):
+    """One frame of the class-conditional detector (full DenseNet-121 at
+    128x160) on the card against the CPU, as chip_smoke.py phase 10 holds
+    it at 480x640: the top score within 1e-3 and 98% of the detections
+    matched (score 1e-3, box 0.05 px), the segmentation within 1e-3 and its
+    threshold on all but 1e-3 of the pixels. No dw-corr kernel runs."""
+    gpu, cpu = _maskrcnn_pair()
+    rng = np.random.default_rng(3)
+    data = {"img": rng.integers(0, 256, (128, 160, 3), dtype=np.uint8), "obj_id": 2}
+    before = tconv.dw_corr3x3_cuda.launches
+    det, ref = gpu.forward_test_time(data), cpu.forward_test_time(data)
+    assert tconv.dw_corr3x3_cuda.launches == before
+    s, b, cs, cb = det["final_score"][0], det["final_bbox"][0], ref["final_score"][0], ref["final_bbox"][0]
+    assert abs(float(s[0] - cs[0])) <= 1e-3
+    matched = sum(any(np.abs(cb[j] - bb).max() <= 0.05 for j in np.nonzero(np.abs(cs - ss) <= 1e-3)[0])
+                  for ss, bb in zip(s, b))
+    assert matched >= 0.98 * len(s)
+    assert np.abs(det["segmentation"] - ref["segmentation"]).max() <= 1e-3
+    assert ((det["segmentation"] > 0.5) != (ref["segmentation"] > 0.5)).mean() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_maskrcnn_train_step_matches_cpu(cuda):
+    """One train step of the class-conditional detector (batch 2 at
+    128x160, a row with an unlabelled class) on the card against the CPU
+    from the same weights: the loss within 1e-4 relative, the gradients
+    leaf by leaf within 0.1 relative L2 where a leaf's largest CPU gradient
+    is above 1e-6 of the largest (chip_smoke.py's STEP_* limits). The
+    stem's first BatchNorm scale is held to its own limit there, and the
+    card's and the CPU's float32 gradients of it against a float64 CPU
+    gradient of the same weights and batch (chip_smoke.py's
+    MASKRCNN_STEM_SCALE_TOL, where the reason stands)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import MASKRCNN_STEM_SCALE, MASKRCNN_STEM_SCALE_TOL, maskrcnn_gradients
+
+    gpu, cpu = _maskrcnn_pair(seed=7)
+    rng = np.random.default_rng(9)
+    masks = np.zeros((2, 128, 160, 3), np.float32)
+    masks[0, 20:80, 30:90, 1] = masks[1, 40:100, 60:140, 2] = 1.0
+    batch = {"img": rng.uniform(0, 1, (2, 128, 160, 3)).astype(np.float32),
+             "bbox_gt": np.array([[[30, 20, 90, 80, 1]], [[60, 40, 140, 100, 2]]], np.float32),
+             "masks": masks, "cls_valid": np.array([[1, 1, 1], [1, 1, 0]], np.float32)}
+    want64 = maskrcnn_gradients(cpu, batch, torch.float64)[MASKRCNN_STEM_SCALE]
+    losses = [float(m.train_step(batch)["loss"]) for m in (gpu, cpu)]
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]), losses
+    grads = [{n: p.grad.double().cpu() for n, p in m.net.named_parameters()} for m in (gpu, cpu)]
+    scale = max(float(g.abs().max()) for g in grads[1].values())
+    for name, want in grads[1].items():
+        if float(want.abs().max()) >= 1e-6 * scale:
+            tol = MASKRCNN_STEM_SCALE_TOL if name == MASKRCNN_STEM_SCALE else 0.1
+            assert float((grads[0][name] - want).norm() / want.norm()) <= tol, name
+    for g in grads:
+        assert float((g[MASKRCNN_STEM_SCALE] - want64).norm() / want64.norm()) <= MASKRCNN_STEM_SCALE_TOL
+
+
+@pytest.mark.cuda
+def test_train_cli_detect_on_card(cuda, tmp_path, monkeypatch):
+    """`scripts/train.py dataset=detect` on the card (2 objects x 5 frames of
+    128x160, 2 epochs at batch 2): its run's files, finite moving losses,
+    the detector on the card, and no dw-corr kernel launched."""
+    import json
+
+    from ossid_code_torch.data.synthetic import make_synthetic_bop
+    from ossid_code_torch.scripts import train
+
+    root = str(tmp_path / "bop")
+    make_synthetic_bop(root, n_frames=5, img_h=128, img_w=160)
+    monkeypatch.setenv("OSSID_RESULT_ROOT", str(tmp_path / "results"))
+    before = tconv.dw_corr3x3_cuda.launches
+    assert train.main(["dataset=detect", "dataset.n_classes=2", "dataset.img_h=128", "dataset.img_w=160",
+                       f"dataset.bop_root={root}", "dataset.test_dataset_name=synth", "dataset.shorter_length=128",
+                       "train.batch_size=2", "model.max_epochs=2", "exp_name=card"]) == 0
+    assert tconv.dw_corr3x3_cuda.launches == before
+    exp = tmp_path / "results" / "train" / "card"
+    rows = [json.loads(line) for line in (exp / "metrics_v0.jsonl").read_text().splitlines() if line.strip()]
+    assert len(rows) == 2 and all(np.isfinite(r["loss"]) for r in rows) and rows[0]["loss"] != rows[1]["loss"]
+    assert all((exp / n).exists() for n in ("config_v0.yaml", "last.ckpt", "best.ckpt"))

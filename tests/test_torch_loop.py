@@ -219,16 +219,17 @@ def test_region_mask_and_depth_crop_match(segmask):
 
 
 def test_loop_refuses_unported_flags(world):
-    """The options whose parts are not ported raise, naming their ROADMAP
-    item. save_each, raw_dtoid, use_icp (tests/test_torch_demo.py runs them)
-    and use_sift_hypos (tests/test_torch_sift.py) are ported: they pass the
-    flag check and fail here only at the first use of the absent dataset."""
+    """The option whose parts are not ported (yuv_transfer) raises, naming
+    its ROADMAP item. use_maskrcnn (tests/test_torch_maskrcnn_train.py),
+    save_each, raw_dtoid, use_icp (tests/test_torch_demo.py runs them) and
+    use_sift_hypos (tests/test_torch_sift.py) are ported: they pass the flag
+    check and fail here only at the first use of the absent dataset."""
     from ossid_code_torch.loop.online_learning import OnlineLearningLoop
 
-    for flag, item in (("use_maskrcnn", "item 8"), ("yuv_transfer", "item 6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1, {item}"):
-            OnlineLearningLoop(make_args(**{flag: True}), None, None, None, None, None, {})
-    for kw in ({"args": make_args(save_each=True)}, {"args": make_args(raw_dtoid=True)},
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 6"):
+        OnlineLearningLoop(make_args(yuv_transfer=True), None, None, None, None, None, {})
+    for kw in ({"args": make_args(use_maskrcnn=True)}, {"args": make_args(save_each=True)},
+               {"args": make_args(raw_dtoid=True)},
                {"args": make_args(), "use_icp": True}, {"args": make_args(use_sift_hypos=True)}):
         with pytest.raises(AttributeError, match="obj_ids"):
             OnlineLearningLoop(kw.pop("args"), None, None, None, None, None, {}, **kw)
