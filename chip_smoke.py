@@ -38,8 +38,12 @@ Phases, each of which exits non-zero on failure:
      gating profile: 256 hypotheses from native PPF, device ICP of the top
      24, a 256-px depth crop, oracle labels, always the DTOID mask, and a
      finetune at batch 8 every 8 buffered targets, once with float32 steps
-     and once with bf16_finetune (the bench's default); the launch counts of
-     every kernel instance must be those the schedule implies;
+     and once with bf16_finetune (the bench's default), on its default
+     pipelined schedule; the launch counts of every kernel instance must be
+     those the schedule implies (kernel 1: 2 a detection, the speculative
+     detections a finetune made stale and that went again included; every
+     target one hit, stale or absent speculation, and at most 2
+     redispatches a finetune event, here, in the demo and in the CLI);
   7. run one finetune step at full width (batch 2) on the card and through
      the plain path on the CPU from the same weights and compare the loss,
      the gradients leaf by leaf, the parameters after the step and the
@@ -96,13 +100,28 @@ Phases, each of which exits non-zero on failure:
      times with one traced call each; and the demo
      with --use_maskrcnn (fewer epochs than phase 8), which fails unless the
      pretrained detector's IoU exceeds the untrained one's.
+ 11. (run inside phase 6, on its world and bf16-step weights) the loop with
+     --yuv_transfer, synchronous and pipelined in turns (PIPE_TURNS, after a
+     warm-up run) from the same weights with cuDNN deterministic: the
+     same gates, finetune schedule and hypothesis counts in every run, and
+     scores and poses no further apart between the modes than between the
+     synchronous runs (that spread printed); the launches of each run
+     (kernel 1: 2 a detection, redispatches included; kernel 2: 2 a score
+     call; 1b, its dx and 3b: 2 a step) and its speculation as in phase 6;
+     frames/s of each run, the speculation's hit rate, fetches a frame, the
+     fetch and wait times by kind, one traced pipelined pass. 11b. the same
+     turns in the default configuration (phase 6's float32-step weights,
+     RGB uploads, cuDNN's normal algorithms): launches and speculation
+     held, frames/s, rows' agreement and spread reported. Then a 480x640
+     frame's YUV upload and unpack against the direct upload (the card's
+     unpack within 1 of the CPU's).
 Weights are random, from fixed seeds (the demo trains its own). The float32 paths run with TF32 off
 for cuDNN convolutions and cuBLAS matmuls (main path and comparisons).
 
 Before the last line it prints a `kernels` JSON line (six kernel instances,
 each with its launches by path: the loop, the demo and the CLI for float32,
 the bf16 runs and the CLI for bf16, and phase 10's CLI, demo and two train
-runs for all);
+runs and phase 11's pipelined and synchronous runs for all);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or without the ossid_code_torch package beside it, it exits
@@ -859,9 +878,10 @@ def hypo_gens(bop):
                                 ref_pt_rate=0.25, refine_top=0, max_poses=LOOP_HYPOS) for oid in bop.obj_ids}
 
 
-def run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens):
-    """The synchronous loop under the gating profile; returns its rows and
-    the host-clock wall time of the run (results fetched every frame)."""
+def run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens, pipeline_scoring=True, yuv_transfer=False):
+    """The loop under the gating profile, pipelined (the default) or not;
+    returns its rows, the host-clock wall time of the run (synchronised at
+    both ends) and the loop."""
     import argparse
 
     from ossid_code_torch.data.dtoid_bop import get_dataloaders
@@ -873,7 +893,7 @@ def run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens):
         use_sift_hypos=False, use_maskrcnn=False, finetune_interval=FINETUNE_INTERVAL,
         finetune_warmup=0, finetune_epochs=1, finetune_reset=False,
         finetune_batch_size=FINETUNE_BATCH, non_cum=False, save_each=False, raw_dtoid=False,
-        no_finetune=False, fast=True, zephyr_depth_crop=DEPTH_CROP, yuv_transfer=False)
+        no_finetune=False, fast=True, zephyr_depth_crop=DEPTH_CROP, yuv_transfer=yuv_transfer)
     train_loader, _, test_loader = get_dataloaders(cfg, zr_list)
     test_loader.dataset.sortTargets()
     train_ds = train_loader.dataset
@@ -881,7 +901,7 @@ def run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens):
     zr = {(r["obj_id"], r["scene_id"], r["im_id"]): dict(r) for r in zr_list}
     train_ds.zephyr_results = dict(zr)
     loop = OnlineLearningLoop(args, cfg, dtoid, bop, train_ds, test_loader, zr,
-                              zephyr_model=zephyr, hypo_gens=gens)
+                              zephyr_model=zephyr, hypo_gens=gens, pipeline_scoring=pipeline_scoring)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rows = loop.run(progress=False)
@@ -1023,14 +1043,46 @@ def compare_step(torch, dtoid_gpu, dtoid_cpu, batch, leaf_tols=None):
     return out
 
 
+SPEC_KINDS = ("spec_hit", "spec_stale", "spec_absent", "spec_redispatch")
+SPEC_AHEAD = 2   # OSSID_FETCH_BUNDLE's default: detections dispatched ahead of their frame
+
+
+def speculation(stats) -> dict:
+    """The speculation's counts of a run (utils/rpc_stats.py)."""
+    c = stats.snapshot()["counts"]
+    return {k: c.get(k, 0) for k in SPEC_KINDS}
+
+
+def hold_speculation(spec: dict, targets: int, finetune_events: int, where: str) -> int:
+    """The detections a pipelined run dispatched again after a finetune made
+    them stale (at their frame: spec_stale; ahead of it: spec_redispatch),
+    held to the schedule rather than to the loop's own count alone: every
+    target is one hit, stale or absent speculation, and a finetune event
+    makes stale at most the SPEC_AHEAD detections dispatched ahead of it.
+    Returns the redispatches."""
+    n = spec["spec_stale"] + spec["spec_redispatch"]
+    seen = spec["spec_hit"] + spec["spec_stale"] + spec["spec_absent"]
+    if seen != targets or n > SPEC_AHEAD * finetune_events:
+        fail(f"{where}: speculation {spec} for {targets} targets and {finetune_events} finetune events (hit + stale "
+             f"+ absent must be the targets, the redispatches at most {SPEC_AHEAD} an event)")
+    return n
+
+
 def drive_loop(torch, conv, sa, dtoid, zephyr, cfg, bop, zr_list, gens):
-    """One counted run of the loop, every launch counter at 0 just before
-    and read just after, then a second pass under torch.profiler. Returns
-    (rows, wall s, loop, launches {kernel: count}, peak GiB, profile)."""
+    """One counted run of the (pipelined) loop, every launch counter and the
+    loop's STATS at 0 just before and read just after, then a second pass
+    under torch.profiler. Returns (rows, wall s, loop, launches {kernel:
+    count, and "redispatches": the detections dispatched again after a
+    finetune made them stale}, peak GiB, profile)."""
+    from ossid_code_torch.utils.rpc_stats import STATS
+
     torch.cuda.reset_peak_memory_stats()
+    STATS.reset()
     read_launches = zero_launches(conv, sa)
     rows, wall_s, loop = run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens)
     launches = read_launches()
+    launches["redispatches"] = hold_speculation(speculation(STATS), len(rows), sum(r["finetune"] for r in rows),
+                                                "the loop")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     # the same loop again under torch.profiler (device busy time and the
     # kernels that take it), after the launch counts were read
@@ -1055,6 +1107,172 @@ def loop_summary(rows, wall_s, loop, launches, peak_gib, step_ms) -> dict:
         "pred_add01d": float(np.mean([r["pred_add01d"] for r in rows])),
     }
 
+
+# phase 11: the pipelined loop against the synchronous one, in turns on
+# phase 6's world and bf16-step weights, with the YUV 4:2:0 transport
+PIPE_TURNS = ("sync", "pipelined", "pipelined", "sync")
+PIPE_KEYS = ("obj_id", "scene_id", "im_id", "dtoid_confident", "zephyr_confident", "use_dtoid_mask", "finetune",
+             "n_hypos")
+YUV_TIMES = 20   # uploads timed, host clock, each way
+
+
+def run_spread(a: list, b: list) -> dict:
+    """The largest differences between two runs' rows: picked score,
+    hypothesis scores (finite ones) and picked pose."""
+    d = {"pred_score": 0.0, "hypo_scores": 0.0, "pred_pose": 0.0}
+    for ra, rb in zip(a, b):
+        d["pred_score"] = max(d["pred_score"], abs(ra["pred_score"] - rb["pred_score"]))
+        if ra["hypo_scores"] is not None:
+            sa_, sb = np.asarray(ra["hypo_scores"]), np.asarray(rb["hypo_scores"])
+            fin = np.isfinite(sa_) & np.isfinite(sb)
+            if not np.array_equal(np.isfinite(sa_), np.isfinite(sb)):
+                d["hypo_scores"] = float("inf")
+            elif fin.any():
+                d["hypo_scores"] = max(d["hypo_scores"], float(np.abs(sa_[fin] - sb[fin]).max()))
+        d["pred_pose"] = max(d["pred_pose"], float(np.abs(np.asarray(ra["pred_pose"]) - rb["pred_pose"]).max()))
+    return d
+
+
+def yuv_transport(torch, frame: np.ndarray) -> dict:
+    """The YUV 4:2:0 upload of one 480x640 frame (host pack, one upload,
+    unpack on the card) against the direct RGB upload: host clock a frame
+    (synchronised, median of YUV_TIMES, in turns), the unpack's device time
+    (CUDA events), and the card's unpack against the CPU's (within 1)."""
+    from ossid_code_torch.ops.yuv import pack_i420, ship_rgb_yuv420, unpack_i420
+    from ossid_code_torch.utils.host_copy import to_device
+
+    buf = pack_i420(frame)
+    cpu = unpack_i420(torch.from_numpy(buf)).numpy()
+    card = ship_rgb_yuv420(frame, "cuda").cpu().numpy()
+    diff = np.abs(card.astype(int) - cpu.astype(int))
+    if diff.max() > 1:
+        fail(f"the card's YUV unpack differs from the CPU's by {diff.max()}")
+    times = {"yuv": [], "rgb": []}
+    for i in range(YUV_TIMES):
+        for name, fn in ((("yuv", lambda: ship_rgb_yuv420(frame, "cuda")),
+                          ("rgb", lambda: to_device(frame[None], "cuda")))[::1 if i % 2 == 0 else -1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    dev_buf = torch.from_numpy(buf).cuda()
+    return {"bytes_yuv": int(buf.nbytes), "bytes_rgb": int(frame.nbytes),
+            "upload_unpack_ms": float(np.median(times["yuv"])), "direct_upload_ms": float(np.median(times["rgb"])),
+            "unpack_device_ms": cuda_ms(torch, lambda: unpack_i420(dev_buf)),
+            "card_vs_cpu_max_diff": int(diff.max()), "card_vs_cpu_exact_share": float((diff == 0).mean())}
+
+
+def pipe_turns(torch, conv, sa, dtoid, zephyr, cfg, bop, zr_list, make_gens, yuv: bool, warm_up: bool) -> list:
+    """The loop synchronous and pipelined in turns (PIPE_TURNS, after one
+    pipelined warm-up run that is not counted when `warm_up`) from the same
+    weights, each run with fresh hypothesis generators from `make_gens` and
+    the launch counters and STATS at 0 just before and read just after.
+    Every run's launches are held to its own schedule (kernel 1: 2 a
+    detection, redispatches included; kernel 2: 2 a score call; the step's
+    three kernels, float32 or bf16: 2 a step), a pipelined run's
+    speculation to hold_speculation and a synchronous run to none. Returns
+    the runs."""
+    from ossid_code_torch.utils.rpc_stats import STATS
+
+    sd = dtoid.state_dict()
+    step_kernels = ("dw_corr3x3_bf16", "dw_corr3x3_dx_bf16", "dw_corr3x3_dk_bf16") if dtoid.bf16_finetune else \
+        ("dw_corr3x3", "dw_corr3x3_dx", "dw_corr3x3_dk")
+    runs = []
+    for mode in ("warm-up",) * warm_up + PIPE_TURNS:
+        dtoid.load_state_dict(sd)
+        dtoid.reset_optimizer()
+        STATS.reset()
+        read_launches = zero_launches(conv, sa)
+        rows, wall_s, loop = run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, make_gens(),
+                                      pipeline_scoring=mode != "sync", yuv_transfer=yuv)
+        launches = read_launches()
+        stats = STATS.snapshot()
+        if mode == "warm-up":
+            continue
+        spec = speculation(STATS)
+        n_steps = sum(len(ep) for logs in loop.finetune_logs for ep in logs)
+        if mode == "sync":
+            stale = 0
+            if any(spec.values()):
+                fail(f"phase 11: the synchronous run speculated: {spec}")
+        else:
+            stale = hold_speculation(spec, len(rows), sum(r["finetune"] for r in rows), f"phase 11 {mode}")
+        expected = dict.fromkeys(launches, 0)
+        expected.update({"dw_corr3x3": 2 * (len(rows) + stale),
+                         "sa_mlp_max": 2 * sum(x["n_hypos"] > 0 for x in rows)})
+        for name in step_kernels:
+            expected[name] += 2 * n_steps
+        if launches != expected or n_steps < 2 or len(rows) != 2 * LOOP_FRAMES:
+            fail(f"phase 11: {mode} launches {launches} differ from the schedule's {expected} "
+                 f"({len(rows)} targets, {n_steps} steps, {stale} redispatched)")
+        runs.append({"mode": mode, "rows": rows, "wall_s": wall_s, "launches": launches, "stats": stats,
+                     "fetches_per_frame": STATS.fetch_rpcs_per_frame(len(rows)), "hit_rate": STATS.spec_hit_rate()})
+    dtoid.load_state_dict(sd)
+    dtoid.reset_optimizer()
+    return runs
+
+
+def turns_summary(runs: list) -> dict:
+    """Frames/s of each mode, the spread of scores and poses within and
+    between the modes, whether every run's gates, finetune schedule and
+    hypothesis counts are the first synchronous run's, and each run's
+    counts, fetches and waits by kind, and launches."""
+    sync = [r["rows"] for r in runs if r["mode"] == "sync"]
+    pipe = [r["rows"] for r in runs if r["mode"] == "pipelined"]
+    worst = lambda ds: {k: max(d[k] for d in ds) for k in ds[0]}  # noqa: E731
+    fps = {m: [len(r["rows"]) / r["wall_s"] for r in runs if r["mode"] == m] for m in ("sync", "pipelined")}
+    return {"frames_per_s": fps, "frames_per_s_median": {m: float(np.median(v)) for m, v in fps.items()},
+            "schedules_equal": all([x[k] for x in r["rows"]] == [x[k] for x in sync[0]]
+                                   for r in runs for k in PIPE_KEYS),
+            "spread": {"sync_vs_sync": worst([run_spread(sync[0], b) for b in sync[1:]]),
+                       "pipelined_vs_pipelined": worst([run_spread(pipe[0], b) for b in pipe[1:]]),
+                       "pipelined_vs_sync": [run_spread(b, sync[0]) for b in pipe]},
+            "turns": [{"mode": r["mode"], "frames_per_s": len(r["rows"]) / r["wall_s"], "wall_s": r["wall_s"],
+                       "spec_hit_rate": r["hit_rate"], "fetches_per_frame": r["fetches_per_frame"],
+                       "counts": r["stats"]["counts"],
+                       "fetches": {k: {"n": n, "ms": t * 1e3} for k, (n, t) in r["stats"]["rpcs"].items()},
+                       "launches": r["launches"]} for r in runs]}
+
+
+def phase11(torch, conv, sa, dtoid16, dtoid32, zephyr, cfg16, cfg32, bop, zr_list, make_gens) -> dict:
+    """(a) The loop with --yuv_transfer and bf16 steps in turns (pipe_turns,
+    after a warm-up run), cuDNN held to its deterministic algorithms so
+    that two runs of one mode can agree bit for bit. Fails unless the
+    gates, the finetune schedule and the hypothesis counts agree in every
+    run, and scores and poses differ between the modes no more than between
+    the two synchronous runs. Then one pipelined pass traced.
+    (b) The default configuration in turns: float32 steps, RGB uploads,
+    cuDNN's normal algorithms (its weight gradients are not bitwise
+    repeatable, so the two modes' rows are compared and reported, the
+    launches held). Then the transport timed. Returns what it measured."""
+    t_phase = time.perf_counter()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = pipe_turns(torch, conv, sa, dtoid16, zephyr, cfg16, bop, zr_list, make_gens, yuv=True, warm_up=True)
+        gens = make_gens()
+        profile = profile_call(torch, lambda: run_loop(torch, dtoid16, zephyr, cfg16, bop, zr_list, gens,
+                                                       yuv_transfer=True))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out = turns_summary(runs)
+    if not out["schedules_equal"]:
+        fail("phase 11: the runs' gates, finetune schedules or hypotheses differ from the first synchronous run's")
+    spread = out["spread"]
+    for cross in spread["pipelined_vs_sync"]:
+        for k, v in cross.items():
+            if v > spread["sync_vs_sync"][k]:
+                fail(f"phase 11: {k} differs by {v} between the modes, by {spread['sync_vs_sync'][k]} between "
+                     f"the two synchronous runs ({json.dumps(spread)})")
+    t32 = time.perf_counter()
+    out["float32_rgb"] = turns_summary(pipe_turns(torch, conv, sa, dtoid32, zephyr, cfg32, bop, zr_list, make_gens,
+                                                  yuv=False, warm_up=False))
+    out["float32_rgb"]["turns_s"] = time.perf_counter() - t32
+    out.update({"targets": 2 * LOOP_FRAMES, "profile_pipelined": profile,
+                "transport": yuv_transport(torch, np.random.default_rng(11).integers(0, 256, (480, 640, 3), np.uint8)),
+                "phase_s": time.perf_counter() - t_phase})
+    return out
 
 def compare_bf16_serving(results32, results16):
     """bf16 serving against float32 serving on the same weights, frames and
@@ -1139,12 +1357,13 @@ def demo_kernels(torch, F, conv, sa, device):
     return dw, bwd, sa_rows
 
 
-def demo_launch_schedule(stage: str, counts: dict) -> dict:
+def demo_launch_schedule(stage: str, counts: dict, redispatches: int = 0) -> dict:
     """The float32 kernels' launches that the demo's code fixes for one stage:
-    2 of kernel 1 per detect (stem and correlation head) and per train step
-    (its forward), 2 of dx and of dk per train step, 2 of kernel 2 per score
-    call (SA1, SA2), none in scorer training (unfused, as the JAX package
-    trains)."""
+    2 of kernel 1 per detect (stem and correlation head; in the pipelined
+    loop a target's, and again for each of the `redispatches` speculative
+    detections a finetune made stale) and per train step (its forward), 2
+    of dx and of dk per train step, 2 of kernel 2 per score call (SA1, SA2),
+    none in scorer training (unfused, as the JAX package trains)."""
     zero = {"dw_corr3x3": 0, "dw_corr3x3_dx": 0, "dw_corr3x3_dk": 0, "sa_mlp_max": 0}
     if stage in ("eval_untrained", "eval_pretrained"):
         return dict(zero, dw_corr3x3=2 * counts["detects_per_eval"])
@@ -1155,7 +1374,7 @@ def demo_launch_schedule(stage: str, counts: dict) -> dict:
         return dict(zero, sa_mlp_max=2 * counts[f"{stage}_scored"])
     if stage == "loop":
         n = counts["finetune_steps"]
-        return dict(zero, dw_corr3x3=2 * counts["loop_frames"] + 2 * n, dw_corr3x3_dx=2 * n,
+        return dict(zero, dw_corr3x3=2 * (counts["loop_frames"] + redispatches) + 2 * n, dw_corr3x3_dx=2 * n,
                     dw_corr3x3_dk=2 * n, sa_mlp_max=2 * counts["loop_scored"])
     return zero
 
@@ -1224,10 +1443,12 @@ def run_demo(torch, conv, sa):
     before, read at the end of each stage; then, in its world, the bf16
     scorer against the float32 one (bf16_scorer_picks) and the scorer
     step's grouping share (scorer_step_split). Returns (summary, launches
-    by stage, wall s of the demo, the bf16 picks, the step split)."""
+    by stage, wall s of the demo, the bf16 picks, the step split, the loop's
+    speculation counts)."""
     import tempfile
 
     from ossid_code_torch.scripts import demo_e2e
+    from ossid_code_torch.utils.rpc_stats import STATS
 
     by_stage, seen, kept = {}, {}, {}
 
@@ -1239,12 +1460,14 @@ def run_demo(torch, conv, sa):
             kept["ztrainer"] = objects["ztrainer"]
 
     with tempfile.TemporaryDirectory(prefix="ossid_demo_") as root:
+        STATS.reset()
         read_launches = zero_launches(conv, sa)
         t0 = time.perf_counter()
         out = demo_e2e.main(DEMO_ARGV + ["--root", root], on_stage=on_stage)
         wall_s = time.perf_counter() - t0
+        spec = speculation(STATS)
         picks = bf16_scorer_picks(torch, kept["ztrainer"])
-        return out, by_stage, wall_s, picks, scorer_step_split(torch, kept["ztrainer"])
+        return out, by_stage, wall_s, picks, scorer_step_split(torch, kept["ztrainer"]), spec
 
 
 # phase 9: the online-learning CLI on a synthetic world named ycbv (so the
@@ -1361,11 +1584,12 @@ def run_cli(torch, conv, sa, w, argv):
     import ossid_code_torch.scripts.online_learning as cli
     from ossid_code_torch.loop.online_learning import OnlineLearningLoop
     from ossid_code_torch.models.zephyr.module import ZephyrModel
+    from ossid_code_torch.utils.rpc_stats import STATS
 
     env = {"OSSID_ROOT": os.path.dirname(w["bop"]), "BOP_DATASETS_ROOT": w["bop"], "OSSID_DATA_ROOT": w["data"],
            "OSSID_CKPT_ROOT": w["ckpts"], "OSSID_RESULT_ROOT": w["results"], "BOP_RESULTS_FOLDER": w["bop_results"],
            "BOP_TOOLKIT_PATH": os.path.join(w["ckpts"], "no_toolkit")}
-    calls, hypos, loop_wall = [], [], []
+    calls, hypos, loop_wall, loop_rows = [], [], [], []
     score, gen, run = (ZephyrModel.score_hypotheses_async, OnlineLearningLoop._generate_hypotheses,
                        OnlineLearningLoop.run)
 
@@ -1384,6 +1608,7 @@ def run_cli(torch, conv, sa, w, argv):
         out = run(self, *a, **k)
         torch.cuda.synchronize()
         loop_wall.append(time.perf_counter() - t0)
+        loop_rows.append(out)
         return out
 
     saved_env = {k: os.environ.get(k) for k in env}
@@ -1393,12 +1618,14 @@ def run_cli(torch, conv, sa, w, argv):
     OnlineLearningLoop.run = timed_run
     try:
         torch.cuda.synchronize()
+        STATS.reset()
         read_launches = zero_launches(conv, sa)
         t0 = time.perf_counter()
         out = cli.main(cli.build_parser().parse_args(argv))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = read_launches()
+        spec = speculation(STATS)
     finally:
         ZephyrModel.score_hypotheses_async, OnlineLearningLoop._generate_hypotheses = score, gen
         OnlineLearningLoop.run = run
@@ -1407,6 +1634,14 @@ def run_cli(torch, conv, sa, w, argv):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    rows = loop_rows[0]
+    if "--use_maskrcnn" in argv:
+        # the class-conditional detector does not speculate: held at 0 with
+        # the other launch counts
+        launches["speculations"] = sum(spec.values())
+    else:
+        launches["redispatches"] = hold_speculation(spec, len(rows), sum(r["finetune"] for r in rows),
+                                                    "the CLI's loop")
     return out, launches, calls, hypos, wall_s, loop_wall[0]
 
 
@@ -1461,8 +1696,9 @@ def check_cli(out, launches, calls, hypos, bop):
     if not saved["finetune_logs"] or n_steps < 1:
         fail("the CLI ran no finetune event")
     expected = dict.fromkeys(launches, 0)
-    expected.update({"dw_corr3x3": 2 * len(rows) + 2 * n_steps, "dw_corr3x3_dx": 2 * n_steps,
-                     "dw_corr3x3_dk": 2 * n_steps, "sa_mlp_max": 2 * len(calls)})
+    stale = launches["redispatches"]
+    expected.update({"dw_corr3x3": 2 * (len(rows) + stale) + 2 * n_steps, "dw_corr3x3_dx": 2 * n_steps,
+                     "dw_corr3x3_dk": 2 * n_steps, "sa_mlp_max": 2 * len(calls), "redispatches": stale})
     if launches != expected:
         fail(f"CLI launches {launches} differ from the schedule's {expected}")
     return rows, {"scorer_objects": by_scorer, "score_calls": len(calls), "sift_fallback_targets": blank,
@@ -2145,12 +2381,18 @@ def main() -> int:
         step16_ms, step16_spans = time_train_step(torch, dtoid_loop16, np.random.default_rng(5))
         dtoid_loop16.reset_optimizer()
         loop16 = drive_loop(torch, conv, sa, dtoid_loop16, zephyr_loop, cfg_loop16, bop, zr_list, gens)
+        # -- 11. the pipelined loop against the synchronous one, YUV transport
+        p11 = phase11(torch, conv, sa, dtoid_loop16, dtoid_loop, zephyr_loop, cfg_loop16, cfg_loop, bop, zr_list,
+                      lambda: hypo_gens(bop))
     for label, (rows, wall_s, loop, launches, peak_gib, loop_profile), ms, bf16 in (
             ("loop", loop32, step_ms, False), ("loop, bf16 finetune", loop16, step16_ms, True)):
         n_steps = sum(len(ep) for logs in loop.finetune_logs for ep in logs)
         n_scored = sum(r["n_hypos"] > 0 for r in rows)
         expected = dict.fromkeys(launches, 0)
-        expected.update({"dw_corr3x3": 2 * len(rows), "sa_mlp_max": 2 * n_scored})
+        # 2 launches a detection: one a target, and again for each
+        # speculative detection a finetune made stale
+        expected.update({"dw_corr3x3": 2 * (len(rows) + launches["redispatches"]), "sa_mlp_max": 2 * n_scored,
+                         "redispatches": launches["redispatches"]})
         step_kernels = ("dw_corr3x3_bf16", "dw_corr3x3_dx_bf16", "dw_corr3x3_dk_bf16") if bf16 else \
             ("dw_corr3x3", "dw_corr3x3_dx", "dw_corr3x3_dk")
         for name in step_kernels:
@@ -2160,6 +2402,26 @@ def main() -> int:
         print(f"profile {label} (a second pass): {json.dumps(loop_profile)}")
     loop_launches = loop32[3]
     loop16_launches = loop16[3]
+    print(f"phase 11, the loop with --yuv_transfer in turns {'/'.join(PIPE_TURNS)} after a warm-up run "
+          f"({p11['targets']} targets, bf16 steps, {p11['phase_s']:.1f} s): frames/s median "
+          f"{json.dumps(p11['frames_per_s_median'])}; each run "
+          + ", ".join(f"{t['mode']} {t['frames_per_s']:.3f}" for t in p11["turns"])
+          + "; speculation hit rate " + ", ".join(str(t["spec_hit_rate"]) for t in p11["turns"])
+          + "; fetches a frame " + ", ".join(f"{t['fetches_per_frame']:.3f}" for t in p11["turns"]))
+    print(f"phase 11 spread of scores and poses (max abs): {json.dumps(p11['spread'])}")
+    print(f"phase 11 fetches and waits by kind, counts, launches: {json.dumps(p11['turns'])}")
+    f32 = p11["float32_rgb"]
+    print(f"phase 11b, the default configuration (float32 steps, RGB uploads, cuDNN's normal algorithms) in turns "
+          f"{'/'.join(PIPE_TURNS)} ({f32['turns_s']:.1f} s): frames/s median {json.dumps(f32['frames_per_s_median'])}; "
+          f"each run " + ", ".join(f"{t['mode']} {t['frames_per_s']:.3f}" for t in f32["turns"])
+          + "; speculation hit rate " + ", ".join(str(t["spec_hit_rate"]) for t in f32["turns"])
+          + "; fetches a frame " + ", ".join(f"{t['fetches_per_frame']:.3f}" for t in f32["turns"])
+          + f"; schedules equal {f32['schedules_equal']}; spread (max abs) {json.dumps(f32['spread'])}")
+    print(f"phase 11b fetches and waits by kind, counts, launches: {json.dumps(f32['turns'])}")
+    print(f"profile pipelined loop with --yuv_transfer (after the turns): {json.dumps(p11['profile_pipelined'])}")
+    print(f"YUV 4:2:0 transport of a 480x640 frame: {json.dumps(p11['transport'])}")
+    p11_pipe = next(t["launches"] for t in p11["turns"] if t["mode"] == "pipelined")
+    p11_sync = next(t["launches"] for t in p11["turns"] if t["mode"] == "sync")
     batch8 = finetune_batch(np.random.default_rng(7), FINETUNE_BATCH)
     print(f"profile train step (batch {FINETUNE_BATCH}, float feed): "
           f"{json.dumps(profile_call(torch, lambda: dtoid_loop.train_step(batch8)))}")
@@ -2209,13 +2471,14 @@ def main() -> int:
               f"(plain {r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']}); "
               f"dx rel err {r['dx_rel_err']:.3g}, dx {r['dx_ms']:.4f} ms (plain {r['dx_plain_ms']:.4f}, cuDNN "
               f"{r['dx_library_ms']:.4f}, bound {r['dx_bound_ms']:.4f})")
-    demo, demo_by_stage, demo_wall_s, picks16, zsplit = run_demo(torch, conv, sa)
+    demo, demo_by_stage, demo_wall_s, picks16, zsplit, demo_spec = run_demo(torch, conv, sa)
     counts = demo["counts"]
+    demo_stale = hold_speculation(demo_spec, counts["loop_frames"], demo["n_finetunes"], "the demo's loop")
     print(f"demo {' '.join(DEMO_ARGV)}: {demo_wall_s:.1f} s; stages (s) {json.dumps(demo['stage_s'])}; "
-          f"counts {json.dumps(counts)}")
+          f"counts {json.dumps(counts)}; the loop's redispatched detections {demo_stale}")
     print(f"demo launches by stage: {json.dumps(demo_by_stage)}")
     for stage, got in demo_by_stage.items():
-        want = demo_launch_schedule(stage, counts)
+        want = demo_launch_schedule(stage, counts, demo_stale)
         if any(got[k] != v for k, v in want.items()) or any(got[f"{k}_bf16"] for k in want):
             fail(f"demo stage {stage}: launches {got} differ from the schedule's {want}")
     if demo["n_finetunes"] < 1 or not all(np.isfinite(demo[k]) for k in ("AR", "AR_vsd", "AR_mssd", "AR_mspd")):
@@ -2267,10 +2530,11 @@ def main() -> int:
     # run (1b, its dx, 3b), added, with each run's count beside
     by_path10 = lambda name: {"cli_maskrcnn": mcli_launches[name], "demo_maskrcnn": mdemo_launches[name],
                             **{f"train_{f}": r["launches"][name] for f, r in train_runs.items()}}
+    by_path11 = lambda name: {"loop_yuv_pipelined": p11_pipe[name], "loop_yuv_sync": p11_sync[name]}
     by_path = lambda name: {"serving_bf16": serve16_launches.get(name, 0), "loop_bf16": loop16_launches[name],
-                            "cli": cli_launches[name], **by_path10(name)}
+                            "cli": cli_launches[name], **by_path10(name), **by_path11(name)}
     by_path32 = lambda name: {"loop": loop_launches[name], "demo": demo_launches[name], "cli": cli_launches[name],
-                              **by_path10(name)}
+                              **by_path10(name), **by_path11(name)}
     kernels = [
         dict(summary("dw_corr3x3", dw_src, dw_replaces, loop_launches["dw_corr3x3"], dw_rows, dw_edge_err, hbm),
              dtype="float32", launches_by_path=by_path32("dw_corr3x3"), demo_shapes=demo_dw),
@@ -2288,13 +2552,15 @@ def main() -> int:
                      bwd16_rows, bwd16_edge_err, hbm), dtype="bfloat16",
              dx_launches=loop16_launches["dw_corr3x3_dx_bf16"],
              launches_by_path={"loop_bf16": loop16_launches["dw_corr3x3_dk_bf16"],
-                               "cli": cli_launches["dw_corr3x3_dk_bf16"], **by_path10("dw_corr3x3_dk_bf16")}),
+                               "cli": cli_launches["dw_corr3x3_dk_bf16"], **by_path10("dw_corr3x3_dk_bf16"),
+                               **by_path11("dw_corr3x3_dk_bf16")}),
         dict(summary("sa_mlp_max_bf16", "ossid_code_torch/csrc/sa_mlp_max_bf16.cu",
                      "ossid_code_tpu/ops/sa_fused.py:85", serve16_launches["sa_mlp_max_bf16"], sa16_rows,
                      sa16_edge_err, f"BF16 tensor cores {BF16_FLOPS / 1e12} TFLOP/s"), dtype="bfloat16",
              launches_by_path={"serving_bf16": serve16_launches["sa_mlp_max_bf16"],
                                "loop_bf16": loop16_launches["sa_mlp_max_bf16"],
-                               "cli": cli_launches["sa_mlp_max_bf16"], **by_path10("sa_mlp_max_bf16")}),
+                               "cli": cli_launches["sa_mlp_max_bf16"], **by_path10("sa_mlp_max_bf16"),
+                               **by_path11("sa_mlp_max_bf16")}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -99,5 +99,7 @@ def pp_err_batch_async(poses, mat_gt, pts_dev: torch.Tensor, symmetric: bool = F
                         pts_dev, symmetric, pts_q_dev)
 
 
-def pp_err_fetch(handle: torch.Tensor) -> np.ndarray:
-    return handle.cpu().numpy()
+def pp_err_fetch(handle: torch.Tensor, fetched=None) -> np.ndarray:
+    """The pp_err of `pp_err_batch_async` on the host; `fetched` injects the
+    array that a bundled fetch already copied."""
+    return np.asarray(fetched) if fetched is not None else handle.cpu().numpy()

@@ -1,5 +1,5 @@
 """The OSSID online self-supervised learning loop on the card (the port of
-ossid_code_tpu/loop/online_learning.py, on its synchronous path).
+ossid_code_tpu/loop/online_learning.py).
 
 Each frame, in order: DTOID detection over all templates -> confidence gate
 (0.5) -> region mask -> host PPF (or fake) hypotheses in the region, after
@@ -12,24 +12,53 @@ the frame joins the finetune buffer, and every `finetune_interval` buffered
 frames DTOID is finetuned from the device replay buffer (loop/replay.py).
 
 The frame's uint8 image is uploaded to the card once and shared by
-detection, scoring and the replay buffer. Every frame completes before the
-next one starts, which is the JAX loop's `pipeline_scoring=False` path with
-inline fetches and one frame per fetch; the speculative detection, fetch
-threads, fetch bundling and the YUV transport of the JAX loop served its
-remote TPU link and are not ported. Result rows keep the JAX loop's schema.
-`test_dtoid_model` is the detection-only pass (`--raw_dtoid`).
+detection, scoring and the replay buffer (and by every target on the same
+image, through a 4-frame cache); with `yuv_transfer` it travels as a YUV
+4:2:0 buffer and is rebuilt there (ops/yuv.py). Result rows keep the JAX
+loop's schema. `test_dtoid_model` is the detection-only pass
+(`--raw_dtoid`).
+
+`pipeline_scoring=True`, the default, is the JAX loop's pipelined schedule:
+  * the detections of frames N+1 and N+2 are dispatched before frame N's
+    results are fetched, and checked against `weights_version` when their
+    frame comes: a finetune in between makes them stale, and they are
+    dispatched again on the uploads they already made;
+  * their results and the deferred completions' come to the host in one
+    bundled fetch on a fetch thread (copies into pinned memory and an event
+    after them; utils/host_copy.py), decoded there;
+  * a frame's completion (score fetch -> pseudo-label -> finetune gate) is
+    deferred past later frames' dispatches only while that cannot change
+    the weights (`_can_defer_completion`);
+  * an IO thread reads, packs and uploads frames two ahead.
+Every launch and copy goes to the current stream of the thread that makes
+it, the default stream, which the threads share: an upload made on the IO
+thread is ordered before the detection that reads it. A weight change in
+place (the optimizer's) is ordered after the speculative detections already
+enqueued, which then read the old weights and are discarded by the version
+check. An error on either thread surfaces where the main thread reads its
+future; nothing falls back to another path. The environment knobs of the
+JAX loop, read in the constructor with its defaults: OSSID_SPEC_FETCH
+(thread | inline; auto = thread), OSSID_FETCH_BUNDLE (2), OSSID_PIPELINE_DEPTH
+(the effective bundle), OSSID_MERGED_FETCH (1), OSSID_COMPLETE_PREFETCH (1),
+OSSID_FRAME_SHARE (1). `utils/rpc_stats.STATS` counts the fetches and the
+speculation's outcomes. `pipeline_scoring=False` runs each frame to its end
+before the next one starts, with no speculation and no side threads.
 
 With the class-conditional detector (`models/maskrcnn.py`, `--use_maskrcnn`)
 in DTOID's place, detection is its `forward_test_time` for the target's
-class, and the finetune trains it from the host loader through
-`_maskrcnn_feed` (no replay buffer: it has no `train_step_u8`).
+class (it has no speculative dispatch), and the finetune trains it from the
+host loader through `_maskrcnn_feed` (no replay buffer: it has no
+`train_step_u8`).
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,30 +71,46 @@ from ossid_code_torch.eval.pose_metrics import (
     add_err, adi_err, object_diameter, pp_err_batch_async, pp_err_fetch,
 )
 from ossid_code_torch.ops.sift import SiftError
+from ossid_code_torch.ops.yuv import ship_rgb_yuv420
 from ossid_code_torch.render.mesh import load_ply
 from ossid_code_torch.render.rasterizer import Renderer
 from ossid_code_torch.render.visib import estimate_visib_mask_gt
 from ossid_code_torch.utils.geometry import K2meta, depth2cloud, expand_box, shift_model_points
+from ossid_code_torch.utils.host_copy import HostCopy, to_device
 from ossid_code_torch.utils.image import resize_linear
+from ossid_code_torch.utils.rpc_stats import STATS
 from ossid_code_torch.utils.timing import Timer
 
 DTOID_CONFIDENT_THRESHOLD = 0.5  # ref online_learning.py:84
 ZEPHYR_CONFIDENT_THRESHOLD = 20  # ref online_learning.py:85
-
-# options of the JAX loop that the port does not take, with the ROADMAP.md
-# item that ports them
-_NOT_PORTED = {
-    "yuv_transfer": "item 6, the pipelined transport",
-}
 # identity poses that stand in for SIFT's when SIFT fails on a frame
 SIFT_FALLBACK_POSES = 20
+# frames whose uploads the targets of one image share (_frame_cache_put)
+FRAME_CACHE = 4
 
 
-def refuse_unported(args) -> None:
-    """Raise for an option that the port does not take, naming its item."""
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag, False):
-            raise NotImplementedError(f"--{flag} is not ported: ROADMAP.md §1, {item}")
+class _PartFut:
+    """View into one element of a bundled fetch's future (one transfer that
+    carries upcoming frames' detections and deferred frames' completions);
+    `path` indexes the nested tuples."""
+
+    def __init__(self, fut, *path: int):
+        self._fut, self._path = fut, path
+
+    def result(self):
+        out = self._fut.result()
+        for i in self._path:
+            out = out[i]
+        return out
+
+
+def _ids(batch) -> tuple:
+    return int(batch["obj_id"][0]), int(batch["scene_id"][0]), int(batch["im_id"][0])
+
+
+def _depth_mm(depth: np.ndarray) -> np.ndarray:
+    """Metres -> uint16 millimetres, as the scorer reads depth."""
+    return (depth * 1000.0).round().clip(0, 65535).astype(np.uint16)
 
 
 def model_cloud_from_ply(mesh, n_points: int = 2048, seed: int = 0):
@@ -113,11 +158,12 @@ class OnlineLearningLoop:
     def __init__(self, args, cfg, dtoid_model, bop_dataset, train_dataset, test_loader,
                  zephyr_results: dict, zephyr_model=None, zephyr_model_even=None,
                  zephyr_model_odd=None, hypo_gens: dict | None = None, sift_gens: dict | None = None,
-                 use_icp: bool = False, model_shifts: dict | None = None):
-        refuse_unported(args)
+                 use_icp: bool = False, pipeline_scoring: bool = True, model_shifts: dict | None = None):
         self.args = args
         # host ICP (hypo/icp.py) of the picked pose against the frame's depth
         self.use_icp = bool(use_icp)
+        self.pipeline_scoring = pipeline_scoring
+        self._yuv = bool(getattr(args, "yuv_transfer", False))
         self.cfg = cfg
         self.model = dtoid_model
         # share the test dataset's reader when it reads the same data, so
@@ -158,12 +204,108 @@ class OnlineLearningLoop:
         self.initial_state_dict = dtoid_model.state_dict()
         self.renderers: dict = {}
         self._pp_pts_dev: dict = {}
+        # the IO thread (made on first use): frames two ahead are read,
+        # packed and uploaded there (_prefetch_frame)
+        self._io_pool = None
+        self._prefetched: dict = {}  # ids -> Future[bop_data]
+        self._extras: dict = {}  # ids -> {img_shared_dev, depth_u16, depth_dev}
+        # uploads shared by the targets of one image, keyed (scene_id, im_id),
+        # the FRAME_CACHE latest images; OSSID_FRAME_SHARE=0 uploads per target
+        self._frame_uploads: dict = {}
+        self._frame_uploads_order: list = []
+        self._frame_uploads_lock = threading.Lock()
+        self._frame_share = os.environ.get("OSSID_FRAME_SHARE", "1") == "1"
+        # the fetch thread (made on first use) waits for the bundled
+        # transfers and decodes the detections while the main thread runs
+        # PPF and dispatches; OSSID_SPEC_FETCH=inline fetches on the main
+        # thread, one frame's detection a fetch
+        self._fetch_pool = None
+        self._fetch_futs: list = []  # read at the end of a run: no error goes unseen
+        mode = os.environ.get("OSSID_SPEC_FETCH", "auto")
+        self._spec_fetch_thread = mode == "thread" if mode in ("thread", "inline") else True
         self.next_finetune_number = args.finetune_interval
+        # a deferred frame's completion outputs (scores, refined poses,
+        # pp_err) ride an earlier transfer instead of their own fetch in
+        # _complete_frame; OSSID_COMPLETE_PREFETCH=0 fetches them there
+        self._complete_prefetch = os.environ.get("OSSID_COMPLETE_PREFETCH", "1") == "1"
+        # thread mode: the completions ride the next detection bundle;
+        # OSSID_MERGED_FETCH=0 gives each its own fetch on the fetch thread
+        self._merged_fetch = os.environ.get("OSSID_MERGED_FETCH", "1") == "1"
+        # how many upcoming frames' detections one transfer carries (thread
+        # mode; inline mode fetches one a frame)
+        self._fetch_bundle = max(1, int(os.environ.get("OSSID_FETCH_BUNDLE", "2")))
+        # how many frames a deferred completion may trail its dispatch
+        eff_bundle = self._fetch_bundle if self._spec_fetch_thread else 1
+        self._pipeline_depth = max(1, int(os.environ.get("OSSID_PIPELINE_DEPTH", str(eff_bundle))))
         self.finetune_logs: list = []
         # frames stay on the device for the finetune of a detector that
         # trains from them (DtoidModel.train_step_u8); the class-conditional
         # detector trains from the host loader
         self.replay = DeviceReplayBuffer() if hasattr(dtoid_model, "train_step_u8") else None
+
+    def _io_submit(self, fn, *fn_args):
+        if self._io_pool is None:
+            self._io_pool = ThreadPoolExecutor(max_workers=1)
+        return self._io_pool.submit(fn, *fn_args)
+
+    def _fetch_submit(self, fn, *fn_args):
+        if self._fetch_pool is None:
+            self._fetch_pool = ThreadPoolExecutor(max_workers=1)
+        fut = self._fetch_pool.submit(fn, *fn_args)
+        self._fetch_futs.append(fut)
+        return fut
+
+    def _timed_get(self, kind: str, copy: HostCopy):
+        """Wait for a started transfer; one fetch of `kind` in STATS."""
+        t0 = time.perf_counter()
+        out = copy.wait()
+        STATS.rpc(kind, time.perf_counter() - t0)
+        return out
+
+    def _thread_fetch_multi(self, items, copy: HostCopy, kind: str):
+        """Fetch-thread task: wait for one transfer that carries upcoming
+        frames' detections ((out_dev, det_batch) pairs, oldest first) and
+        deferred frames' completions, and decode the detections (unpackbits,
+        IoU) here. Consumers read their part through _PartFut views: (0, j)
+        the j-th detection, (1, j) the j-th completion."""
+        fetched_outs, pend_fetched = self._timed_get(kind, copy)
+        dets = tuple(self.model.fetch_detections(o, db, fetched=f)
+                     for (o, db), f in zip(items, fetched_outs))
+        return dets, pend_fetched
+
+    def _frame_cache_get(self, fk) -> dict:
+        """A copy of the shared uploads of image fk."""
+        if not self._frame_share:
+            return {}
+        with self._frame_uploads_lock:
+            entry = self._frame_uploads.get(fk)
+            return dict(entry) if entry else {}
+
+    def _frame_cache_put(self, fk, new: dict) -> None:
+        if not self._frame_share:
+            return
+        with self._frame_uploads_lock:
+            entry = self._frame_uploads.get(fk)
+            if entry is None:
+                self._frame_uploads[fk] = entry = {}
+                self._frame_uploads_order.append(fk)
+                while len(self._frame_uploads_order) > FRAME_CACHE:
+                    self._frame_uploads.pop(self._frame_uploads_order.pop(0), None)
+            entry.update(new)
+
+    def close(self) -> None:
+        """Stop the IO and fetch threads (after their tasks) and drop the
+        prefetched frames; run() calls it last, and may be called again."""
+        for pool in (self._io_pool, self._fetch_pool):
+            if pool is not None:
+                pool.shutdown(wait=True)
+        self._io_pool = self._fetch_pool = None
+        self._fetch_futs.clear()
+        self._prefetched.clear()
+        self._extras.clear()
+        with self._frame_uploads_lock:
+            self._frame_uploads.clear()
+            self._frame_uploads_order.clear()
 
     # ------------------------------------------------------------ stages
     def _dtoid_mask(self, out, depth):
@@ -264,36 +406,258 @@ class OnlineLearningLoop:
         _, pred_depth = r.render(depth_only=True)
         return pred_depth
 
-    def _det_batch(self, batch, bop_data):
-        """Detection input. When the processed image has the raw resolution,
-        the raw uint8 frame goes to the card once and is shared with scoring
-        and the replay buffer."""
+    def _upload_frame(self, raw: np.ndarray) -> torch.Tensor:
+        """(1, H, W, 3) uint8 frame on the detector's device: a direct
+        upload, or with `yuv_transfer` (even sizes) the I420 buffer
+        unpacked there."""
+        if self._yuv and raw.shape[0] % 2 == 0 and raw.shape[1] % 2 == 0:
+            return ship_rgb_yuv420(raw, self.model.device)[None]
+        return to_device(raw[None], self.model.device)
+
+    def _prefetch_frame(self, obj_id, scene_id, im_id, ph, pw):
+        """IO-thread task, queued two frames ahead: the PNG decode and the
+        frame's uploads that _build_det_batch would otherwise make inline,
+        shared through the frame cache. The values are those of the inline
+        path."""
+        bop_data = self.bop_dataset.getDataByIds(obj_id, scene_id, im_id)
+        fk = (scene_id, im_id)
+        extras = self._frame_cache_get(fk)
+        new = {}
+        raw = bop_data["img"]
+        if "img_shared_dev" not in extras and raw.shape[:2] == (ph, pw) and raw.dtype == np.uint8:
+            new["img_shared_dev"] = self._upload_frame(raw)
+        if "depth_u16" not in extras:
+            new["depth_u16"] = _depth_mm(bop_data["depth"])
+        if not getattr(self.args, "zephyr_depth_crop", 0) and "depth_dev" not in extras:
+            u16 = extras.get("depth_u16", new.get("depth_u16"))
+            new["depth_dev"] = to_device(u16.astype(np.int32), self.model.device)
+        if new:
+            self._frame_cache_put(fk, new)
+            extras.update(new)
+        self._extras[(obj_id, scene_id, im_id)] = extras
+        return bop_data
+
+    def _frame_data(self, ids):
+        """The frame's BopDataset record: its prefetch's result when one was
+        queued (an IO-thread error is raised here), else read now."""
+        fut = self._prefetched.pop(ids, None)
+        return fut.result() if fut is not None else self.bop_dataset.getDataByIds(*ids)
+
+    def _build_det_batch(self, batch, bop_data) -> dict:
+        """Detection input for one loader batch. When the processed image has
+        the raw resolution, the raw uint8 frame goes to the card once and is
+        shared by detection, scoring and the replay buffer; the depth in
+        millimetres goes with it unless scoring takes a crop."""
+        ids = _ids(batch)
+        fk = ids[1:]
+        ex = self._extras.pop(ids, None)
+        if ex is None:
+            # no prefetch for this target; an earlier target on the same
+            # image may have made the uploads
+            ex = self._frame_cache_get(fk)
         raw = bop_data["img"]
         ph, pw = batch["img"].shape[1:3]
-        frame_dev = None
+        img_shared_dev = None
         if raw.shape[:2] == (ph, pw) and raw.dtype == np.uint8:
-            frame_dev = torch.from_numpy(np.ascontiguousarray(raw[None])).to(self.model.device)
+            img_shared_dev = ex.get("img_shared_dev")
+            if img_shared_dev is None:
+                img_shared_dev = self._upload_frame(raw)
+                self._frame_cache_put(fk, {"img_shared_dev": img_shared_dev})
+        depth_u16 = ex.get("depth_u16")
+        if depth_u16 is None:
+            depth_u16 = _depth_mm(bop_data["depth"])
+            self._frame_cache_put(fk, {"depth_u16": depth_u16})
+        depth_dev = None
+        if not getattr(self.args, "zephyr_depth_crop", 0):
+            # the full depth goes up now: it does not depend on the detection
+            depth_dev = ex.get("depth_dev")
+            if depth_dev is None:
+                depth_dev = to_device(depth_u16.astype(np.int32), self.model.device)
+                self._frame_cache_put(fk, {"depth_dev": depth_dev})
         return {
-            "img": frame_dev if frame_dev is not None else batch["img"][0],
-            "obj_id": int(batch["obj_id"][0]),
+            "img": img_shared_dev if img_shared_dev is not None else batch["img"][0],
+            "obj_id": ids[0],
             "limg": batch["limg"][0],
             "lmask": batch["lmask"][0],
             "mask": batch["mask"][0],
-            "_frame_dev": frame_dev,
+            "_img_shared_dev": img_shared_dev,
+            "_depth_dev": depth_dev,
+            "_depth_u16": depth_u16,
         }
 
+    @staticmethod
+    def _completion_dev(ctx) -> tuple:
+        """The device tensors a frame's completion fetches: scores, refined
+        poses (or None), pp_err."""
+        zh = ctx["zhandle"]
+        return zh["dev"], zh.get("refined_dev"), ctx["pp_handle"]
+
+    def _pending_completion_dev(self, pending):
+        """A deferred frame's completion tensors, or None when there is
+        nothing to prefetch (JAX loop :623-636)."""
+        if (not self._complete_prefetch or pending is None or pending.get("zhandle") is None
+                or "prefetched" in pending or "prefetch_fut" in pending):
+            return None
+        return self._completion_dev(pending)
+
     # -------------------------------------------------------------- run
+    def _can_defer_completion(self, n_pending: int = 0) -> bool:
+        """A frame's completion (score fetch -> pseudo-label -> finetune gate)
+        may be deferred past later frames' dispatches only if it cannot
+        change the detector's weights: a finetune fires when the buffer
+        reaches `next_finetune_number`, and a frame adds at most one target,
+        so with `n_pending` completions in flight one more may wait iff
+        buffer + n_pending + 1 stays below the boundary. Any frame that could
+        finetune completes in order first, so the next frame's detection and
+        hypotheses see the weights after it (ref online_learning.py:470-546)."""
+        if not self.pipeline_scoring:
+            return False
+        if self.args.no_finetune:
+            return True
+        return len(self.train_dataset) + n_pending + 1 < self.next_finetune_number
+
     def run(self, progress: bool = True) -> list:
+        try:
+            return self._run(progress)
+        finally:
+            self.close()
+
+    def _detect(self, batch, ids, bop_data, times, specs, pending, lookahead):
+        """This frame's detection on the host, and with pipelining the
+        upcoming frames' dispatches and the bundled fetch (JAX loop
+        :741-862). Returns (host detections, det_batch)."""
+        if not hasattr(self.model, "detect_async"):
+            # a detector without the speculative API: one call, results on the host
+            det_batch = self._build_det_batch(batch, bop_data)
+            return self.model.forward_test_time(det_batch), det_batch
+        t0 = time.perf_counter()
+        if not self.pipeline_scoring:
+            det_batch = self._build_det_batch(batch, bop_data)
+            out_dev = self.model.detect_async(det_batch)
+            times["time_det_miss"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = self.model.fetch_detections(out_dev, det_batch,
+                                              fetched=self._timed_get("det_fetch", HostCopy(out_dev)))
+            times["time_det_fetch"] = time.perf_counter() - t0
+            return out, det_batch
+
+        out = out_dev = None
+        wv = self.model.weights_version
+        entry = specs.pop(ids, None)
+        if entry is not None and entry["wv"] == wv:
+            # a hit: the handle is the dispatched outputs (not fetched yet),
+            # a fetch-thread view, or the decoded host dict
+            STATS.count("spec_hit")
+            det_batch = entry["det_batch"]
+            h = entry["handle"]
+            if not entry["fetched"]:
+                out_dev = h
+            elif isinstance(h, _PartFut):
+                tw = time.perf_counter()
+                out = h.result()
+                # the main thread's block on the speculative fetch
+                STATS.rpc("spec_wait", time.perf_counter() - tw)
+            else:
+                out = h
+        else:
+            STATS.count("spec_stale" if entry is not None else "spec_absent")
+            # the uploads do not depend on the weights: a stale entry's
+            # det_batch is dispatched again under the new weights
+            det_batch = entry["det_batch"] if entry is not None else self._build_det_batch(batch, bop_data)
+            out_dev = self.model.detect_async(det_batch)
+        times["time_det_miss"] = time.perf_counter() - t0
+
+        # dispatch the upcoming frames' detections before fetching this
+        # one's; stale entries (a finetune) go again on their uploads
+        bundle = self._fetch_bundle if self._spec_fetch_thread else 1
+        for la in list(lookahead)[:bundle]:
+            la_ids = _ids(la)
+            e = specs.get(la_ids)
+            if e is not None and e["wv"] == wv:
+                continue
+            if e is not None:
+                # its frame will count a hit: the launch count needs this
+                STATS.count("spec_redispatch")
+            n_det_batch = e["det_batch"] if e is not None else self._build_det_batch(la, self._frame_data(la_ids))
+            n_out = self.model.detect_async(n_det_batch)
+            if not self._spec_fetch_thread:
+                # inline mode: the copy starts now, behind the detection
+                n_out = HostCopy(n_out)
+            specs[la_ids] = {"wv": wv, "handle": n_out, "det_batch": n_det_batch, "fetched": False}
+
+        # thread mode: when the next frame's entry has no fetch under way,
+        # every unfetched entry and the deferred completions go to the host
+        # in one transfer, waited for and decoded on the fetch thread while
+        # this frame's PPF and scoring run
+        if self._spec_fetch_thread and lookahead:
+            ne = specs.get(_ids(lookahead[0]))
+            if ne is not None and not ne["fetched"]:
+                to_fetch = [e for e in specs.values() if not e["fetched"] and e["wv"] == wv]
+                pend = []
+                if self._merged_fetch:
+                    pend = [(c, d) for c in pending if (d := self._pending_completion_dev(c)) is not None]
+                copy = HostCopy((tuple(e["handle"] for e in to_fetch), tuple(d for _, d in pend)))
+                fut = self._fetch_submit(self._thread_fetch_multi,
+                                         tuple((e["handle"], e["det_batch"]) for e in to_fetch), copy,
+                                         "det+complete" if pend else "det_fetch")
+                for j, e in enumerate(to_fetch):
+                    e["handle"] = _PartFut(fut, 0, j)
+                    e["fetched"] = True
+                for j, (c, _) in enumerate(pend):
+                    c["prefetch_fut"] = _PartFut(fut, 1, j)
+        times["time_det_spec"] = time.perf_counter() - t0 - times["time_det_miss"]
+
+        t0 = time.perf_counter()
+        if out is None:
+            # one transfer for this frame's detection and the deferred
+            # frames' completions
+            pend = [(c, d) for c in pending if (d := self._pending_completion_dev(c)) is not None]
+            fetched_det, pend_fetched = self._timed_get(
+                "det+complete" if pend else "det_fetch", HostCopy((out_dev, tuple(d for _, d in pend))))
+            for (c, _), f in zip(pend, pend_fetched):
+                c["prefetched"] = f
+            out = self.model.fetch_detections(out_dev, det_batch, fetched=fetched_det)
+        times["time_det_fetch"] = time.perf_counter() - t0
+        return out, det_batch
+
+    def _run(self, progress: bool) -> list:
         args = self.args
         test_results = []
-        for iteration, batch in enumerate(self.test_loader):
+        # upcoming frames' speculative detections by ids, in dispatch order:
+        # {wv, handle, det_batch, fetched} (see _detect)
+        specs: dict = {}
+        # completions deferred past later frames' dispatches, oldest first
+        pending: deque = deque()
+
+        def complete_pending():
+            while pending:
+                self._complete_frame(pending.popleft(), test_results, progress)
+
+        it = iter(self.test_loader)
+        batch = next(it, None)
+        # with pipelining, the next two loader batches: [0] for the
+        # speculation, both for the IO thread's prefetch
+        lookahead: deque = deque()
+        iteration = -1
+        while batch is not None:
+            iteration += 1
             t_iter0 = time.perf_counter()
-            obj_id = int(batch["obj_id"][0])
-            scene_id = int(batch["scene_id"][0])
-            im_id = int(batch["im_id"][0])
+            if self.pipeline_scoring:
+                while len(lookahead) < 2:
+                    b = next(it, None)
+                    if b is None:
+                        break
+                    lookahead.append(b)
+                for la in lookahead:
+                    la_ids = _ids(la)
+                    if la_ids not in self._prefetched and la_ids not in specs:
+                        self._prefetched[la_ids] = self._io_submit(
+                            self._prefetch_frame, *la_ids, *la["img"].shape[1:3])
+            ids = _ids(batch)
+            obj_id, scene_id, im_id = ids
 
             with Timer() as t_data:
-                bop_data = self.bop_dataset.getDataByIds(obj_id, scene_id, im_id)
+                bop_data = self._frame_data(ids)
             depth = bop_data["depth"]
             mat_gt = bop_data["mat_gt"]
             cam_K = np.asarray(bop_data["scene_camera"]["cam_K"])
@@ -308,14 +672,7 @@ class OnlineLearningLoop:
 
             # ---- DTOID detection ------------------------------------------
             with Timer() as t:
-                det_batch = self._det_batch(batch, bop_data)
-                if hasattr(self.model, "detect_async"):
-                    out_dev = self.model.detect_async(det_batch)
-                    times["time_det_miss"] = time.perf_counter() - t.start
-                    out = self.model.fetch_detections(out_dev, det_batch)
-                    times["time_det_fetch"] = time.perf_counter() - t.start - times["time_det_miss"]
-                else:  # the class-conditional detector: one call, results on the host
-                    out = self.model.forward_test_time(det_batch)
+                out, det_batch = self._detect(batch, ids, bop_data, times, specs, pending, lookahead)
             final_score = out["final_score"][0]
             dtoid_confident = bool(final_score[0] > DTOID_CONFIDENT_THRESHOLD)
             if args.ignore_dtoid_mask:
@@ -336,80 +693,96 @@ class OnlineLearningLoop:
                 "final_bbox": out["final_bbox"][0], "final_score": final_score,
                 "dtoid_iou": out.get("seg_IoU", 0.0), "dtoid_pred_mask": out["segmentation"],
                 "dtoid_confident": dtoid_confident, "use_dtoid_mask": use_dtoid_mask,
-                "zout": None, "zr": self.zephyr_results.get((obj_id, scene_id, im_id)),
-                "pp_err": None, "n_hypos": 0, "img_dev": det_batch["_frame_dev"],
+                "zhandle": None, "zr": self.zephyr_results.get(ids),
+                "pp_err": None, "n_hypos": 0, "img_dev": det_batch["_img_shared_dev"],
             }
-            if not use_dtoid_mask:
-                if ctx["zr"] is None:
-                    raise RuntimeError(f"no precomputed zephyr result for {(obj_id, scene_id, im_id)}")
+            if not use_dtoid_mask and ctx["zr"] is None:
+                raise RuntimeError(f"no precomputed zephyr result for {ids}")
+            if use_dtoid_mask and self._pose_estimate(ctx, bop_data, det_batch, out) \
+                    and self._can_defer_completion(n_pending=len(pending)):
+                # completes while later frames run on the device; only the
+                # entries older than the pipeline depth complete now
+                while len(pending) >= self._pipeline_depth:
+                    self._complete_frame(pending.popleft(), test_results, progress)
+                pending.append(ctx)
+                if self._spec_fetch_thread and not self._merged_fetch:
+                    # OSSID_MERGED_FETCH=0: the completion's own transfer,
+                    # waited for on the fetch thread
+                    d = self._pending_completion_dev(ctx)
+                    if d is not None:
+                        ctx["prefetch_fut"] = self._fetch_submit(self._timed_get, "complete_thread", HostCopy(d))
             else:
-                self._pose_estimate(ctx, bop_data, det_batch, out)
+                # no hypotheses (the precomputed result stands in, else an
+                # unconfident identity: ref online_learning.py:367-378), or a
+                # frame that may finetune: everything in flight completes in
+                # order, then this frame
+                complete_pending()
+                times["time_iter"] = time.perf_counter() - t_iter0
+                self._complete_frame(ctx, test_results, progress)
+            # dispatch half of the iteration (a deferred completion lands in
+            # a later iteration's wall)
             times["time_iter"] = time.perf_counter() - t_iter0
-            self._complete_frame(ctx, test_results, progress)
+            batch = lookahead.popleft() if lookahead else next(it, None)
+        complete_pending()
+        # a bundle whose every part went stale is read by no frame
+        for fut in self._fetch_futs:
+            fut.result()
+        # the finetune losses, fetched once each now that their steps ran
+        self.finetune_logs = [l.resolve() for l in self.finetune_logs]
         return test_results
 
-    def _pose_estimate(self, ctx, bop_data, det_batch, out):
-        """Region mask -> hypotheses -> scoring with device ICP, and the
-        per-hypothesis pp_err beside it. Fills ctx['zout'] unless hypothesis
-        generation found nothing."""
+    def _pose_estimate(self, ctx, bop_data, det_batch, out) -> bool:
+        """Region mask -> hypotheses -> scoring with device ICP dispatched,
+        and the per-hypothesis pp_err beside it (ctx['zhandle'],
+        ctx['pp_handle']). False when hypothesis generation found nothing."""
         args, times, obj_id = self.args, ctx["times"], ctx["obj_id"]
         depth, cam_K = ctx["depth"], ctx["cam_K"]
         with Timer() as t_mask:
             dist_mask = self._dtoid_mask(out, depth)
         times["time_mask"] = t_mask.interval
-        depth_u16 = (depth * 1000.0).round().clip(0, 65535).astype(np.uint16)
-        depth_origin = None
+        # scoring's depth: the detection-time upload, or a crop around the
+        # region sent now, to travel during hypothesis generation
+        depth_mm, depth_origin = det_batch["_depth_dev"], None
         if int(getattr(args, "zephyr_depth_crop", 0) or 0):
             y0, x0, sh, sw = self._depth_crop_window(dist_mask, depth.shape)
-            depth_u16 = np.ascontiguousarray(depth_u16[y0:y0 + sh, x0:x0 + sw])
+            crop = det_batch["_depth_u16"][y0:y0 + sh, x0:x0 + sw]
+            depth_mm = to_device(crop.astype(np.int32), self.model.device)
             depth_origin = np.asarray([y0, x0], np.int32)
-        frame = det_batch["_frame_dev"]
-        poses = self._generate_hypotheses(obj_id, frame[0] if frame is not None else bop_data["img"], depth,
+        frame = det_batch["_img_shared_dev"]
+        img = frame[0] if frame is not None else bop_data["img"]
+        # SIFT reads the raw image: the shared frame is it unless rebuilt from YUV
+        poses = self._generate_hypotheses(obj_id, bop_data["img"] if self._yuv else img, depth,
                                           dist_mask, cam_K, bop_data["scene_meta"], times)
         if len(poses) == 0:
-            # no hypotheses: fall back to the precomputed result, else an
-            # unconfident identity (ref online_learning.py:367-378)
-            return
+            return False
         pts, cols, nrms = self.model_clouds[obj_id]
-        zephyr = self._zephyr_for(obj_id)
-        data = {"img": frame[0] if frame is not None else bop_data["img"], "depth": depth_u16,
-                "cam_K": cam_K, "model_points": pts, "model_colors": cols,
-                "model_normals": nrms, "pose_hypos": poses}
+        data = {"img": img, "depth": depth_mm, "cam_K": cam_K, "model_points": pts,
+                "model_colors": cols, "model_normals": nrms, "pose_hypos": poses}
         if depth_origin is not None:
             data["depth_origin"] = depth_origin
         with Timer() as t:
-            zhandle = zephyr.score_hypotheses_async(data, obj_id=obj_id)
-            with Timer() as t_pp:
-                pts_dev, pts_q_dev = self._pp_pts(obj_id)
-                pp = pp_err_batch_async(poses, ctx["mat_gt"], pts_dev,
-                                        symmetric=ctx["err_func"] is adi_err, pts_q_dev=pts_q_dev)
-            ctx["zout"] = zephyr.fetch_scores(zhandle)
-            ctx["pp_err"] = pp_err_fetch(pp)
-        times["time_pperr"] = t_pp.interval
-        times["time_zephyr"] = t.interval - t_pp.interval
+            ctx["zhandle"] = self._zephyr_for(obj_id).score_hypotheses_async(data, obj_id=obj_id)
+        times["time_zephyr"] = t.interval
         ctx["n_hypos"] = len(poses)
-        if self.use_icp:
-            with Timer() as t:
-                # crop box from the model points projected on the host under
-                # the picked pose (the device uv map's row for the pick)
-                pose = ctx["zout"]["pred_pose"]
-                cam = pts @ pose[:3, :3].T + pose[:3, 3]
-                z = np.clip(cam[:, 2], 1e-6, None)
-                uv = np.stack([cam_K[0, 0] * cam[:, 0] / z + cam_K[0, 2],
-                               cam_K[1, 1] * cam[:, 1] / z + cam_K[1, 2]], axis=1).round().astype(int)
-                ctx["zout"]["pred_pose"], _ = icp_refinement(depth, uv, pose, cam_K, pts, icp_max_dist=0.01)
-            times["time_icp"] = t.interval
+        with Timer() as t_pp:
+            pts_dev, pts_q_dev = self._pp_pts(obj_id)
+            ctx["pp_handle"] = pp_err_batch_async(poses, ctx["mat_gt"], pts_dev,
+                                                  symmetric=ctx["err_func"] is adi_err, pts_q_dev=pts_q_dev)
+        times["time_pperr"] = t_pp.interval
+        return True
 
     def _complete_frame(self, ctx, test_results, progress):
-        """Pseudo-label render, self-supervision gate, finetune and the result
-        row of one frame (ref online_learning.py:470-589)."""
+        """Post-scoring half of one frame (ref online_learning.py:470-589):
+        score fetch, host ICP, pseudo-label render, self-supervision gate,
+        finetune and the result row. Runs at once or deferred (see
+        _can_defer_completion)."""
         t_complete0 = time.perf_counter()
         args = self.args
         obj_id, scene_id, im_id = ctx["obj_id"], ctx["scene_id"], ctx["im_id"]
         depth, mat_gt, cam_K = ctx["depth"], ctx["mat_gt"], ctx["cam_K"]
         times, iteration = ctx["times"], ctx["iteration"]
-        zout, hypo_scores = ctx["zout"], None
-        if zout is None:
+        zh, hypo_scores = ctx["zhandle"], None
+        if zh is None:
             zr = ctx["zr"]
             if zr is None:
                 # no hypotheses and no precomputed result: the Zephyr gate
@@ -418,8 +791,35 @@ class OnlineLearningLoop:
             else:
                 pred_pose, pred_score = np.asarray(zr["pred_pose"]), zr["score"]
         else:
-            pred_pose, pred_score = zout["pred_pose"], zout["pred_score"]
-            hypo_scores = zout["scores"]
+            with Timer() as t:
+                # a deferred frame's outputs usually came with an earlier
+                # transfer (merged into a detection fetch, or on the fetch
+                # thread); else one transfer for all three now
+                fut = ctx.pop("prefetch_fut", None)
+                if fut is not None:
+                    tw = time.perf_counter()
+                    pre = fut.result()
+                    STATS.rpc("complete_wait", time.perf_counter() - tw)
+                else:
+                    pre = ctx.pop("prefetched", None)
+                if pre is None:
+                    pre = self._timed_get("complete", HostCopy(self._completion_dev(ctx)))
+                fz, fref, fpp = pre
+                zout = self._zephyr_for(obj_id).fetch_scores(zh, fetched=fz, refined_fetched=fref)
+            times["time_zephyr"] += t.interval
+            ctx["pp_err"] = pp_err_fetch(ctx["pp_handle"], fetched=fpp)
+            pred_pose, pred_score, hypo_scores = zout["pred_pose"], zout["pred_score"], zout["scores"]
+            if self.use_icp:
+                with Timer() as t:
+                    # crop box from the model points projected on the host
+                    # under the picked pose (the device uv map's row for it)
+                    pts = ctx["model_points"]
+                    cam = pts @ pred_pose[:3, :3].T + pred_pose[:3, 3]
+                    z = np.clip(cam[:, 2], 1e-6, None)
+                    uv = np.stack([cam_K[0, 0] * cam[:, 0] / z + cam_K[0, 2],
+                                   cam_K[1, 1] * cam[:, 1] / z + cam_K[1, 2]], axis=1).round().astype(int)
+                    pred_pose, _ = icp_refinement(depth, uv, pred_pose, cam_K, pts, icp_max_dist=0.01)
+                times["time_icp"] = t.interval
 
         pred_err = ctx["err_func"](pred_pose[:3, :3], pred_pose[:3, 3], mat_gt[:3, :3],
                                    mat_gt[:3, 3], ctx["model_points"])
@@ -550,6 +950,23 @@ def _collect_loss_logs(loss_per_epoch: list) -> list:
     return [[{"train_loss": next(it)} for _ in ep] for ep in loss_per_epoch]
 
 
+class DeferredLogs:
+    """Finetune loss logs whose device scalars are not fetched yet: the
+    weight updates are already enqueued, so the finetune event need not wait
+    for its steps; the loop resolves these at the end of the run, one fetch
+    an event (JAX loop :1233-1251)."""
+
+    def __init__(self, loss_per_epoch):
+        self._raw = loss_per_epoch
+        self._resolved = None
+
+    def resolve(self) -> list:
+        if self._resolved is None:
+            self._resolved = _collect_loss_logs(self._raw)
+            self._raw = None
+        return self._resolved
+
+
 def _finetune_replay(model, train_dataset, replay, epochs: int, batch_size: int):
     """Device-feed finetune pass: frames come from the detection-time uploads
     held by the replay buffer (uint8 + bit-packed pseudo-masks); only
@@ -598,14 +1015,16 @@ def _finetune_replay(model, train_dataset, replay, epochs: int, batch_size: int)
         loss_per_epoch.append(epoch_losses)
     model.clear_cache()  # template features are stale after weight updates
     replay.n_replay_events += 1
-    return _collect_loss_logs(loss_per_epoch)
+    return DeferredLogs(loss_per_epoch)
 
 
-def finetune_dtoid(model, train_dataset, epochs: int = 1, batch_size: int = 8, replay=None) -> list:
+def finetune_dtoid(model, train_dataset, epochs: int = 1, batch_size: int = 8,
+                   replay=None) -> DeferredLogs:
     """Online finetuning pass (ref online_learning.py:650-679): one train
     step per batch of the pseudo-labelled buffer, padded to `batch_size`;
     from the replay buffer when it covers the buffer, else from the host
-    loader. Returns the per-step losses, fetched once at the end."""
+    loader. Returns the per-step losses as a DeferredLogs: the steps are
+    enqueued, and `.resolve()` fetches the losses in one copy."""
     if replay is not None:
         logs = _finetune_replay(model, train_dataset, replay, epochs, batch_size)
         if logs is not None:
@@ -629,7 +1048,7 @@ def finetune_dtoid(model, train_dataset, epochs: int = 1, batch_size: int = 8, r
             epoch_losses.append(model.train_step(feed)["loss"])
         loss_per_epoch.append(epoch_losses)
     model.clear_cache()
-    return _collect_loss_logs(loss_per_epoch)
+    return DeferredLogs(loss_per_epoch)
 
 
 def test_dtoid_model(model, test_loader, bop_dataset=None):

@@ -271,7 +271,10 @@ class ZephyrModel:
         elif not (hasattr(img, "dtype") and img.dtype == np.uint8):
             img = (np.clip(np.asarray(img), 0, 1) * 255).astype(np.uint8)
         depth = data["depth"]
-        if not (hasattr(depth, "dtype") and depth.dtype == np.uint16):
+        if isinstance(depth, torch.Tensor):  # integer millimetres already on the device
+            if depth.dtype.is_floating_point:
+                raise TypeError(f"a device depth must hold integer millimetres, got {depth.dtype}")
+        elif not (hasattr(depth, "dtype") and depth.dtype == np.uint16):
             depth = (np.asarray(depth, np.float64) * 1000.0).round().clip(0, 65535).astype(np.uint16)
         origin = np.asarray(data.get("depth_origin", (0, 0)), np.int32)
 
@@ -280,7 +283,7 @@ class ZephyrModel:
             return t.to(self.device, dtype=dtype)
 
         scores, raw, uv, inconst, align_stat, refined = self._score(
-            dev(img), dev(depth.astype(np.int32)), dev(origin),
+            dev(img), dev(depth if isinstance(depth, torch.Tensor) else depth.astype(np.int32)), dev(origin),
             dev(np.asarray(data["cam_K"], np.float32)), *prep,
             dev(poses_p), dev(valid))
         return {"dev": (scores, raw, inconst, align_stat), "uv_dev": uv,
@@ -300,11 +303,13 @@ class ZephyrModel:
         tz = (t - t.mean()) / max(float(t.std()), 1e-6)
         return np.flatnonzero(finite)[np.argmax(sz + lam * tz)]
 
-    def fetch_scores(self, handle: dict, fetched=None) -> dict:
+    def fetch_scores(self, handle: dict, fetched=None, refined_fetched=None) -> dict:
         """Wait for the score outputs and build the result dict ('scores',
         'align_stat', 'inconst_ratio', 'pred_idx/score/pose', device 'uv_dev').
         With refinement, 'pred_pose' is the refined pose that was scored, and
-        'refined' holds the refined rows (refine_top, 4, 4)."""
+        'refined' holds the refined rows (refine_top, 4, 4). `fetched` (the
+        four arrays of handle['dev']) and `refined_fetched` inject host
+        arrays that a bundled fetch already copied."""
         poses, m = handle["poses"], handle["m"]
         scores_np, raw_np, inconst_np, stat_np = (
             fetched if fetched is not None else [t.cpu().numpy() for t in handle["dev"]])
@@ -320,7 +325,7 @@ class ZephyrModel:
         pred_pose = poses[idx] if m else np.eye(4)
         refined = handle.get("refined_dev")
         if refined is not None:
-            refined = refined.cpu().numpy()
+            refined = np.asarray(refined_fetched) if refined_fetched is not None else refined.cpu().numpy()
             if 0 <= idx < len(refined):
                 pred_pose = refined[idx]
         return {

@@ -18,9 +18,10 @@ OSSID_CKPT_ROOT, OSSID_RESULT_ROOT, BOP_RESULTS_FOLDER, BOP_TOOLKIT_PATH
 scorers are two, chosen by object-id parity, and the pick gets host ICP.
 
 `--use_maskrcnn` runs the class-conditional detector (models/maskrcnn.py)
-in DTOID's place, its weights chosen as DTOID's are. Not ported:
-`--yuv_transfer` (ROADMAP.md §1 item 6) raises. Runs on the card unless
-`--device cpu`.
+in DTOID's place, its weights chosen as DTOID's are. The loop runs its
+pipelined schedule (loop/online_learning.py); `--yuv_transfer` ships each
+frame to the card as a YUV 4:2:0 buffer (ops/yuv.py). Runs on the card
+unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="JSON of per-object model-frame offsets (meters), {obj_id: [x,y,z]}: the "
                              "YCB-V original-frame vs BOP-frame shift the scorer checkpoints expect")
     parser.add_argument("--yuv_transfer", action="store_true",
-                        help="not ported: raises (ROADMAP.md §1 item 6)")
+                        help="Ship frames to the device as YUV 4:2:0 (1.5 B/px) and rebuild RGB there")
     parser.add_argument("--bf16_finetune", action="store_true",
                         help="Mixed-precision online finetuning: bf16 forward/backward with float32 "
                              "master weights and float32 loss and optimizer")
@@ -255,12 +256,11 @@ def main(args) -> dict:
     from ossid_code_torch.eval.bop_ar import BopEvaluator
     from ossid_code_torch.eval.bop_csv import save_results_bop
     from ossid_code_torch.eval.detection_map import eval_detection_results
-    from ossid_code_torch.loop.online_learning import OnlineLearningLoop, refuse_unported, test_dtoid_model
+    from ossid_code_torch.loop.online_learning import OnlineLearningLoop, test_dtoid_model
     from ossid_code_torch.models.dtoid.module import DtoidModel
     from ossid_code_torch.models.zephyr.module import ZephyrModel
     from ossid_code_torch.utils.geometry import load_model_shifts, mask_to_bbox
 
-    refuse_unported(args)
     np.random.seed(42)
     R = roots()
     cfg = build_config(args)

@@ -184,13 +184,11 @@ def test_config_and_checkpoint_choice_match_jax(case, files, tmp_path, monkeypat
     assert T.select_zephyr_ckpts(targs) == J.select_zephyr_ckpts(jargs)
 
 
-def test_unported_flags_raise():
-    """--yuv_transfer raises, naming its item (--use_maskrcnn is ported:
-    tests/test_torch_maskrcnn_cli.py)."""
-    from ossid_code_torch.scripts.online_learning import build_parser, main
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 6"):
-        main(build_parser().parse_args(["--yuv_transfer", "--use_maskrcnn", "--device", "cpu"]))
+def test_unported_flags_raise(world, weights, tmp_path, monkeypatch, capsys):
+    """No flag raises any more: both CLIs run with --yuv_transfer (frames
+    shipped as YUV 4:2:0 and rebuilt on the device) and agree as
+    test_cli_matches_jax holds them."""
+    _check_cli_runs(*_run_both(world, weights, tmp_path, monkeypatch, capsys, "--yuv_transfer"))
 
 
 # ------------------------------------------------- loop: shifts and scorers
@@ -384,9 +382,16 @@ def _run_both(world, weights, tmp_path, monkeypatch, capsys, *extra):
 
 
 def test_cli_matches_jax(world, weights, tmp_path, monkeypatch, capsys):
+    _check_cli_runs(*_run_both(world, weights, tmp_path, monkeypatch, capsys))
+
+
+def _check_cli_runs(jax_run, port_run):
+    """The summary lines, the results pickle, the rows (2e-3 / 5e-4 on
+    scores, 1e-4 on poses, 2e-2 px on the top box) and the CSV of the two
+    CLIs' runs."""
     from ossid_code_torch.eval.bop_csv import read_results_bop
 
-    (jroots, jsum), (troots, tsum) = _run_both(world, weights, tmp_path, monkeypatch, capsys)
+    (jroots, jsum), (troots, tsum) = jax_run, port_run
     assert tsum == jsum and len(tsum) == len(SUMMARY), (tsum, jsum)
     picked = []
     for roots in (jroots, troots):

@@ -714,3 +714,106 @@ def test_train_cli_detect_on_card(cuda, tmp_path, monkeypatch):
     rows = [json.loads(line) for line in (exp / "metrics_v0.jsonl").read_text().splitlines() if line.strip()]
     assert len(rows) == 2 and all(np.isfinite(r["loss"]) for r in rows) and rows[0]["loss"] != rows[1]["loss"]
     assert all((exp / n).exists() for n in ("config_v0.yaml", "last.ckpt", "best.ckpt"))
+
+
+@pytest.mark.cuda
+def test_host_copy_waits_on_its_event(cuda):
+    """HostCopy starts its copies into pinned memory behind queued work and
+    a wait on another thread returns the values once they have landed; the
+    YUV 4:2:0 upload gives, on the card, the CPU's unpack within 1."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ossid_code_torch.ops.yuv import pack_i420, ship_rgb_yuv420, unpack_i420
+    from ossid_code_torch.utils.host_copy import HostCopy, to_device
+
+    x = torch.arange(1 << 20, dtype=torch.float32, device=cuda)
+    torch.cuda._sleep(50_000_000)
+    copy = HostCopy({"x": x * 2, "pair": (x[:5], None)})
+    assert all(t.is_pinned() for t in (copy._tree["x"], copy._tree["pair"][0]))
+    with ThreadPoolExecutor(1) as pool:
+        out = pool.submit(copy.wait).result()
+    np.testing.assert_array_equal(out["x"], np.arange(1 << 20, dtype=np.float32) * 2)
+    assert out["pair"][1] is None and out["pair"][0].tolist() == [0, 1, 2, 3, 4]
+    img = np.random.default_rng(0).integers(0, 256, (480, 640, 3), np.uint8)
+    card = ship_rgb_yuv420(img, cuda)
+    assert card.shape == (480, 640, 3) and card.dtype == torch.uint8 and card.is_cuda
+    cpu = unpack_i420(torch.from_numpy(pack_i420(img)))
+    assert int((card.cpu().int() - cpu.int()).abs().max()) <= 1
+    assert torch.equal(to_device(img, cuda).cpu(), torch.from_numpy(img))
+
+
+@pytest.mark.cuda
+def test_pipelined_loop_on_card(cuda, tmp_path):
+    """The pipelined loop on the card (2 objects x 2 frames of 128x160,
+    DenseNet (2, 2, 2), a 64-point scorer, 8 fake hypotheses with device ICP
+    of the top 4, a finetune every 2 targets at batch 2, the YUV transport
+    and a 96-px depth crop, cuDNN's deterministic algorithms) against the
+    synchronous loop from the same weights: the same gates, finetune
+    schedule and hypothesis counts, and scores and poses no further from
+    the synchronous run than a second synchronous run is."""
+    import argparse
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.data.bop import BopDataset, BopDatasetArgs
+    from ossid_code_torch.data.dtoid_bop import get_dataloaders
+    from ossid_code_torch.data.synthetic import (
+        default_objects, make_synthetic_bop, make_template_grid, make_zephyr_results_pkl,
+    )
+    from ossid_code_torch.hypo.fake import FakeHypoGen
+    from ossid_code_torch.loop.online_learning import OnlineLearningLoop
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+
+    root = str(tmp_path / "bop")
+    make_synthetic_bop(root, n_frames=2, img_h=128, img_w=160)
+    make_template_grid(str(tmp_path / "bop" / "grid"), default_objects(), n_views=8)
+    bop = BopDataset(BopDatasetArgs(bop_root=root, dataset_name="synth"))
+    make_zephyr_results_pkl(str(tmp_path / "zr.pkl"), bop, score=50.0)
+    cfg = default_config()
+    d = cfg.dataset
+    d.bop_root, d.test_dataset_name, d.grid_root = root, "synth", str(tmp_path / "bop" / "grid")
+    d.shorter_length, d.heatmap_shorter_length, d.n_local_test = 128, 7, 4
+    d.load_zephyr_result, d.zephyr_result_path = True, str(tmp_path / "zr.pkl")
+    cfg.model.img_h, cfg.model.img_w, cfg.model.heatmap_h, cfg.model.heatmap_w = 128, 160, 7, 9
+    cfg.model.densenet_blocks = (2, 2, 2)
+    with open(d.zephyr_result_path, "rb") as f:
+        zr_list = pickle.load(f)
+    dtoid = DtoidModel(cfg, seed=0, device=cuda)
+    zephyr = ZephyrModel(num_points=64, inconst_ratio_th=100.0, seed=0, need_uv=False, refine_top=4, device=cuda)
+    sd = dtoid.state_dict()
+    args = argparse.Namespace(
+        dataset_name="synth", exp_name="card", use_dtoid_segmask=False, ignore_dtoid_mask=False,
+        always_dtoid_mask=True, use_oracle_gt=True, use_sift_hypos=False, use_maskrcnn=False,
+        finetune_interval=2, finetune_warmup=0, finetune_epochs=1, finetune_reset=False,
+        finetune_batch_size=2, non_cum=False, save_each=False, raw_dtoid=False, no_finetune=False,
+        fast=True, zephyr_depth_crop=96, yuv_transfer=True)
+
+    def run(pipelined):
+        dtoid.load_state_dict(sd)
+        dtoid.reset_optimizer()
+        train_loader, _, test_loader = get_dataloaders(cfg, zr_list)
+        test_loader.dataset.sortTargets()
+        train_ds = train_loader.dataset
+        train_ds.clearTargets()
+        zr = {(r["obj_id"], r["scene_id"], r["im_id"]): dict(r) for r in zr_list}
+        train_ds.zephyr_results = dict(zr)
+        loop = OnlineLearningLoop(args, cfg, dtoid, bop, train_ds, test_loader, zr, zephyr_model=zephyr,
+                                  hypo_gens={o: FakeHypoGen(n_hypos=8, seed=o) for o in bop.obj_ids},
+                                  pipeline_scoring=pipelined)
+        return loop.run(progress=False)
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sync, pipe, sync2 = run(False), run(True), run(False)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert len(pipe) == 4 and sum(r["finetune"] for r in pipe) == 2
+    for key in chip_smoke.PIPE_KEYS:
+        assert [r[key] for r in pipe] == [r[key] for r in sync] == [r[key] for r in sync2], key
+    spread, cross = chip_smoke.run_spread(sync, sync2), chip_smoke.run_spread(pipe, sync)
+    assert all(cross[k] <= spread[k] for k in cross), (cross, spread)

@@ -122,7 +122,7 @@ def test_loop_with_host_icp_matches_jax(world, monkeypatch, tmp_path):
     monkeypatch.setenv("OSSID_SPEC_FETCH", "inline")
     monkeypatch.setenv("OSSID_FETCH_BUNDLE", "1")
     args = make_args(finetune_interval=2)
-    want, weights = _run_jax(world, args, refine_top=0, use_icp=True)
+    want, weights, _ = _run_jax(world, args, refine_top=0, use_icp=True)
     got, loop = _run_port(world, make_args(finetune_interval=2, save_each=True, save_root=str(tmp_path)),
                           weights, refine_top=0, use_icp=True)
     assert len(got) == len(want) == 2 * N_FRAMES

@@ -6,8 +6,9 @@ start from the same DTOID and scorer weights and run the bench's gating
 profile (always_dtoid_mask, use_oracle_gt, device ICP of the top 4
 hypotheses, a 96-px depth crop) with DenseNet (2, 2, 2), a 128-point scorer,
 16 fake hypotheses per frame and a finetune every 4 buffered targets at
-batch 2. The JAX loop runs with pipeline_scoring=False, inline fetches and
-one frame per fetch.
+batch 2. Both loops run with pipeline_scoring=False, the JAX loop with
+inline fetches and one frame per fetch; tests/test_torch_pipeline.py holds
+the pipelined loops to each other on the same world.
 """
 
 import argparse
@@ -83,7 +84,7 @@ def world(tmp_path_factory):
     return root
 
 
-def _run_jax(root, args, refine_top=REFINE_TOP, **loop_kw):
+def _run_jax(root, args, refine_top=REFINE_TOP, pipeline_scoring=False, **loop_kw):
     from ossid_code_tpu.core.config import default_config
     from ossid_code_tpu.data.bop import BopDataset, BopDatasetArgs
     from ossid_code_tpu.data.dtoid_bop import get_dataloaders
@@ -108,8 +109,8 @@ def _run_jax(root, args, refine_top=REFINE_TOP, **loop_kw):
     weights = (model.state_dict(), zmodel.state_dict())
     gens = {oid: FakeHypoGen(n_hypos=16, seed=oid) for oid in bop.obj_ids}
     loop = OnlineLearningLoop(args, cfg, model, bop, train_ds, test_loader, zr,
-                              zephyr_model=zmodel, hypo_gens=gens, pipeline_scoring=False, **loop_kw)
-    return loop.run(progress=False), weights
+                              zephyr_model=zmodel, hypo_gens=gens, pipeline_scoring=pipeline_scoring, **loop_kw)
+    return loop.run(progress=False), weights, loop
 
 
 def _run_port(root, args, weights, refine_top=REFINE_TOP, **loop_kw):
@@ -158,8 +159,18 @@ def test_loop_matches_jax_sync_path(world, monkeypatch):
     monkeypatch.setenv("OSSID_SPEC_FETCH", "inline")
     monkeypatch.setenv("OSSID_FETCH_BUNDLE", "1")
     args = make_args()
-    want, weights = _run_jax(world, args)
-    got, loop = _run_port(world, args, weights)
+    want, weights, _ = _run_jax(world, args)
+    got, loop = _run_port(world, args, weights, pipeline_scoring=False)
+    assert_rows_match_jax(got, want, loop)
+    loop.save_results(os.path.join(world, "results.pkl"), got)
+    with open(os.path.join(world, "results.pkl"), "rb") as f:
+        saved = pickle.load(f)
+    assert set(saved) == {"test_results", "main_args", "finetune_logs", "final_state_dict"}
+    assert len(saved["finetune_logs"]) == 2 and saved["main_args"]["finetune_interval"] == 4
+
+
+def assert_rows_match_jax(got, want, loop):
+    """test_loop_matches_jax_sync_path's criteria on two loops' rows."""
     assert len(got) == len(want) == 2 * N_FRAMES
     assert [r["finetune"] for r in got] == [r["finetune"] for r in want]
     assert sum(r["finetune"] for r in got) == 2
@@ -184,11 +195,6 @@ def test_loop_matches_jax_sync_path(world, monkeypatch):
             np.testing.assert_allclose(g["pred_pose"], w["pred_pose"], rtol=0, atol=1e-4)
             assert abs(g["pred_err"] - w["pred_err"]) <= 1e-4
     assert n_exact >= 1
-    loop.save_results(os.path.join(world, "results.pkl"), got)
-    with open(os.path.join(world, "results.pkl"), "rb") as f:
-        saved = pickle.load(f)
-    assert set(saved) == {"test_results", "main_args", "finetune_logs", "final_state_dict"}
-    assert len(saved["finetune_logs"]) == 2 and saved["main_args"]["finetune_interval"] == 4
 
 
 @pytest.mark.parametrize("segmask", [False, True])
@@ -219,17 +225,19 @@ def test_region_mask_and_depth_crop_match(segmask):
 
 
 def test_loop_refuses_unported_flags(world):
-    """The option whose parts are not ported (yuv_transfer) raises, naming
-    its ROADMAP item. use_maskrcnn (tests/test_torch_maskrcnn_train.py),
-    save_each, raw_dtoid, use_icp (tests/test_torch_demo.py runs them) and
-    use_sift_hypos (tests/test_torch_sift.py) are ported: they pass the flag
-    check and fail here only at the first use of the absent dataset."""
-    from ossid_code_torch.loop.online_learning import OnlineLearningLoop
+    """The port's table of unported options is gone: every option of the
+    JAX loop is taken. yuv_transfer (tests/test_torch_pipeline.py runs it),
+    use_maskrcnn (tests/test_torch_maskrcnn_train.py), save_each, raw_dtoid,
+    use_icp (tests/test_torch_demo.py runs them) and use_sift_hypos
+    (tests/test_torch_sift.py) pass the flag check and fail here only at the
+    first use of the absent dataset."""
+    import ossid_code_torch.loop.online_learning as L
+    import ossid_code_torch.scripts.online_learning as S
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 6"):
-        OnlineLearningLoop(make_args(yuv_transfer=True), None, None, None, None, None, {})
-    for kw in ({"args": make_args(use_maskrcnn=True)}, {"args": make_args(save_each=True)},
-               {"args": make_args(raw_dtoid=True)},
-               {"args": make_args(), "use_icp": True}, {"args": make_args(use_sift_hypos=True)}):
+    assert not any(hasattr(m, name) for m in (L, S) for name in ("_NOT_PORTED", "refuse_unported"))
+    for kw in ({"args": make_args(yuv_transfer=True)}, {"args": make_args(use_maskrcnn=True)},
+               {"args": make_args(save_each=True)}, {"args": make_args(raw_dtoid=True)},
+               {"args": make_args(), "use_icp": True}, {"args": make_args(use_sift_hypos=True)},
+               {"args": make_args(), "pipeline_scoring": False}):
         with pytest.raises(AttributeError, match="obj_ids"):
-            OnlineLearningLoop(kw.pop("args"), None, None, None, None, None, {}, **kw)
+            L.OnlineLearningLoop(kw.pop("args"), None, None, None, None, None, {}, **kw)
