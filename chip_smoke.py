@@ -115,13 +115,27 @@ Phases, each of which exits non-zero on failure:
      held, frames/s, rows' agreement and spread reported. Then a 480x640
      frame's YUV upload and unpack against the direct upload (the card's
      unpack within 1 of the CPU's).
+ 12. the train CLI's legacy families at the presets' widths on a world built
+     here (10 frames of 480x640 with 2 textured wedges, object 2 seen and 1
+     unseen on a ycbv-named world; 128x128 and 124x124 template grids; an
+     FSS-1000 layout of 4 classes x 5 images of 224x224 written with
+     utils/jpeg.py): dataset=fewshot_bop, dataset=fss_1000, dataset=ycbv_sift
+     and model=superglue, 2 epochs at batch 4 each, with phase 10c's checks
+     and times, no kernel launched, the monitored metric in the stream and
+     the matcher's loss falling; a 224x224 JPEG decode timed; one first
+     step of the few-shot model and of the matcher card against CPU at full
+     width (and the matcher's log assignment); DTOIDWrapper (480x640,
+     DenseNet-121, n_local 10 of 16 views) from a checkpoint: 2 launches of
+     kernel 1 a call and nothing else, a frame against the CPU plain path,
+     its host time and one traced call.
 Weights are random, from fixed seeds (the demo trains its own). The float32 paths run with TF32 off
 for cuDNN convolutions and cuBLAS matmuls (main path and comparisons).
 
 Before the last line it prints a `kernels` JSON line (six kernel instances,
 each with its launches by path: the loop, the demo and the CLI for float32,
 the bf16 runs and the CLI for bf16, and phase 10's CLI, demo and two train
-runs and phase 11's pipelined and synchronous runs for all);
+runs, phase 11's pipelined and synchronous runs and phase 12's four train
+runs and the wrapper for all);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or without the ossid_code_torch package beside it, it exits
@@ -177,6 +191,12 @@ STEP_STAT_TOL = 1e-4
 STEP_GRAD_TOL = 0.1
 STEP_GRAD_NOISE = 1e-6
 STEP_PARAM_TOL = 1e-5
+# A conv's bias that feeds a training-mode BatchNorm has a gradient of zero
+# in exact arithmetic (the BatchNorm subtracts the batch mean); in float32 at
+# phase 12's full width what is left is rounding above STEP_GRAD_NOISE (on an
+# H100, 3.1e-6 of the largest gradient: zero_leaves_max_rel), so such leaves
+# are held by their size on each device instead of against each other.
+ZERO_GRAD_TOL = 1e-4
 ROW_KEYS = ("obj_id", "pred_pose", "pred_score", "pred_err", "pred_add01d", "pred_mask_visib",
             "pred_iou_visib", "dtoid_bbox", "dtoid_score", "time_dtoid", "time_finetune",
             "use_dtoid_mask", "finetune")
@@ -656,6 +676,19 @@ def compare_with_cpu(det, scored, det_cpu, scored_cpu):
     on each device); boxes 0.05 px; seg mask mismatch <= 1e-3 of the pixels;
     >= 98% of the detections matched (a near-tied score may swap, a box near
     the NMS threshold may flip)."""
+    out = compare_detections(det, det_cpu)
+    out["score_max_abs_err"] = float(np.abs(scored["scores"] - scored_cpu["scores"]).max())
+    if not np.allclose(scored["scores"], scored_cpu["scores"], rtol=1e-3, atol=1e-3):
+        fail(f"Zephyr scores GPU vs CPU differ by {out['score_max_abs_err']:.3g}")
+    top2 = np.sort(scored_cpu["scores"])[-2:]
+    if scored["pred_idx"] != scored_cpu["pred_idx"] and top2[1] - top2[0] > 2e-3:
+        fail("Zephyr picks a different hypothesis on the GPU than on the CPU")
+    return out
+
+
+def compare_detections(det, det_cpu):
+    """A DTOID detection on the card against the CPU's: compare_with_cpu's
+    limits for the heat map, the segmentation and the detections."""
     out = {}
     out["heat_map_max_abs_err"] = float(np.abs(det["heat_map"] - det_cpu["heat_map"]).max())
     if out["heat_map_max_abs_err"] > 1e-3:
@@ -673,12 +706,6 @@ def compare_with_cpu(det, scored, det_cpu, scored_cpu):
     out["detections_matched"] = matched / max(n, 1)
     if out["detections_matched"] < 0.98 or abs(float(det["pred_scores"][0] - det_cpu["pred_scores"][0])) > 1e-3:
         fail(f"detections GPU vs CPU: {out['detections_matched']:.3f} matched")
-    out["score_max_abs_err"] = float(np.abs(scored["scores"] - scored_cpu["scores"]).max())
-    if not np.allclose(scored["scores"], scored_cpu["scores"], rtol=1e-3, atol=1e-3):
-        fail(f"Zephyr scores GPU vs CPU differ by {out['score_max_abs_err']:.3g}")
-    top2 = np.sort(scored_cpu["scores"])[-2:]
-    if scored["pred_idx"] != scored_cpu["pred_idx"] and top2[1] - top2[0] > 2e-3:
-        fail("Zephyr picks a different hypothesis on the GPU than on the CPU")
     return out
 
 
@@ -981,19 +1008,23 @@ def grad_errors(grads, ref):
     return errs, dropped
 
 
-def hold_grads(errs, leaf_tols, what):
+def hold_grads(errs, leaf_tols, what, grad_tol=STEP_GRAD_TOL):
     """Fails where a leaf's error exceeds its limit: its own in leaf_tols,
-    else STEP_GRAD_TOL."""
+    else grad_tol."""
     for name, err in errs.items():
-        tol = leaf_tols.get(name, STEP_GRAD_TOL)
+        tol = leaf_tols.get(name, grad_tol)
         if err > tol:
             fail(f"gradient of {name} differs between {what} by {err:.3g} (relative L2, tol {tol})")
 
 
-def compare_step(torch, dtoid_gpu, dtoid_cpu, batch, leaf_tols=None):
+def compare_step(torch, dtoid_gpu, dtoid_cpu, batch, leaf_tols=None, grad_tol=STEP_GRAD_TOL, zero_leaves=()):
     """One float32 train step on the card and on the CPU from the same
-    weights and fresh optimizer state (see the STEP_* tolerances); a leaf
-    named in `leaf_tols` is held to its own limit there."""
+    weights and fresh optimizer state (see the STEP_* tolerances; gradients
+    to `grad_tol`); a leaf named in `leaf_tols` is held to its own limit
+    there, and a leaf in `zero_leaves`, whose exact gradient is zero, to
+    ZERO_GRAD_TOL of the largest gradient on each device. Any model with the
+    train-step interface (`train_step`, `net`, `optimizer`, `state_dict`):
+    DTOID, the detector, the legacy models."""
     leaf_tols = leaf_tols or {}
     out = {}
     before = {name: p.detach().double().clone() for name, p in dtoid_cpu.net.named_parameters()}
@@ -1004,8 +1035,17 @@ def compare_step(torch, dtoid_gpu, dtoid_cpu, batch, leaf_tols=None):
         fail(f"finetune step loss GPU {losses[0]} vs CPU {losses[1]}")
     g_cpu = {name: p.grad.double() for name, p in dtoid_cpu.net.named_parameters()}
     g_gpu = {name: p.grad.double().cpu() for name, p in dtoid_gpu.net.named_parameters()}
+    if zero_leaves:
+        scale = max(float(g.abs().max()) for g in g_cpu.values())
+        zero = {n: max(float(g[n].abs().max()) for g in (g_gpu, g_cpu)) / scale for n in zero_leaves}
+        out["zero_leaves_max_rel"] = max(zero.values())
+        if out["zero_leaves_max_rel"] > ZERO_GRAD_TOL:
+            fail(f"gradients that are zero in exact arithmetic reach {out['zero_leaves_max_rel']:.3g} of the "
+                 f"largest (tol {ZERO_GRAD_TOL}): {max(zero, key=zero.get)}")
+        g_cpu = {n: g for n, g in g_cpu.items() if n not in zero}
     errs, dropped = grad_errors(g_gpu, g_cpu)
-    hold_grads(errs, leaf_tols, "card and CPU")
+    dropped = dropped + list(zero_leaves)
+    hold_grads(errs, leaf_tols, "card and CPU", grad_tol)
     rest = {n: e for n, e in errs.items() if n not in leaf_tols}
     worst = max(rest, key=rest.get)
     out.update(grad_leaves=len(errs), grad_leaves_at_rounding_level=dropped,
@@ -1516,6 +1556,14 @@ def compare_sift_runs(a: tuple, b: tuple, tol_px: float = 0.01, tol_deg: float =
     return out
 
 
+def textured_wedges() -> dict:
+    """Two textured wedges: SIFT finds features on them (phases 9, 10 and 12)."""
+    from ossid_code_torch.render.mesh import make_wedge_mesh, texture_mesh
+
+    return {1: texture_mesh(make_wedge_mesh(85, 62, 45, taper=0.55, shear=0.35), amp=0.3, subdiv=3, seed=1),
+            2: texture_mesh(make_wedge_mesh(70, 48, 55, taper=0.4, shear=-0.25), amp=0.3, subdiv=3, seed=2)}
+
+
 def cli_world(root):
     """The CLI's inputs under `root`: the BOP dataset `ycbv` (CLI_FRAMES
     frames of 480x640, 2 textured wedges, frame CLI_BLANK_IM blanked), its
@@ -1531,12 +1579,10 @@ def cli_world(root):
     from ossid_code_torch.data.synthetic import make_synthetic_bop, make_template_grid, make_zephyr_results_pkl
     from ossid_code_torch.models.dtoid.module import DtoidModel
     from ossid_code_torch.models.zephyr.module import ZephyrModel
-    from ossid_code_torch.render.mesh import make_wedge_mesh, texture_mesh
     from ossid_code_torch.utils.png import read_png, write_png
 
     w = {k: os.path.join(root, k) for k in ("bop", "data", "ckpts", "results", "bop_results")}
-    objects = {1: texture_mesh(make_wedge_mesh(85, 62, 45, taper=0.55, shear=0.35), amp=0.3, subdiv=3, seed=1),
-               2: texture_mesh(make_wedge_mesh(70, 48, 55, taper=0.4, shear=-0.25), amp=0.3, subdiv=3, seed=2)}
+    objects = textured_wedges()
     make_synthetic_bop(w["bop"], dataset_name="ycbv", n_frames=CLI_FRAMES, img_h=480, img_w=640, objects=objects)
     rgb = os.path.join(w["bop"], "ycbv", "test", "000000", "rgb", f"{CLI_BLANK_IM:06d}.png")
     write_png(rgb, np.full_like(read_png(rgb), 128))
@@ -1977,31 +2023,38 @@ def check_maskrcnn_cli(out, launches, calls, bop):
     return rows, {"score_calls": len(calls), "finetune_events": len(saved["finetune_logs"]), "train_steps": n_steps}
 
 
-def run_train_cli(torch, conv, sa, w, family):
-    """Phase 10c: `python -m ossid_code_torch.scripts.train` in-process for
-    `family` on the world, TRAIN_EPOCHS epochs on the card, every launch
-    counter at 0 just before and read just after; each epoch and each train
-    step timed (host clock, synchronised), the steps and validation batches
-    counted.
-    Checks the run's files, its metric rows and the launches: none for the
-    class-conditional detector; for DTOID 2 of kernel 1 a step and a
-    validation batch, 2 of its dx and of kernel 3 a step. Then holds the
-    kernels against their plain versions at every shape the run launched
-    them on (recording_dw_calls, hold_dw_calls)."""
+def train_argv(w, family):
+    """Phase 10c's train CLI arguments for `family` on the world `w`."""
+    return [f"dataset={family}", f"dataset.bop_root={w['bop']}", "dataset.test_dataset_name=ycbv",
+            f"dataset.grid_root={os.path.join(w['data'], 'templates_YCBV_BOP')}",
+            f"train.batch_size={TRAIN_BATCH[family]}", f"model.max_epochs={TRAIN_EPOCHS}", f"exp_name=chip_{family}"]
+
+
+def run_train_cli(torch, conv, sa, family, argv, results, batch):
+    """`python -m ossid_code_torch.scripts.train argv` in-process (experiment
+    chip_<family>, under `results`), every launch counter at 0 just before
+    and read just after; each epoch and each train step timed (host clock,
+    synchronised), the steps and validation batches counted, the card's peak
+    memory read, and after the run one train step of the trained model on
+    the run's last batch traced.
+    Checks the run's files, its metric rows and the launches: none but for
+    DTOID, which launches 2 of kernel 1 a step and a validation batch, 2 of
+    its dx and of kernel 3 a step. Then holds the kernels against their
+    plain versions at every shape the run launched them on
+    (recording_dw_calls, hold_dw_calls)."""
     import json as json_
 
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.models.fewshot_seg import FewshotSegModel
+    from ossid_code_torch.models.maskrcnn import MaskRCNN
+    from ossid_code_torch.models.matcher import SiftMatcher
     from ossid_code_torch.scripts import train
     from ossid_code_torch.train import offline
 
-    argv = [f"dataset={family}", f"dataset.bop_root={w['bop']}", "dataset.test_dataset_name=ycbv",
-            f"dataset.grid_root={os.path.join(w['data'], 'templates_YCBV_BOP')}",
-            f"train.batch_size={TRAIN_BATCH[family]}", f"model.max_epochs={TRAIN_EPOCHS}", f"exp_name=chip_{family}"]
-    from ossid_code_torch.models.dtoid.module import DtoidModel
-    from ossid_code_torch.models.maskrcnn import MaskRCNN
-
     epochs, valid_batches, step_ms = [], [], []
+    last = {}
     saved = {}
-    for model_cls in (DtoidModel, MaskRCNN):
+    for model_cls in (DtoidModel, MaskRCNN, FewshotSegModel, SiftMatcher):
         saved[model_cls] = model_cls.train_step
 
         def timed_step(self, *a, _f=model_cls.train_step, **k):
@@ -2010,6 +2063,7 @@ def run_train_cli(torch, conv, sa, w, family):
             out = _f(self, *a, **k)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            last.update(model=self, args=a, kwargs=k, step=_f)
             return out
 
         model_cls.train_step = timed_step
@@ -2030,16 +2084,18 @@ def run_train_cli(torch, conv, sa, w, family):
 
         cls.train_epoch, cls.validate = timed_epoch, counted_validate
     saved_env = os.environ.get("OSSID_RESULT_ROOT")
-    os.environ["OSSID_RESULT_ROOT"] = w["results"]
+    os.environ["OSSID_RESULT_ROOT"] = results
     try:
         with recording_dw_calls(conv) as dw_calls:
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             read_launches = zero_launches(conv, sa)
             t0 = time.perf_counter()
             rc = train.main(argv)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             launches = read_launches()
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
     finally:
         for cls, fns in saved.items():
             if isinstance(fns, tuple):
@@ -2050,7 +2106,7 @@ def run_train_cli(torch, conv, sa, w, family):
             os.environ.pop("OSSID_RESULT_ROOT", None)
         else:
             os.environ["OSSID_RESULT_ROOT"] = saved_env
-    exp = os.path.join(w["results"], "train", f"chip_{family}")
+    exp = os.path.join(results, "train", f"chip_{family}")
     with open(os.path.join(exp, "metrics_v0.jsonl")) as f:
         rows = [json_.loads(line) for line in f if line.strip()]
     missing = [n for n in ("config_v0.yaml", "last.ckpt", "best.ckpt") if not os.path.exists(os.path.join(exp, n))]
@@ -2064,12 +2120,14 @@ def run_train_cli(torch, conv, sa, w, family):
     if launches != expected or steps < 1:
         fail(f"train CLI {family}: launches {launches} differ from the schedule's {expected} ({steps} steps, "
              f"{n_valid} validation batches)")
-    return {"wall_s": wall_s, "steps": steps, "valid_batches": n_valid, "batch": TRAIN_BATCH[family],
+    profile = profile_call(torch, lambda: last["step"](last["model"], *last["args"], **last["kwargs"]))
+    return {"wall_s": wall_s, "steps": steps, "valid_batches": n_valid, "batch": batch,
             "kernels_held": hold_dw_calls(torch, conv, dw_calls),
             "epoch_ms": [ms for ms, _ in epochs], "epoch_ms_per_step": [ms / n for ms, n in epochs if n],
-            "step_ms": step_ms, "step_ms_median": float(np.median(step_ms)),
-            "losses": [r["loss"] for r in rows], "monitor": {k: v for k, v in rows[-1].items() if "IoU" in k},
-            "launches": launches}
+            "step_ms": step_ms, "step_ms_median": float(np.median(step_ms)), "peak_gib": peak_gib,
+            "losses": [r["loss"] for r in rows],
+            "monitor": {k: v for k, v in rows[-1].items() if k not in ("step", "loss") and k.startswith("val")},
+            "launches": launches, "profile_step": {k: v for k, v in profile.items() if k != "host_top_ops_self_ms"}}
 
 
 def run_maskrcnn_demo(torch, conv, sa):
@@ -2125,7 +2183,8 @@ def phase10(torch, conv, sa, cfg):
         mcli_out, mcli_launches, mcalls, _, mcli_wall, mcli_loop_s = run_cli(
             torch, conv, sa, mw, cli_argv(mw, "maskrcnn", "--use_maskrcnn"))
         mcli_rows, mcli_counts = check_maskrcnn_cli(mcli_out, mcli_launches, mcalls, m_bop)
-        train_runs = {family: run_train_cli(torch, conv, sa, mw, family) for family in TRAIN_BATCH}
+        train_runs = {family: run_train_cli(torch, conv, sa, family, train_argv(mw, family), mw["results"],
+                                            TRAIN_BATCH[family]) for family in TRAIN_BATCH}
     print(f"--use_maskrcnn CLI {len(mcli_rows)} targets 480x640 (the phase 9 world, {cfg.dataset.n_classes} classes, "
           f"PPF, two scorers, host ICP, device ICP top {REFINE_TOP}, finetune every {CLI_FINETUNE_INTERVAL} at batch "
           f"{FINETUNE_BATCH}): world {mworld_s:.1f} s, main {mcli_wall:.1f} s, loop {mcli_loop_s:.1f} s = "
@@ -2155,6 +2214,213 @@ def phase10(torch, conv, sa, cfg):
           f"{json.dumps(mdemo['stage_s'])}; counts {json.dumps(mdemo['counts'])}; "
           f"launches {json.dumps(mdemo_launches)}")
     return mcli_launches, mdemo_launches, train_runs
+
+
+# phase 12: the train CLI's legacy families and the DTOID wrapper, at the
+# presets' full widths on a synthetic world built here
+LEGACY_FRAMES = 10           # x 2 textured objects at 480x640 (object 2 seen, 1 unseen on a ycbv-named world)
+LEGACY_VIEWS = 16            # template grid views an object: 128x128 (the presets'), and DTOID's 124x124
+LEGACY_BATCH = 4
+FSS_CLASSES, FSS_IMAGES, FSS_SIZE = 4, 5, 224
+JPEG_DECODES = 10
+WRAPPER_CALLS = 5            # DTOIDWrapper calls timed, host clock
+LEGACY_STEP_BATCH = 2        # card against CPU at full width
+# the matcher card against CPU, tests/test_torch_legacy_models.py's limits:
+# the log assignment within MATCHER_Z_TOL (absolute; JAX against the port
+# read 1.9e-6 at magnitudes up to 5) and gradients within MATCHER_GRAD_TOL
+MATCHER_Z_TOL = 2e-5
+MATCHER_GRAD_TOL = 0.03
+
+
+def fss_world(root: str) -> str:
+    """An FSS-1000 layout of FSS_CLASSES classes x FSS_IMAGES images of
+    FSS_SIZE^2 (<root>/<class>/{i.jpg, i.png}: baseline JPEGs from
+    utils/jpeg.py, PNG masks), each a textured ellipse on a textured
+    background, the class setting the ellipse's colour."""
+    from ossid_code_torch.utils.jpeg import write_jpeg
+    from ossid_code_torch.utils.png import write_png
+
+    rng = np.random.default_rng(12)
+    yy, xx = np.mgrid[0:FSS_SIZE, 0:FSS_SIZE]
+    for c in range(FSS_CLASSES):
+        d = os.path.join(root, f"class{c}")
+        os.makedirs(d)
+        colour = rng.uniform(40, 215, 3)
+        for i in range(1, FSS_IMAGES + 1):
+            cy, cx = rng.uniform(60, FSS_SIZE - 60, 2)
+            ry, rx = rng.uniform(25, 55, 2)
+            mask = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+            img = rng.uniform(0, 255, (FSS_SIZE, FSS_SIZE, 3))
+            img[mask] = colour + rng.normal(0, 20, (int(mask.sum()), 3))
+            write_jpeg(os.path.join(d, f"{i}.jpg"), np.clip(img, 0, 255).astype(np.uint8), quality=90)
+            write_png(os.path.join(d, f"{i}.png"), (mask * 255).astype(np.uint8))
+    return root
+
+
+def legacy_argv(w, family):
+    """The train CLI's arguments for a legacy family (the presets' widths)."""
+    common = [f"dataset.bop_root={w['bop']}", f"dataset.grid_root={w['grid']}", f"train.batch_size={LEGACY_BATCH}",
+              f"model.max_epochs={TRAIN_EPOCHS}", f"exp_name=chip_{family}"]
+    return {"fewshot_bop": ["dataset=fewshot_bop", "dataset.test_dataset_name=ycbv"],
+            "fss_1000": ["dataset=fss_1000", f"dataset.dataset_root={w['fss']}"],
+            "ycbv_sift": ["dataset=ycbv_sift", "dataset.test_dataset_name=ycbv"],
+            "superglue": ["dataset=ycbv_sift", "model=superglue", "dataset.test_dataset_name=ycbv"]}[family] + common
+
+
+def legacy_card_vs_cpu(torch, w):
+    """Phase 12's card-against-CPU checks at full width: one first step of
+    the few-shot model (480x640 queries, width 64, 128x128 supports, its
+    zero seg_final perturbed so gradients reach the trunks; compare_step's
+    limits, the conv biases before a BatchNorm by ZERO_GRAD_TOL), and of
+    the matcher (n_kpts 128, dim 128, 2 layers, 30 Sinkhorn
+    iterations): its log assignment within MATCHER_Z_TOL, one step's
+    gradients within MATCHER_GRAD_TOL."""
+    from ossid_code_torch.models.fewshot_seg import FewshotSegModel
+    from ossid_code_torch.models.matcher import SiftMatcher
+    from ossid_code_torch.scripts.train import build_config
+
+    rng = np.random.default_rng(31)
+    out = {}
+    cfg = build_config(legacy_argv(w, "fewshot_bop"))
+    pair = [FewshotSegModel(cfg, seed=3, device=d) for d in ("cuda", "cpu")]
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(4)
+        pair[0].net.seg_final.weight.copy_(torch.randn(pair[0].net.seg_final.weight.shape, generator=g) * 0.3)
+        pair[0].net.seg_final.bias.zero_()
+    pair[1].load_state_dict({k: v.cpu() for k, v in pair[0].state_dict().items()})
+    b, (h, wd), s = LEGACY_STEP_BATCH, pair[0].img_size, pair[0].support_size[0]
+    batch = {"img": rng.uniform(0, 1, (b, h, wd, 3)).astype(np.float32),
+             "mask": (rng.uniform(size=(b, h, wd, 1)) > 0.7).astype(np.float32),
+             "simg": rng.uniform(0, 1, (b, 1, s, s, 3)).astype(np.float32),
+             "smask": (rng.uniform(size=(b, 1, s, s, 1)) > 0.5).astype(np.float32)}
+    # every conv but seg_final feeds a training-mode BatchNorm
+    zero = [f"{n}.bias" for n, m in pair[1].net.named_modules()
+            if isinstance(m, torch.nn.Conv2d) and n != "seg_final"]
+    out["fewshot_step"] = compare_step(torch, *pair, batch, zero_leaves=zero)
+    cfg = build_config(legacy_argv(w, "ycbv_sift"))
+    pair = [SiftMatcher(cfg, seed=3, device=d) for d in ("cuda", "cpu")]
+    pair[1].load_state_dict({k: v.cpu() for k, v in pair[0].state_dict().items()})
+    n = pair[0].n_obs
+    M = np.zeros((b, n + 1, n + 1), np.float32)
+    for i in range(b):
+        M[i, np.arange(n // 2), rng.permutation(n)[:n // 2]] = 1.0
+        M[i, :n, -1] = 1.0 - M[i, :n, :-1].sum(1)
+        M[i, -1, :n] = 1.0 - M[i, :-1, :n].sum(0)
+    mb = {"obs_desc": rng.uniform(0, 160, (b, n, 128)).astype(np.float32),
+          "obs_uv": rng.uniform(0, 640, (b, n, 2)).astype(np.float32),
+          "model_desc": rng.uniform(0, 160, (b, n, 128)).astype(np.float32),
+          "model_pts": rng.normal(0, 0.05, (b, n, 3)).astype(np.float32), "matches": M}
+    with torch.no_grad():
+        z = [m.forward(m._feed(mb)).cpu().numpy() for m in pair]
+    out["matcher_z_max_abs_err"] = float(np.abs(z[0] - z[1]).max())
+    out["matcher_z_max_abs"] = float(np.abs(z[1]).max())
+    if out["matcher_z_max_abs_err"] > MATCHER_Z_TOL:
+        fail(f"matcher log assignment card against CPU differs by {out['matcher_z_max_abs_err']:.3g} "
+             f"(tol {MATCHER_Z_TOL})")
+    out["matcher_step"] = compare_step(torch, *pair, mb, grad_tol=MATCHER_GRAD_TOL)
+    return out
+
+
+def run_wrapper(torch, conv, sa, w):
+    """Phase 12d: DTOIDWrapper (480x640, DenseNet-121 12/24/16, n_local
+    N_TEMPLATES of the 124x124 grid's LEGACY_VIEWS views) on the world's frames from
+    a checkpoint, every launch counter at 0 just before the calls and read
+    just after: 2 of kernel 1 a call and nothing else; the first frame
+    against the CPU plain path (compare_detections); the host clock of a
+    call and one traced call."""
+    import glob
+
+    from ossid_code_torch.models.dtoid.wrapper import DTOIDWrapper
+    from ossid_code_torch.utils.png import read_png
+
+    frames = [read_png(p) for p in sorted(glob.glob(os.path.join(w["bop"], "ycbv", "test", "*", "rgb", "*.png")))]
+    wrapper = DTOIDWrapper(w["dtoid"], w["grid124"], [1, 2], n_local=N_TEMPLATES)
+    if len(wrapper.getTemplates(1)[0]) != N_TEMPLATES:
+        fail(f"DTOIDWrapper took {len(wrapper.getTemplates(1)[0])} templates, expected {N_TEMPLATES}")
+    wrapper(frames[0], 1)  # warm-up: cuDNN plans
+    torch.cuda.synchronize()
+    read_launches = zero_launches(conv, sa)
+    ms, dets = [], []
+    for i in range(WRAPPER_CALLS):
+        t0 = time.perf_counter()
+        dets.append(wrapper(frames[i % len(frames)], 1 + i % 2))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    expected = dict.fromkeys(launches, 0)
+    expected["dw_corr3x3"] = 2 * WRAPPER_CALLS
+    if launches != expected:
+        fail(f"DTOIDWrapper launches {launches} differ from 2 of kernel 1 a call ({expected})")
+    for det in dets:
+        if not np.isfinite(det["pred_scores"]).all() or not det["valid"].any():
+            fail("DTOIDWrapper returned no finite detection")
+    cpu = DTOIDWrapper(w["dtoid"], w["grid124"], [1, 2], n_local=N_TEMPLATES, device="cpu")
+    cmp = compare_detections(dets[0], cpu(frames[0], 1))
+    profile = profile_call(torch, lambda: wrapper(frames[0], 1))
+    return {"calls": WRAPPER_CALLS, "host_ms": ms, "host_ms_median": float(np.median(ms)), "card_vs_cpu": cmp,
+            "launches": launches, "profile": {k: v for k, v in profile.items() if k != "host_top_ops_self_ms"}}
+
+
+def phase12(torch, conv, sa):
+    """Phase 12: the train CLI's legacy families at the presets' widths on a
+    synthetic world built here, (a) dataset=fewshot_bop, (b) dataset=fss_1000
+    with one JPEG decode timed, (c) dataset=ycbv_sift and model=superglue,
+    each through run_train_cli (files, finite losses, the monitored metric,
+    no kernel launched; the matcher's loss falls), the two models card
+    against CPU, and (d) DTOIDWrapper. Prints what it measured; returns the
+    launches of each run."""
+    import tempfile
+
+    from ossid_code_torch.core.checkpoint import save_checkpoint
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.data.synthetic import make_synthetic_bop, make_template_grid
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.utils.jpeg import read_jpeg
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ossid_legacy_") as root:
+        t0 = time.perf_counter()
+        w = {k: os.path.join(root, k) for k in ("bop", "grid", "grid124", "fss", "results")}
+        objects = textured_wedges()
+        make_synthetic_bop(w["bop"], dataset_name="ycbv", n_frames=LEGACY_FRAMES, img_h=480, img_w=640,
+                           objects=objects)
+        make_template_grid(w["grid"], objects, n_views=LEGACY_VIEWS, size=128)
+        make_template_grid(w["grid124"], objects, n_views=LEGACY_VIEWS)
+        fss_world(w["fss"])
+        dtoid = DtoidModel(default_config(), seed=1, device="cpu")
+        perturb_heads(dtoid.net, 2)
+        w["dtoid"] = os.path.join(root, "dtoid.ckpt")
+        save_checkpoint(w["dtoid"], dtoid.state_dict())
+        world_s = time.perf_counter() - t0
+        jpeg = os.path.join(w["fss"], "class0", "1.jpg")
+        jpeg_ms = []
+        for _ in range(JPEG_DECODES):
+            t0 = time.perf_counter()
+            read_jpeg(jpeg)
+            jpeg_ms.append((time.perf_counter() - t0) * 1e3)
+        runs = {}
+        for family in ("fewshot_bop", "fss_1000", "ycbv_sift", "superglue"):
+            runs[family] = r = run_train_cli(torch, conv, sa, family, legacy_argv(w, family), w["results"],
+                                             LEGACY_BATCH)
+            if family in ("ycbv_sift", "superglue") and not r["losses"][-1] < r["losses"][0]:
+                fail(f"train CLI {family}: the matcher's loss did not fall: {r['losses']}")
+            want = "val_match_recall" if family in ("ycbv_sift", "superglue") else "valunseen_seg_IoU"
+            if want not in r["monitor"]:
+                fail(f"train CLI {family}: {want} is not in the metrics stream {r['monitor']}")
+        t0 = time.perf_counter()
+        card_cpu = legacy_card_vs_cpu(torch, w)
+        card_cpu_s = time.perf_counter() - t0
+        wrapper = run_wrapper(torch, conv, sa, w)
+    print(f"phase 12 world: {LEGACY_FRAMES} frames 480x640 x 2 textured objects, {LEGACY_VIEWS}-view grids, "
+          f"FSS-1000 {FSS_CLASSES} classes x {FSS_IMAGES} images of {FSS_SIZE}x{FSS_SIZE} in {world_s:.1f} s; "
+          f"one {FSS_SIZE}x{FSS_SIZE} JPEG decode (utils/jpeg.py, host), ms {json.dumps(jpeg_ms)}, median "
+          f"{float(np.median(jpeg_ms))}")
+    for family, r in runs.items():
+        print(f"train CLI {family} ({TRAIN_EPOCHS} epochs at batch {LEGACY_BATCH}): {json.dumps(r)}")
+    print(f"legacy models card against CPU at full width ({card_cpu_s:.1f} s): {json.dumps(card_cpu)}")
+    print(f"DTOIDWrapper 480x640, DenseNet-121, n_local {N_TEMPLATES}: {json.dumps(wrapper)}")
+    print(f"phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return {**{f"train_{f}": r["launches"] for f, r in runs.items()}, "dtoid_wrapper": wrapper["launches"]}
 
 
 def main() -> int:
@@ -2520,6 +2786,9 @@ def main() -> int:
     # -- 10. the class-conditional detector and the train CLI -----------------
     mcli_launches, mdemo_launches, train_runs = phase10(torch, conv, sa, cfg)
 
+    # -- 12. the train CLI's legacy families and the DTOID wrapper -------------
+    p12 = phase12(torch, conv, sa)
+
     hbm = f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"
     dw_src, bwd_src = "ossid_code_torch/csrc/dw_corr3x3.cu", "ossid_code_torch/csrc/dw_corr3x3_bwd.cu"
     dw_replaces = "ossid_code_tpu/ops/pallas_kernels.py:49"
@@ -2529,7 +2798,8 @@ def main() -> int:
     # kernels' in the bf16 serving run (1b, 2b) and the bf16-finetune loop
     # run (1b, its dx, 3b), added, with each run's count beside
     by_path10 = lambda name: {"cli_maskrcnn": mcli_launches[name], "demo_maskrcnn": mdemo_launches[name],
-                            **{f"train_{f}": r["launches"][name] for f, r in train_runs.items()}}
+                            **{f"train_{f}": r["launches"][name] for f, r in train_runs.items()},
+                            **{path: launches[name] for path, launches in p12.items()}}
     by_path11 = lambda name: {"loop_yuv_pipelined": p11_pipe[name], "loop_yuv_sync": p11_sync[name]}
     by_path = lambda name: {"serving_bf16": serve16_launches.get(name, 0), "loop_bf16": loop16_launches[name],
                             "cli": cli_launches[name], **by_path10(name), **by_path11(name)}

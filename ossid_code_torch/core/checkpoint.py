@@ -14,9 +14,12 @@ networks load with strict=True:
     JAX package;
   * the JAX package's pickles of numpy trees (`{'state': {'params',
     'batch_stats'}}`, plain `{'params', 'batch_stats'}`, or a `--save_each`
-    snapshot's `model_state_dict`), carried by `dtoid_from_jax`,
-    `maskrcnn_from_jax` (a tree with `seg_final` and `neck_bn` at its top
-    level) or `pointnet2_from_jax`.
+    snapshot's `model_state_dict`), routed by the top-level keys of their
+    `params`: `pointnet2_from_jax` (`sa1`), `fewshot_seg_from_jax`
+    (`query_trunk`, `support_trunk` and `film_gamma`), `matcher_from_jax`
+    (`dustbin` and `obs_desc`, and no `batch_stats`: the matcher has no
+    BatchNorm), `maskrcnn_from_jax` (`seg_final` and `neck_bn`), and
+    `dtoid_from_jax` for the rest.
 """
 
 from __future__ import annotations
@@ -59,15 +62,24 @@ def load_checkpoint(path: str, align_feats: bool = False) -> dict:
     state = payload.get("state", payload.get("model_state_dict", payload))
     if not (isinstance(state, dict) and "params" in state):
         raise ValueError(f"unrecognized checkpoint format: {path}")
-    if "sa1" in state["params"]:
+    params = state["params"]
+    if "sa1" in params:
         from ossid_code_torch.models.zephyr.jax_import import pointnet2_from_jax
 
-        return pointnet2_from_jax(state["params"], state["batch_stats"])
+        return pointnet2_from_jax(params, state["batch_stats"])
+    if {"query_trunk", "support_trunk", "film_gamma"} <= params.keys():
+        from ossid_code_torch.models.fewshot_seg import fewshot_seg_from_jax
+
+        return fewshot_seg_from_jax(params, state["batch_stats"])
+    if {"dustbin", "obs_desc"} <= params.keys() and "batch_stats" not in state:
+        from ossid_code_torch.models.matcher import matcher_from_jax
+
+        return matcher_from_jax(params)
     from ossid_code_torch.models.dtoid.jax_import import dtoid_from_jax, maskrcnn_from_jax
 
-    if "seg_final" in state["params"] and "neck_bn" in state["params"]:
-        return maskrcnn_from_jax(state["params"], state["batch_stats"])
-    return dtoid_from_jax(state["params"], state["batch_stats"])
+    if "seg_final" in params and "neck_bn" in params:
+        return maskrcnn_from_jax(params, state["batch_stats"])
+    return dtoid_from_jax(params, state["batch_stats"])
 
 
 def _load_torch(path: str, align_feats: bool) -> dict:

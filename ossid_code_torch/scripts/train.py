@@ -3,26 +3,27 @@ ossid_code_tpu/scripts/train.py):
 
     python -m ossid_code_torch.scripts.train dataset=detect exp_name=run ...
     python -m ossid_code_torch.scripts.train dataset=dtoid_bop model.max_epochs=2 ...
+    python -m ossid_code_torch.scripts.train dataset=fewshot_bop|fss_1000|ycbv_sift [model=superglue] ...
 
 Overrides are dotted key=value pairs on the default config tree, values
 parsed as YAML; `dataset=<name>` / `model=<name>` select a group preset
 (ossid_code_torch/conf/), and a dataset family with a model of its own
-(`detect` -> `maskrcnn`) selects it when `model=` is not given. The run
+(`detect` -> `maskrcnn`, `fewshot_bop` / `fss_1000` -> `fewshot_seg`,
+`ycbv_sift` -> `matcher`) selects it when `model=` is not given. The run
 lives in <OSSID_RESULT_ROOT>/train/<exp_name>: the config as
 config_v<N>.yaml (N the first free version), the metrics as
 metrics_v<N>.jsonl (TensorBoard events in tb/ where tensorboard imports),
 last.ckpt after every epoch and best.ckpt at the best monitored metric.
-The model comes from models/__init__.py::get_model (`dtoid`, `maskrcnn`;
-another name raises ValueError), with `weights_path=` loaded;
-`resume_path=` resumes from a last.ckpt. `OfflineTrainer` trains DTOID,
-`GenericTrainer` the class-conditional detector.
+`build_model` is the JAX CLI's dispatch (`dtoid`, `maskrcnn`,
+`fewshot_seg`, `matcher` and its alias `superglue`), with `weights_path=`
+loaded through core/checkpoint.py; `resume_path=` resumes from a
+last.ckpt. `OfflineTrainer` trains DTOID, `GenericTrainer` the others.
 
 The port's own key `device=cpu` runs on the CPU; without it the run is on
 the card. Not ported, and raising NotImplementedError with their ROADMAP.md
-item: the dataset families `dtoid` / `render` (h5py render data, item 7),
-`fewshot_bop`, `fss_1000` and `ycbv_sift`, and the models `fewshot_seg`,
-`matcher` and `superglue` (item 9); `train.dp_devices` other than 1 or -1
-(the data-parallel mesh, item 7) raises in OfflineTrainer.
+item: the dataset families `dtoid` / `render` (h5py render data, item 7);
+`train.dp_devices` other than 1 or -1 (the data-parallel mesh, item 7)
+raises in OfflineTrainer.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import sys
 import numpy as np
 import yaml
 
-from ossid_code_torch.conf import load_group
+from ossid_code_torch.conf import load_group, post_process_conf
 from ossid_code_torch.core.config import default_config, roots
 from ossid_code_torch.utils.logging import MetricLogger
 
@@ -41,14 +42,15 @@ from ossid_code_torch.utils.logging import MetricLogger
 _NOT_PORTED_DATASETS = {
     "dtoid": "item 7, the h5py render family",
     "render": "item 7, the h5py render family",
-    "fewshot_bop": "item 9, the legacy families",
-    "fss_1000": "item 9, the legacy families",
-    "ycbv_sift": "item 9, the legacy families",
 }
-_NOT_PORTED_MODELS = {name: "item 9, the legacy families" for name in ("fewshot_seg", "matcher", "superglue")}
 
 # the model a dataset family trains when `model=` is not given
-_DEFAULT_MODEL = {"detect": "maskrcnn"}
+_DEFAULT_MODEL = {
+    "fewshot_bop": "fewshot_seg",
+    "fss_1000": "fewshot_seg",
+    "detect": "maskrcnn",
+    "ycbv_sift": "matcher",
+}
 
 
 def parse_overrides(argv) -> dict:
@@ -75,7 +77,8 @@ def parse_overrides(argv) -> dict:
 
 def build_config(argv):
     """The run's config from the overrides in `argv`: group presets, the
-    dataset family's default model, then the defaults."""
+    dataset family's default model, then the defaults and the fix-ups of
+    conf/post_process_conf."""
     overrides = parse_overrides([a for a in argv if "=" in a])
     for group in ("dataset", "model"):
         ov = overrides.get(group)
@@ -94,15 +97,14 @@ def build_config(argv):
         preset["name"] = preset.get("name", mname)
         overrides["model"] = {**preset, **model_ov, "name": preset["name"]}
         print(f"dataset={ds_name}: selecting model={mname}")
-    return default_config().merged(overrides)
+    return post_process_conf(default_config().merged(overrides))
 
 
 def refuse_unported(cfg) -> None:
-    """Raise for a dataset family or model the port does not train."""
-    for kind, name, table in (("dataset", cfg.dataset.name, _NOT_PORTED_DATASETS),
-                              ("model", cfg.model.get("name", "dtoid"), _NOT_PORTED_MODELS)):
-        if name in table:
-            raise NotImplementedError(f"{kind}={name} is not ported: ROADMAP.md §1, {table[name]}")
+    """Raise for a dataset family the port does not train."""
+    name = cfg.dataset.name
+    if name in _NOT_PORTED_DATASETS:
+        raise NotImplementedError(f"dataset={name} is not ported: ROADMAP.md §1, {_NOT_PORTED_DATASETS[name]}")
 
 
 def build_dataloaders(cfg):
@@ -112,15 +114,50 @@ def build_dataloaders(cfg):
         from ossid_code_torch.data.dtoid_bop import get_dataloaders
 
         return get_dataloaders(cfg)
+    if name == "fewshot_bop":
+        from ossid_code_torch.data.fewshot import get_fewshot_dataloaders
+
+        return get_fewshot_dataloaders(cfg)
+    if name == "fss_1000":
+        from ossid_code_torch.data.fewshot import get_fss1000_dataloaders
+
+        return get_fss1000_dataloaders(cfg)
     if name == "detect":
         from ossid_code_torch.data.detect import get_detect_dataloaders
 
         return get_detect_dataloaders(cfg)
-    raise SystemExit(f"unknown dataset {name!r} (dtoid_bop, detect)")
+    if name == "ycbv_sift":
+        from ossid_code_torch.data.ycbv_sift import get_ycbv_sift_dataloaders
+
+        return get_ycbv_sift_dataloaders(cfg)
+    raise SystemExit(f"unknown dataset {name!r} (dtoid_bop, fewshot_bop, fss_1000, detect, ycbv_sift)")
+
+
+def build_model(cfg):
+    """The model of `cfg.model.name` on the config's device (None: the card),
+    as the JAX CLI's dispatch; another name exits."""
+    name, device = cfg.model.get("name", "dtoid"), cfg.get("device")
+    if name == "dtoid":
+        from ossid_code_torch.models.dtoid.module import DtoidModel
+
+        return DtoidModel(cfg, seed=cfg.seed, device=device)
+    if name == "maskrcnn":
+        from ossid_code_torch.models.maskrcnn import MaskRCNN
+
+        return MaskRCNN(cfg, seed=cfg.seed, device=device)
+    if name == "fewshot_seg":
+        from ossid_code_torch.models.fewshot_seg import FewshotSegModel
+
+        return FewshotSegModel(cfg, seed=cfg.seed, device=device)
+    if name in ("matcher", "superglue"):
+        from ossid_code_torch.models.matcher import SiftMatcher
+
+        return SiftMatcher(cfg, seed=cfg.seed, device=device)
+    raise SystemExit(f"unknown model {name!r} (dtoid, maskrcnn, fewshot_seg, matcher)")
 
 
 def main(argv=None) -> int:
-    from ossid_code_torch.models import get_model
+    from ossid_code_torch.core.checkpoint import load_checkpoint
     from ossid_code_torch.train.offline import GenericTrainer, OfflineTrainer
 
     argv = argv if argv is not None else sys.argv[1:]
@@ -140,8 +177,9 @@ def main(argv=None) -> int:
     if not isinstance(valid_loaders, (list, tuple)):
         valid_loaders = [valid_loaders]
 
-    model = get_model(cfg, seed=cfg.seed, device=cfg.get("device"))
+    model = build_model(cfg)
     if cfg.get("weights_path"):
+        model.load_state_dict(load_checkpoint(cfg.weights_path))
         print("loaded weights from", cfg.weights_path)
     if cfg.model.get("name", "dtoid") == "dtoid":
         n_dev = None if cfg.train.dp_devices in (-1, None) else cfg.train.dp_devices

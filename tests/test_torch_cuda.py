@@ -817,3 +817,99 @@ def test_pipelined_loop_on_card(cuda, tmp_path):
         assert [r[key] for r in pipe] == [r[key] for r in sync] == [r[key] for r in sync2], key
     spread, cross = chip_smoke.run_spread(sync, sync2), chip_smoke.run_spread(pipe, sync)
     assert all(cross[k] <= spread[k] for k in cross), (cross, spread)
+
+
+def _legacy_pair(name):
+    """A legacy model at a small size on the card and on the CPU from the
+    same weights, and a batch: the few-shot model at width 16 on 64x80
+    queries (its zero seg_final perturbed), the matcher at dim 64, one
+    layer, 32 keypoints."""
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.models.fewshot_seg import FewshotSegModel
+    from ossid_code_torch.models.matcher import SiftMatcher
+
+    rng = np.random.default_rng(5)
+    if name == "fewshot_seg":
+        cfg = default_config().merged({"model": {"img_h": 64, "img_w": 80, "width": 16},
+                                       "dataset": {"template_size": 32}})
+        pair = [FewshotSegModel(cfg, device=d) for d in ("cuda", "cpu")]
+        with torch.no_grad():
+            pair[0].net.seg_final.weight.normal_(0, 0.3)
+            pair[0].net.seg_final.bias.zero_()
+        batch = {"img": rng.uniform(0, 1, (2, 64, 80, 3)).astype(np.float32),
+                 "mask": (rng.uniform(size=(2, 64, 80, 1)) > 0.6).astype(np.float32),
+                 "simg": rng.uniform(0, 1, (2, 1, 32, 32, 3)).astype(np.float32),
+                 "smask": (rng.uniform(size=(2, 1, 32, 32, 1)) > 0.5).astype(np.float32)}
+    else:
+        cfg = default_config().merged({"model": {"dim": 64, "n_layers": 1}, "dataset": {"n_kpts": 32}})
+        pair = [SiftMatcher(cfg, device=d) for d in ("cuda", "cpu")]
+        M = np.zeros((2, 33, 33), np.float32)
+        for i in range(2):
+            M[i, np.arange(20), rng.permutation(32)[:20]] = 1.0
+            M[i, :32, -1] = 1.0 - M[i, :32, :-1].sum(1)
+            M[i, -1, :32] = 1.0 - M[i, :-1, :32].sum(0)
+        batch = {"obs_desc": rng.uniform(0, 160, (2, 32, 128)).astype(np.float32),
+                 "obs_uv": rng.uniform(0, 640, (2, 32, 2)).astype(np.float32),
+                 "model_desc": rng.uniform(0, 160, (2, 32, 128)).astype(np.float32),
+                 "model_pts": rng.normal(0, 0.05, (2, 32, 3)).astype(np.float32), "matches": M}
+    pair[1].load_state_dict({k: v.cpu() for k, v in pair[0].state_dict().items()})
+    return pair, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fewshot_seg", "matcher"])
+def test_legacy_models_match_cpu(cuda, name):
+    """The few-shot model and the matcher on the card against the CPU from
+    the same weights: the forward within 1e-4 of the largest magnitude (the
+    matcher's log assignment within its CPU test's 2e-5), one train step's
+    loss within 1e-4 relative and its gradients leaf by leaf within 0.1
+    relative L2 (0.03 for the matcher, its CPU test's) above the 1e-6
+    noise rule; no kernel of the port launched."""
+    (gpu, cpu), batch = _legacy_pair(name)
+    before = tconv.dw_corr3x3_cuda.launches + tsa.sa_mlp_max_cuda.launches
+    with torch.no_grad():
+        out = [m.forward(m._feed(batch)).cpu().numpy() for m in (gpu, cpu)]
+    err = np.abs(out[0] - out[1]).max()
+    assert err <= (2e-5 if name == "matcher" else 1e-4 * np.abs(out[1]).max()), err
+    losses = [float(m.train_step(batch)["loss"]) for m in (gpu, cpu)]
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]), losses
+    grads = [{n: p.grad.double().cpu() for n, p in m.net.named_parameters()} for m in (gpu, cpu)]
+    scale = max(float(g.abs().max()) for g in grads[1].values())
+    for n, want in grads[1].items():
+        if float(want.abs().max()) >= 1e-6 * scale:
+            rel = float((grads[0][n] - want).norm() / want.norm())
+            assert rel <= (0.03 if name == "matcher" else 0.1), (n, rel)
+    assert tconv.dw_corr3x3_cuda.launches + tsa.sa_mlp_max_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_dtoid_wrapper_launches_kernel_1_twice_a_call(cuda, tmp_path):
+    """DTOIDWrapper on the card (DenseNet (2, 2, 2) at 128x160, 3 of a
+    6-view grid): 2 launches of kernel 1 a call, no other kernel, and the
+    detections of the CPU wrapper from the same checkpoint (top score within
+    1e-3, heat map within 1e-3)."""
+    from ossid_code_torch.core.checkpoint import save_checkpoint
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.data.synthetic import default_objects, make_template_grid
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.models.dtoid.wrapper import DTOIDWrapper
+
+    cfg = default_config().merged({"model": {"img_h": 128, "img_w": 160, "densenet_blocks": [2, 2, 2]}})
+    m = DtoidModel(cfg, seed=2, device="cpu")
+    with torch.no_grad():
+        m.net.classification.output.weight.normal_(0, 0.05)
+    save_checkpoint(str(tmp_path / "d.ckpt"), m.state_dict())
+    make_template_grid(str(tmp_path / "grid"), default_objects(), n_views=6)
+    img = np.random.default_rng(6).integers(0, 256, (128, 160, 3), dtype=np.uint8)
+    wrappers = [DTOIDWrapper(str(tmp_path / "d.ckpt"), str(tmp_path / "grid"), [1, 2], n_local=3, cfg=cfg.merged({}),
+                             device=d) for d in (None, "cpu")]
+    wrappers[0](img, 1)
+    counters = (tconv.dw_corr3x3_cuda, tconv.dw_corr3x3_dx_cuda, tconv.dw_corr3x3_dk_cuda, tsa.sa_mlp_max_cuda)
+    for c in counters:
+        c.launches = c.launches_bf16 = 0
+    det = [wrappers[0](img, oid) for oid in (1, 2)]
+    assert tconv.dw_corr3x3_cuda.launches == 4
+    assert sum(c.launches + c.launches_bf16 for c in counters) == 4
+    ref = wrappers[1](img, 1)
+    assert abs(float(det[0]["pred_scores"][0] - ref["pred_scores"][0])) <= 1e-3
+    assert np.abs(det[0]["heat_map"] - ref["heat_map"]).max() <= 1e-3

@@ -104,7 +104,8 @@ def test_serving_slice_matches_jax():
 
 # JAX and the JAX package, and the image and table libraries the card's
 # machine lacks
-_BANNED = {"jax", "jaxlib", "flax", "optax", "ossid_code_tpu", "cv2", "imageio", "PIL", "pandas"}
+_BANNED = {"jax", "jaxlib", "flax", "optax", "ossid_code_tpu", "cv2", "imageio", "PIL", "pandas", "matplotlib",
+           "torchvision", "h5py"}
 
 
 def _imports(path: Path):
@@ -127,13 +128,21 @@ def test_port_imports_nothing_of_jax(rel):
 
 def test_import_scan_covers_the_training_and_script_modules():
     """The scan above reaches the trainers, the demo script, the CLI and the
-    modules they brought (SIFT among them: no cv2)."""
+    modules they brought (SIFT among them: no cv2), and the legacy
+    families' models, data and host utilities (JPEG: no imageio or PIL)."""
     for rel in ("ossid_code_torch/train/offline.py", "ossid_code_torch/train/zephyr_offline.py",
                 "ossid_code_torch/scripts/demo_e2e.py", "ossid_code_torch/core/checkpoint.py",
                 "ossid_code_torch/eval/bop_ar.py", "ossid_code_torch/hypo/icp.py",
                 "ossid_code_torch/ops/pointcloud.py", "ossid_code_torch/scripts/online_learning.py",
                 "ossid_code_torch/ops/sift.py", "ossid_code_torch/hypo/sift.py",
-                "ossid_code_torch/eval/bop_csv.py", "ossid_code_torch/eval/detection_map.py"):
+                "ossid_code_torch/eval/bop_csv.py", "ossid_code_torch/eval/detection_map.py",
+                "ossid_code_torch/models/fewshot_seg.py", "ossid_code_torch/models/matcher.py",
+                "ossid_code_torch/models/layers.py", "ossid_code_torch/models/jax_import.py",
+                "ossid_code_torch/models/dtoid/wrapper.py", "ossid_code_torch/data/fewshot.py",
+                "ossid_code_torch/data/ycbv_sift.py", "ossid_code_torch/utils/jpeg.py",
+                "ossid_code_torch/utils/metrics.py", "ossid_code_torch/utils/homographies.py",
+                "ossid_code_torch/utils/augmentation.py", "ossid_code_torch/utils/sphere_sampling.py",
+                "ossid_code_torch/ops/warp.py"):
         assert rel in _PORT_FILES, rel
 
 
@@ -152,6 +161,17 @@ def test_entry_points_raise_without_cuda():
         TDtoidModel(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         TZephyrModel(num_points=64)
+    from ossid_code_torch.models.dtoid.wrapper import DTOIDWrapper
+    from ossid_code_torch.models.fewshot_seg import FewshotSegModel
+    from ossid_code_torch.models.matcher import SiftMatcher
+
+    legacy = t_default_config().merged({"model": {"width": 8, "dim": 16, "n_layers": 1}, "dataset": {"n_kpts": 8}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FewshotSegModel(legacy)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SiftMatcher(legacy)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DTOIDWrapper(None, str(ROOT), [], cfg=cfg)
     assert resolve_device("cpu").type == "cpu"
 
 

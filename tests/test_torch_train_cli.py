@@ -210,13 +210,11 @@ def test_offline_validate_matches_jax(world):
     assert 0.0 < want < 1.0 and abs(got - want) <= 1e-3, (got, want)
 
 
-@pytest.mark.parametrize("override, item", [
-    ("dataset=dtoid", "item 7"), ("dataset=render", "item 7"), ("dataset=fewshot_bop", "item 9"),
-    ("dataset=fss_1000", "item 9"), ("dataset=ycbv_sift", "item 9"), ("model=fewshot_seg", "item 9"),
-    ("model=matcher", "item 9"), ("model=superglue", "item 9")])
+@pytest.mark.parametrize("override, item", [("dataset=dtoid", "item 7"), ("dataset=render", "item 7")])
 def test_unported_families_raise(override, item, tmp_path, monkeypatch):
-    """Each family the port does not train raises, naming its ROADMAP.md
-    item, before it writes anything."""
+    """Each family the port does not train (the h5py render families)
+    raises, naming its ROADMAP.md item, before it writes anything. The
+    legacy families train: tests/test_torch_legacy_cli.py."""
     from ossid_code_torch.scripts import train
 
     monkeypatch.setenv("OSSID_RESULT_ROOT", str(tmp_path))
