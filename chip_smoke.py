@@ -128,14 +128,30 @@ Phases, each of which exits non-zero on failure:
      DenseNet-121, n_local 10 of 16 views) from a checkpoint: 2 launches of
      kernel 1 a call and nothing else, a frame against the CPU plain path,
      its host time and one traced call.
+ 13. the BlenderProc render family at full width: a world of 6 sampled
+     objects (6 scenes of 480x640, 10 template renders of 128x128 an
+     object) written by utils/hdf5.py and read back equal, load_hdf5 timed;
+     DTOID (480x640, DenseNet-121, the dtoid preset's 480 / 29 / 10) trained
+     by OfflineTrainer on DtoidRenderDataset batches of 4 for 2 epochs, then
+     validate and log_figures: the launches held to the schedule (kernel 1
+     twice a step, a validation batch and a figure batch; its dx and kernel
+     3 twice a step), the step and epoch times, one traced step, the
+     figures decoded at their size, and one step card against CPU (phase
+     7's limits); dataset=render model=fewshot_seg through the train CLI
+     (run_train_cli: no kernel); dataset=dtoid through the CLI, which stops
+     with KeyError 'limg' as the JAX CLI does; and kernel 1 at
+     configuration 1's 160 templates (x (160, 29, 39, 640) with stride 0
+     over T, a 463 MB output) against its plain version, timed beside its
+     byte bound and cuDNN.
 Weights are random, from fixed seeds (the demo trains its own). The float32 paths run with TF32 off
 for cuDNN convolutions and cuBLAS matmuls (main path and comparisons).
 
 Before the last line it prints a `kernels` JSON line (six kernel instances,
 each with its launches by path: the loop, the demo and the CLI for float32,
 the bf16 runs and the CLI for bf16, and phase 10's CLI, demo and two train
-runs, phase 11's pipelined and synchronous runs and phase 12's four train
-runs and the wrapper for all);
+runs, phase 11's pipelined and synchronous runs, phase 12's four train
+runs and the wrapper, and phase 13's three render runs for all; kernel 1's
+entry also holds the T=160 row);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or without the ossid_code_torch package beside it, it exits
@@ -1158,12 +1174,18 @@ YUV_TIMES = 20   # uploads timed, host clock, each way
 
 def run_spread(a: list, b: list) -> dict:
     """The largest differences between two runs' rows: picked score,
-    hypothesis scores (finite ones) and picked pose."""
-    d = {"pred_score": 0.0, "hypo_scores": 0.0, "pred_pose": 0.0}
+    hypothesis scores (finite ones, of the targets scored with as many
+    hypotheses in both runs) and picked pose; and the number of targets
+    whose hypothesis counts differ. Counts may differ where cuDNN's normal
+    algorithms let the finetuned detector's masks drift (phase 11b)."""
+    d = {"pred_score": 0.0, "hypo_scores": 0.0, "pred_pose": 0.0, "hypo_counts_differ": 0}
     for ra, rb in zip(a, b):
         d["pred_score"] = max(d["pred_score"], abs(ra["pred_score"] - rb["pred_score"]))
-        if ra["hypo_scores"] is not None:
-            sa_, sb = np.asarray(ra["hypo_scores"]), np.asarray(rb["hypo_scores"])
+        ha, hb = ra["hypo_scores"], rb["hypo_scores"]
+        if (ha is None) != (hb is None) or (ha is not None and np.shape(ha) != np.shape(hb)):
+            d["hypo_counts_differ"] += 1
+        elif ha is not None:
+            sa_, sb = np.asarray(ha), np.asarray(hb)
             fin = np.isfinite(sa_) & np.isfinite(sb)
             if not np.array_equal(np.isfinite(sa_), np.isfinite(sb)):
                 d["hypo_scores"] = float("inf")
@@ -1265,6 +1287,8 @@ def turns_summary(runs: list) -> dict:
     return {"frames_per_s": fps, "frames_per_s_median": {m: float(np.median(v)) for m, v in fps.items()},
             "schedules_equal": all([x[k] for x in r["rows"]] == [x[k] for x in sync[0]]
                                    for r in runs for k in PIPE_KEYS),
+            "schedule_diffs": [{k: n for k in PIPE_KEYS
+                                if (n := int(sum(x[k] != y[k] for x, y in zip(r["rows"], sync[0]))))} for r in runs],
             "spread": {"sync_vs_sync": worst([run_spread(sync[0], b) for b in sync[1:]]),
                        "pipelined_vs_pipelined": worst([run_spread(pipe[0], b) for b in pipe[1:]]),
                        "pipelined_vs_sync": [run_spread(b, sync[0]) for b in pipe]},
@@ -2038,8 +2062,8 @@ def run_train_cli(torch, conv, sa, family, argv, results, batch):
     memory read, and after the run one train step of the trained model on
     the run's last batch traced.
     Checks the run's files, its metric rows and the launches: none but for
-    DTOID, which launches 2 of kernel 1 a step and a validation batch, 2 of
-    its dx and of kernel 3 a step. Then holds the kernels against their
+    DTOID, which launches 2 of kernel 1 a step, a validation batch and a
+    batch log_figures draws, 2 of its dx and of kernel 3 a step. Then holds the kernels against their
     plain versions at every shape the run launched them on
     (recording_dw_calls, hold_dw_calls)."""
     import json as json_
@@ -2067,6 +2091,16 @@ def run_train_cli(torch, conv, sa, family, argv, results, batch):
             return out
 
         model_cls.train_step = timed_step
+    fig_batches = []
+    log_figures = offline.OfflineTrainer.log_figures
+
+    def counted_figures(self, loader, *a, **k):
+        counted = CountedLoader(loader)
+        out = log_figures(self, counted, *a, **k)
+        fig_batches.append(counted.n)
+        return out
+
+    offline.OfflineTrainer.log_figures = counted_figures
     for cls in (offline.OfflineTrainer, offline.GenericTrainer):
         saved[cls] = (cls.train_epoch, cls.validate)
 
@@ -2097,6 +2131,7 @@ def run_train_cli(torch, conv, sa, family, argv, results, batch):
             launches = read_launches()
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
     finally:
+        offline.OfflineTrainer.log_figures = log_figures
         for cls, fns in saved.items():
             if isinstance(fns, tuple):
                 cls.train_epoch, cls.validate = fns
@@ -2113,15 +2148,16 @@ def run_train_cli(torch, conv, sa, family, argv, results, batch):
     if rc != 0 or missing or len(rows) != TRAIN_EPOCHS or not all(np.isfinite(r["loss"]) for r in rows) \
             or rows[0]["loss"] == rows[-1]["loss"]:
         fail(f"train CLI {family}: rc {rc}, missing {missing}, metric rows {rows}")
-    steps, n_valid = sum(n for _, n in epochs), sum(valid_batches)
+    steps, n_valid, n_fig = sum(n for _, n in epochs), sum(valid_batches), sum(fig_batches)
     expected = dict.fromkeys(launches, 0)
     if family == "dtoid_bop":
-        expected.update(dw_corr3x3=2 * (steps + n_valid), dw_corr3x3_dx=2 * steps, dw_corr3x3_dk=2 * steps)
+        expected.update(dw_corr3x3=2 * (steps + n_valid + n_fig), dw_corr3x3_dx=2 * steps,
+                        dw_corr3x3_dk=2 * steps)
     if launches != expected or steps < 1:
         fail(f"train CLI {family}: launches {launches} differ from the schedule's {expected} ({steps} steps, "
-             f"{n_valid} validation batches)")
+             f"{n_valid} validation batches, {n_fig} figure batches)")
     profile = profile_call(torch, lambda: last["step"](last["model"], *last["args"], **last["kwargs"]))
-    return {"wall_s": wall_s, "steps": steps, "valid_batches": n_valid, "batch": batch,
+    return {"wall_s": wall_s, "steps": steps, "valid_batches": n_valid, "figure_batches": n_fig, "batch": batch,
             "kernels_held": hold_dw_calls(torch, conv, dw_calls),
             "epoch_ms": [ms for ms, _ in epochs], "epoch_ms_per_step": [ms / n for ms, n in epochs if n],
             "step_ms": step_ms, "step_ms_median": float(np.median(step_ms)), "peak_gib": peak_gib,
@@ -2423,6 +2459,264 @@ def phase12(torch, conv, sa):
     return {**{f"train_{f}": r["launches"] for f, r in runs.items()}, "dtoid_wrapper": wrapper["launches"]}
 
 
+class CountedLoader:
+    """A loader that counts the batches its consumer took."""
+
+    def __init__(self, loader):
+        self.loader, self.n = loader, 0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.n += 1
+            yield batch
+
+
+# phase 13: the BlenderProc render family at full width, and kernel 1 at
+# configuration 1's template count
+RENDER_OBJECTS = 6        # the reference's split: 4 train, 1 valid-unseen, 1 test object
+RENDER_SCENES = 6         # 480x640; DTOID trains on the first 4 and validates on the last 2
+RENDER_TRAIN_SCENES = 4
+RENDER_VIEWS = 10         # 128x128 template renders an object, cropped to 124x124
+RENDER_BATCH = 4
+RENDER_STEP_BATCH = 2     # card against CPU (phase 7's batch)
+RENDER_LOADS = 3          # load_hdf5 calls timed a scene, host clock
+T_PRETRAINED = 160        # --use_pretrained_dtoid's n_local_test (scripts/online_learning.py)
+
+
+def render_world(root):
+    """The phase's world through data/synthetic.py::make_render_world, every
+    array utils/hdf5.py wrote recorded: (scenes dir, grid dir, {path:
+    {name: array}})."""
+    from ossid_code_torch.data.synthetic import make_render_world, sampled_objects
+    from ossid_code_torch.utils import hdf5
+
+    written = {}
+    write = hdf5.write
+
+    def recording(path, datasets):
+        written[path] = {k: np.array(v, copy=True) for k, v in datasets.items()}
+        write(path, datasets)
+
+    hdf5.write = recording
+    try:
+        scenes, grid = make_render_world(root, n_scenes=RENDER_SCENES, n_grid_views=RENDER_VIEWS,
+                                         objects=sampled_objects(RENDER_OBJECTS), img_h=480, img_w=640)
+    finally:
+        hdf5.write = write
+    return scenes, grid, written
+
+
+def read_back(written) -> dict:
+    """Every file read back by utils/hdf5.py equal to what was written,
+    dtypes included; then load_hdf5 timed on the scenes."""
+    from ossid_code_torch.data.hdf5_render import load_hdf5
+    from ossid_code_torch.utils import hdf5
+
+    for path, arrays in written.items():
+        with hdf5.File(path) as f:
+            if sorted(f.keys()) != sorted(arrays):
+                fail(f"{path}: read back the datasets {sorted(f.keys())}, wrote {sorted(arrays)}")
+            for name, want in arrays.items():
+                got = f[name]
+                if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want):
+                    fail(f"{path}:{name} read back {got.dtype} {got.shape}, wrote {want.dtype} {want.shape}"
+                         f" (or other values)")
+    scenes = sorted(p for p in written if os.path.basename(p).startswith("scene_"))
+    load_ms = []
+    for path in scenes * RENDER_LOADS:
+        t0 = time.perf_counter()
+        load_hdf5(path)
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"files": len(written), "scenes": len(scenes),
+            "scene_mb": float(np.mean([os.path.getsize(p) for p in scenes]) / 1e6),
+            "scene_bytes_by_field": {k: int(v.nbytes) for k, v in written[scenes[0]].items()},
+            "load_hdf5_ms": load_ms, "load_hdf5_ms_median": float(np.median(load_ms))}
+
+
+def render_dtoid(torch, conv, sa, scenes, grid, out_dir):
+    """Phase 13b: DTOID trained by OfflineTrainer on render samples
+    (RenderGridTemplates, DtoidRenderDataset, NumpyLoader, as the JAX
+    package's tests compose them) at the preset's widths, 2 epochs at batch
+    RENDER_BATCH, then validate and log_figures, every launch counter at 0
+    just before and read just after: kernel 1 twice a step, a validation
+    batch and a figure batch, its dx and kernel 3 twice a step. Then one
+    step traced, the figures decoded, and one step card against CPU."""
+    from ossid_code_torch.conf import load_group
+    from ossid_code_torch.core.config import Config, default_config
+    from ossid_code_torch.data.dtoid_bop import NumpyLoader
+    from ossid_code_torch.data.hdf5_render import DtoidRenderDataset, RenderGridTemplates
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.train.offline import FEED_KEYS, OfflineTrainer
+    from ossid_code_torch.utils.png import read_png
+    from ossid_code_torch.utils.vis import FIG_H, FIG_W
+
+    dcfg = Config(load_group("dataset", "dtoid"))   # shorter_length 480, heatmap 29, n_local_test 10
+    cfg = default_config()                          # 480x640, DenseNet-121 (12, 24, 16)
+    paths = sorted(os.path.join(scenes, f) for f in os.listdir(scenes) if f.endswith(".hdf5"))
+    templates = RenderGridTemplates(grid)
+    train_ds = DtoidRenderDataset("train", paths[:RENDER_TRAIN_SCENES], templates, dcfg, seed=0)
+    valid_ds = DtoidRenderDataset("test", paths[RENDER_TRAIN_SCENES:], templates, dcfg, seed=1)
+    train_loader = NumpyLoader(train_ds, batch_size=RENDER_BATCH, shuffle=True, seed=0)
+    valid_loader = NumpyLoader(valid_ds, batch_size=RENDER_BATCH)
+    model = DtoidModel(cfg, seed=5, device="cuda")
+    perturb_heads(model.net, 6)
+    trainer = OfflineTrainer(model, cfg)
+    step_ms, epoch_ms = [], []
+    train_step = model.train_step
+
+    def timed_step(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(*a, **k)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    model.train_step = timed_step
+    valid = CountedLoader(valid_loader)
+    figures = CountedLoader(valid_loader)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        read_launches = zero_launches(conv, sa)
+        t_run = time.perf_counter()
+        losses = []
+        for _ in range(TRAIN_EPOCHS):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_epoch(train_loader)["loss"])
+            torch.cuda.synchronize()
+            epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        iou = trainer.validate(valid)
+        trainer.log_figures(figures, out_dir, epoch=TRAIN_EPOCHS - 1)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches = read_launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        model.train_step = train_step
+    steps = len(step_ms)
+    expected = dict.fromkeys(launches, 0)
+    expected.update(dw_corr3x3=2 * (steps + valid.n + figures.n), dw_corr3x3_dx=2 * steps, dw_corr3x3_dk=2 * steps)
+    if launches != expected or steps != TRAIN_EPOCHS * len(train_loader) or valid.n != len(valid_loader) \
+            or figures.n != 1:
+        fail(f"DTOID on render samples: launches {launches} differ from the schedule's {expected} ({steps} steps, "
+             f"{valid.n} validation batches, {figures.n} figure batches)")
+    if not all(np.isfinite(losses)) or losses[0] == losses[-1] or not np.isfinite(iou):
+        fail(f"DTOID on render samples: epoch losses {losses}, validation IoU {iou}")
+    drawn = sorted(os.listdir(os.path.join(out_dir, "figures")))
+    want = [f"epoch{TRAIN_EPOCHS - 1}_{i}.png" for i in range(2)]
+    shapes = [read_png(os.path.join(out_dir, "figures", n)).shape for n in drawn]
+    if drawn != want or any(sh != (FIG_H, FIG_W, 3) for sh in shapes):
+        fail(f"log_figures wrote {drawn} of shapes {shapes}, expected {want} at {(FIG_H, FIG_W, 3)}")
+    batch = next(iter(train_loader))
+    feed = {k: batch[k] for k in FEED_KEYS}
+    profile = profile_call(torch, lambda: model.train_step(feed, optimizer=trainer.optimizer, bf16=False))
+    t0 = time.perf_counter()
+    m_gpu = DtoidModel(cfg, seed=3, device="cuda")
+    perturb_heads(m_gpu.net, 4)
+    m_cpu = DtoidModel(cfg, seed=3, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    step_cmp = compare_step(torch, m_gpu, m_cpu, {k: v[:RENDER_STEP_BATCH] for k, v in feed.items()})
+    step_cmp["seconds"] = time.perf_counter() - t0
+    return {"train_items": len(train_ds), "valid_items": len(valid_ds), "steps": steps, "valid_batches": valid.n,
+            "figure_batches": figures.n, "run_s": run_s, "epoch_losses": losses, "valid_seg_IoU": iou,
+            "step_ms": step_ms, "step_ms_median": float(np.median(step_ms)),
+            "epoch_ms": epoch_ms, "epoch_ms_per_step": [ms / len(train_loader) for ms in epoch_ms],
+            "peak_gib": peak_gib, "launches": launches, "figures": drawn,
+            "profile_step": {k: v for k, v in profile.items() if k != "host_top_ops_self_ms"},
+            "card_vs_cpu_step": step_cmp}
+
+
+def dtoid_family_cli(torch, conv, sa, scenes, results):
+    """Phase 13d: `dataset=dtoid` through the train CLI stops at its first
+    batch with KeyError 'limg', as the JAX package's CLI does (few-shot
+    episodes fed to the DTOID trainer), having launched no kernel."""
+    from ossid_code_torch.scripts import train
+
+    saved_env = os.environ.get("OSSID_RESULT_ROOT")
+    os.environ["OSSID_RESULT_ROOT"] = results
+    read_launches = zero_launches(conv, sa)
+    try:
+        train.main(["dataset=dtoid", f"dataset.dataset_root={scenes}", f"train.batch_size={RENDER_BATCH}",
+                    "model.max_epochs=1", "exp_name=chip_dtoid"])
+    except KeyError as e:
+        if e.args != ("limg",):
+            raise
+    else:
+        fail("train CLI dataset=dtoid ran on: the JAX package's CLI stops with KeyError 'limg'")
+    finally:
+        if saved_env is None:
+            os.environ.pop("OSSID_RESULT_ROOT", None)
+        else:
+            os.environ["OSSID_RESULT_ROOT"] = saved_env
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"train CLI dataset=dtoid launched {launches} before its KeyError")
+    return launches
+
+
+def dw_corr_t160(torch, F, conv):
+    """Kernel 1 at configuration 1's template count (--use_pretrained_dtoid:
+    n_local_test 160): the correlation head, x (160, 29, 39, 640) with
+    stride 0 over T and a 463 MB float32 output, against its plain version
+    (DW_TOL), timed beside its byte bound and cuDNN."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    feat = torch.randn(1, 29, 39, 640, device="cuda", generator=g)
+    k = torch.randn(T_PRETRAINED, 3, 3, 640, device="cuda", generator=g)
+    with torch.inference_mode():
+        row = measure_dw_corr(torch, F, conv, [(f"correlation head T={T_PRETRAINED}",
+                                                feat.expand(T_PRETRAINED, 29, 39, 640), k)], dw_check(torch, False))[0]
+    row["output_mb"] = T_PRETRAINED * 29 * 39 * 640 * 4 / 1e6
+    return row
+
+
+def phase13(torch, F, conv, sa):
+    """Phase 13: (a) a render world at full width written by the port's
+    writer and read back, load_hdf5 timed; (b) DTOID on render samples
+    (render_dtoid); (c) dataset=render model=fewshot_seg through the train
+    CLI (run_train_cli: no kernel launched); (d) dataset=dtoid through the
+    CLI (dtoid_family_cli); then kernel 1 at T=160 (dw_corr_t160). Prints
+    what it measured; returns the launches of each path and the T=160 row."""
+    import tempfile
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ossid_render_") as root:
+        t0 = time.perf_counter()
+        scenes, grid, written = render_world(os.path.join(root, "world"))
+        world_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        io = read_back(written)
+        io["read_back_s"] = time.perf_counter() - t0
+        del written
+        dtoid = render_dtoid(torch, conv, sa, scenes, grid, os.path.join(root, "dtoid"))
+        results = os.path.join(root, "results")
+        render = run_train_cli(torch, conv, sa, "render", [
+            "dataset=render", "model=fewshot_seg", f"dataset.dataset_root={scenes}",
+            f"train.batch_size={RENDER_BATCH}", f"model.max_epochs={TRAIN_EPOCHS}", "exp_name=chip_render"],
+            results, RENDER_BATCH)
+        dtoid_cli = dtoid_family_cli(torch, conv, sa, scenes, results)
+    t160 = dw_corr_t160(torch, F, conv)
+    print(f"phase 13 world: {RENDER_SCENES} scenes 480x640 x {RENDER_OBJECTS} objects, {RENDER_VIEWS} 128x128 "
+          f"template renders an object, written in {world_s:.1f} s (utils/hdf5.py); read back equal: "
+          f"{json.dumps(io)}")
+    print(f"phase 13 DTOID on render samples ({TRAIN_EPOCHS} epochs at batch {RENDER_BATCH}, DenseNet-121, "
+          f"480x640, T=1 local template in training, validation and figures on the all-templates batches): "
+          f"{json.dumps(dtoid)}")
+    print(f"train CLI dataset=render model=fewshot_seg ({TRAIN_EPOCHS} epochs at batch {RENDER_BATCH}, 480x640 "
+          f"scenes): {json.dumps(render)}")
+    print(f"train CLI dataset=dtoid: KeyError 'limg' at the first batch, as in the JAX package; launches "
+          f"{json.dumps(dtoid_cli)}")
+    print(f"dw_corr3x3 {t160['shape']}: err {t160['max_abs_err']:.3g}, kernel {t160['ms']:.4f} ms, plain "
+          f"{t160['plain_ms']:.4f} ms, cuDNN {t160['library_ms']:.4f} ms, bound {t160['bound_ms']:.4f} ms "
+          f"({t160['bound_by']}), output {t160['output_mb']:.1f} MB")
+    print(f"phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return {"render_dtoid": dtoid["launches"], "train_render": render["launches"], "train_dtoid": dtoid_cli}, t160
+
+
 def main() -> int:
     import torch
 
@@ -2682,7 +2976,8 @@ def main() -> int:
           f"each run " + ", ".join(f"{t['mode']} {t['frames_per_s']:.3f}" for t in f32["turns"])
           + "; speculation hit rate " + ", ".join(str(t["spec_hit_rate"]) for t in f32["turns"])
           + "; fetches a frame " + ", ".join(f"{t['fetches_per_frame']:.3f}" for t in f32["turns"])
-          + f"; schedules equal {f32['schedules_equal']}; spread (max abs) {json.dumps(f32['spread'])}")
+          + f"; schedules equal {f32['schedules_equal']} (targets that differ from the first synchronous run's, by "
+          f"key: {json.dumps(f32['schedule_diffs'])}); spread (max abs) {json.dumps(f32['spread'])}")
     print(f"phase 11b fetches and waits by kind, counts, launches: {json.dumps(f32['turns'])}")
     print(f"profile pipelined loop with --yuv_transfer (after the turns): {json.dumps(p11['profile_pipelined'])}")
     print(f"YUV 4:2:0 transport of a 480x640 frame: {json.dumps(p11['transport'])}")
@@ -2789,6 +3084,9 @@ def main() -> int:
     # -- 12. the train CLI's legacy families and the DTOID wrapper -------------
     p12 = phase12(torch, conv, sa)
 
+    # -- 13. the render family at full width, kernel 1 at T=160 ----------------
+    p13, t160 = phase13(torch, F, conv, sa)
+
     hbm = f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"
     dw_src, bwd_src = "ossid_code_torch/csrc/dw_corr3x3.cu", "ossid_code_torch/csrc/dw_corr3x3_bwd.cu"
     dw_replaces = "ossid_code_tpu/ops/pallas_kernels.py:49"
@@ -2799,7 +3097,8 @@ def main() -> int:
     # run (1b, its dx, 3b), added, with each run's count beside
     by_path10 = lambda name: {"cli_maskrcnn": mcli_launches[name], "demo_maskrcnn": mdemo_launches[name],
                             **{f"train_{f}": r["launches"][name] for f, r in train_runs.items()},
-                            **{path: launches[name] for path, launches in p12.items()}}
+                            **{path: launches[name] for path, launches in p12.items()},
+                            **{path: launches[name] for path, launches in p13.items()}}
     by_path11 = lambda name: {"loop_yuv_pipelined": p11_pipe[name], "loop_yuv_sync": p11_sync[name]}
     by_path = lambda name: {"serving_bf16": serve16_launches.get(name, 0), "loop_bf16": loop16_launches[name],
                             "cli": cli_launches[name], **by_path10(name), **by_path11(name)}
@@ -2807,7 +3106,8 @@ def main() -> int:
                               **by_path10(name), **by_path11(name)}
     kernels = [
         dict(summary("dw_corr3x3", dw_src, dw_replaces, loop_launches["dw_corr3x3"], dw_rows, dw_edge_err, hbm),
-             dtype="float32", launches_by_path=by_path32("dw_corr3x3"), demo_shapes=demo_dw),
+             dtype="float32", launches_by_path=by_path32("dw_corr3x3"), demo_shapes=demo_dw,
+             pretrained_templates=t160),
         dict(summary("dw_corr3x3_bwd", bwd_src, bwd_replaces, loop_launches["dw_corr3x3_dk"], bwd_rows,
                      bwd_edge_err, hbm), dtype="float32", dx_launches=loop_launches["dw_corr3x3_dx"],
              launches_by_path=by_path32("dw_corr3x3_dk"), dx_launches_by_path=by_path32("dw_corr3x3_dx"),

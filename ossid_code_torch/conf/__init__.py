@@ -1,6 +1,6 @@
 """YAML presets of the train CLI's config groups (the port's own copies of
 ossid_code_tpu/conf/, for the families the port trains: datasets `detect`,
-`dtoid_bop`, `fewshot_bop`, `fss_1000` and `ycbv_sift`, models `dtoid`,
+`dtoid`, `dtoid_bop`, `fewshot_bop`, `fss_1000` and `ycbv_sift`, models `dtoid`,
 `maskrcnn`, `fewshot_seg`, `matcher` and its alias `superglue`).
 `scripts/train.py` resolves `dataset=<name>` / `model=<name>` against these
 files first, then against the defaults of core/config.py, and applies

@@ -10,9 +10,10 @@ pickle like the one the online loop preloads (ref
 scripts/online_learning.py:246-248). The whole online loop then runs
 hermetically with no real datasets.
 
-The port's copy of the parts of ossid_code_tpu/data/synthetic.py that build
-the online loop's and the end-to-end demo's worlds: PNGs are written by utils/png.py, so the files hold
-the JAX writer's pixels and arrays, compressed differently.
+The port's copy of ossid_code_tpu/data/synthetic.py: PNGs are written by
+utils/png.py and BlenderProc HDF5 scenes by utils/hdf5.py, so the files
+hold the JAX writer's pixels and arrays, laid out or compressed
+differently.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ossid_code_torch.render.mesh import (
 )
 from ossid_code_torch.render.rasterizer import render_depth
 from ossid_code_torch.render.visib import estimate_visib_mask_gt
+from ossid_code_torch.utils import hdf5
 from ossid_code_torch.utils.png import write_png
 
 
@@ -428,6 +430,136 @@ def make_template_grid(
         with open(os.path.join(odir, "vid2pose.pkl"), "wb") as fp:
             pickle.dump(vid2pose, fp)
     return grid_root
+
+
+def make_blenderproc_hdf5(
+    path: str,
+    objects: dict[int, Mesh],
+    obj_poses: dict[int, np.ndarray],
+    img_h: int = 128,
+    img_w: int = 160,
+    noise: float = 0.02,
+    seed: int = 0,
+):
+    """Write one BlenderProc-format HDF5 scene (the format of the reference's
+    offline render datasets, ref datasets/render_dataset.py:191-249), rendered
+    with the in-repo rasterizer and written by utils/hdf5.py. obj_poses map
+    obj_id -> obj->cam (OpenCV)."""
+    rng = np.random.default_rng(seed)
+    f = 1.2 * max(img_h, img_w)
+    K = np.array([[f, 0, img_w / 2], [0, f, img_h / 2], [0, 0, 1.0]])
+
+    depth = np.full((img_h, img_w), 2.0, np.float32)
+    color = np.clip(
+        np.full((img_h, img_w, 3), 0.4, np.float32) + rng.normal(0, noise, (img_h, img_w, 3)),
+        0, 1,
+    ).astype(np.float32)
+    seg_class = np.zeros((img_h, img_w), np.int32)
+    seg_inst = np.zeros((img_h, img_w), np.int32)
+    normals_map = np.full((img_h, img_w, 3), 0.5, np.float32)
+
+    for inst_idx, (oid, pose) in enumerate(obj_poses.items(), start=1):
+        mesh = objects[oid]
+        d, c = render_depth(mesh.vertices / 1000.0, mesh.faces, K, pose, img_h, img_w,
+                            colors=mesh.colors)
+        closer = (d > 0) & (d < depth)
+        depth[closer] = d[closer]
+        color[closer] = c[closer]
+        seg_class[closer] = oid
+        seg_inst[closer] = inst_idx
+        normals_map[closer] = [0.5, 0.5, 0.0]  # facing camera (-z), encoded (n+1)/2
+
+    # camera at origin: OpenCV cam == world; store the Blender-convention
+    # cam2world (y up, z backward) that load_hdf5 flips back
+    cam2world = np.eye(4)
+    cam2world[:3, 1] *= -1
+    cam2world[:3, 2] *= -1
+    campose = [{"cam2world_matrix": cam2world.tolist(), "cam_K": K.reshape(-1).tolist()}]
+
+    segcolormap = [
+        {"category_id": int(oid), "idx": i + 1, "channel_class": 0, "channel_instance": 1}
+        for i, oid in enumerate(obj_poses)
+    ]
+    object_states = []
+    for oid, pose in obj_poses.items():
+        # obj2world == obj2cam (camera at world origin, OpenCV frame)
+        euler = Rotation.from_matrix(pose[:3, :3]).as_euler("XYZ", degrees=False)
+        object_states.append(
+            {"name": f"obj_{oid:06d}", "location": pose[:3, 3].tolist(),
+             "rotation_euler": euler.tolist()}
+        )
+
+    hdf5.write(path, {
+        "colors": (color * 255).astype(np.uint8),
+        "depth": depth,
+        "segmap": np.stack([seg_class, seg_inst], axis=-1).astype(np.int32),
+        "normals": normals_map,
+        "campose": np.frombuffer(json.dumps(campose).encode(), np.uint8),
+        "segcolormap": np.frombuffer(json.dumps(segcolormap).encode(), np.uint8),
+        "object_states": np.frombuffer(json.dumps(object_states).encode(), np.uint8),
+    })
+    return path
+
+
+RENDER_ROW = 3   # objects a row in a render-world scene
+
+
+def make_render_world(root: str, n_scenes: int = 4, n_grid_views: int = 6, seed: int = 0,
+                      objects: dict[int, Mesh] | None = None, img_h: int = 128, img_w: int = 160):
+    """Synthetic offline-pretraining world: multi-object BlenderProc scenes
+    under <root>/scenes + single-object template grids (128x128 renders)
+    under <root>/grid/<oid>/ + object2files.json (ref
+    scripts/index_render_dataset.py output format).
+
+    The JAX package's function with two more arguments, `objects` (default:
+    default_objects()) and the scenes' size: objects stand RENDER_ROW to a
+    row, rows 0.12 m apart, so that up to RENDER_ROW objects are placed as
+    the JAX package places them and six stay in view."""
+    rng = np.random.default_rng(seed)
+    objects = default_objects() if objects is None else objects
+    scenes_dir = os.path.join(root, "scenes")
+    os.makedirs(scenes_dir, exist_ok=True)
+
+    cols = min(len(objects), RENDER_ROW)
+    rows = -(-len(objects) // RENDER_ROW)
+    obj2files: dict[str, list[str]] = {str(o): [] for o in objects}
+    for si in range(n_scenes):
+        obj_poses = {}
+        for slot, oid in enumerate(objects):
+            row, col = divmod(slot, RENDER_ROW)
+            pose = np.eye(4)
+            pose[:3, :3] = Rotation.random(random_state=int(rng.integers(1 << 30))).as_matrix()
+            pose[:3, 3] = [
+                (col - (cols - 1) / 2) * 0.12,
+                (row - (rows - 1) / 2) * 0.12 + rng.uniform(-0.02, 0.02),
+                rng.uniform(0.45, 0.6),
+            ]
+            obj_poses[oid] = pose
+        name = f"scene_{si:04d}"
+        make_blenderproc_hdf5(
+            os.path.join(scenes_dir, name + ".hdf5"), objects, obj_poses, img_h=img_h, img_w=img_w,
+            seed=int(rng.integers(1 << 30)),
+        )
+        for oid in objects:
+            obj2files[str(oid)].append(name)
+
+    grid_dir = os.path.join(root, "grid")
+    for oid, mesh in objects.items():
+        odir = os.path.join(grid_dir, str(oid))
+        os.makedirs(odir, exist_ok=True)
+        verts_m = mesh.vertices / 1000.0
+        diam = float(np.linalg.norm(verts_m.max(0) - verts_m.min(0)))
+        for vi in range(n_grid_views):
+            pose = np.eye(4)
+            pose[:3, :3] = Rotation.random(random_state=1000 + vi).as_matrix()
+            pose[:3, 3] = [0, 0, diam * 1.8]
+            make_blenderproc_hdf5(
+                os.path.join(odir, f"{vi:04d}.hdf5"), {oid: mesh}, {oid: pose},
+                img_h=128, img_w=128, noise=0.0,
+            )
+    with open(os.path.join(scenes_dir, "object2files.json"), "w") as fp:
+        json.dump(obj2files, fp)
+    return scenes_dir, grid_dir
 
 
 def make_zephyr_results_pkl(

@@ -4,6 +4,7 @@ ossid_code_tpu/scripts/train.py):
     python -m ossid_code_torch.scripts.train dataset=detect exp_name=run ...
     python -m ossid_code_torch.scripts.train dataset=dtoid_bop model.max_epochs=2 ...
     python -m ossid_code_torch.scripts.train dataset=fewshot_bop|fss_1000|ycbv_sift [model=superglue] ...
+    python -m ossid_code_torch.scripts.train dataset=render model=fewshot_seg dataset.dataset_root=... ...
 
 Overrides are dotted key=value pairs on the default config tree, values
 parsed as YAML; `dataset=<name>` / `model=<name>` select a group preset
@@ -13,17 +14,22 @@ parsed as YAML; `dataset=<name>` / `model=<name>` select a group preset
 lives in <OSSID_RESULT_ROOT>/train/<exp_name>: the config as
 config_v<N>.yaml (N the first free version), the metrics as
 metrics_v<N>.jsonl (TensorBoard events in tb/ where tensorboard imports),
-last.ckpt after every epoch and best.ckpt at the best monitored metric.
+last.ckpt after every epoch and best.ckpt at the best monitored metric;
+a trainer with `log_figures` (DTOID's) draws the prediction figures into
+figures/ every `model.figure_interval` epochs and at the last.
 `build_model` is the JAX CLI's dispatch (`dtoid`, `maskrcnn`,
 `fewshot_seg`, `matcher` and its alias `superglue`), with `weights_path=`
 loaded through core/checkpoint.py; `resume_path=` resumes from a
 last.ckpt. `OfflineTrainer` trains DTOID, `GenericTrainer` the others.
 
+`dataset=dtoid` and `dataset=render` both read BlenderProc HDF5 scenes
+(data/hdf5_render.py) into few-shot episodes, as the JAX CLI does: so
+`dataset=dtoid` with the DTOID model stops at its first batch with
+KeyError 'limg', as JAX's does (ROADMAP.md, faults of the reference).
+
 The port's own key `device=cpu` runs on the CPU; without it the run is on
-the card. Not ported, and raising NotImplementedError with their ROADMAP.md
-item: the dataset families `dtoid` / `render` (h5py render data, item 7);
-`train.dp_devices` other than 1 or -1 (the data-parallel mesh, item 7)
-raises in OfflineTrainer.
+the card. `train.dp_devices` other than 1 or -1 (the data-parallel mesh,
+not ported: ROADMAP.md, multi-device families) raises in OfflineTrainer.
 """
 
 from __future__ import annotations
@@ -37,12 +43,6 @@ import yaml
 from ossid_code_torch.conf import load_group, post_process_conf
 from ossid_code_torch.core.config import default_config, roots
 from ossid_code_torch.utils.logging import MetricLogger
-
-# what the port does not train, with the ROADMAP.md §1 item that ports it
-_NOT_PORTED_DATASETS = {
-    "dtoid": "item 7, the h5py render family",
-    "render": "item 7, the h5py render family",
-}
 
 # the model a dataset family trains when `model=` is not given
 _DEFAULT_MODEL = {
@@ -100,13 +100,6 @@ def build_config(argv):
     return post_process_conf(default_config().merged(overrides))
 
 
-def refuse_unported(cfg) -> None:
-    """Raise for a dataset family the port does not train."""
-    name = cfg.dataset.name
-    if name in _NOT_PORTED_DATASETS:
-        raise NotImplementedError(f"dataset={name} is not ported: ROADMAP.md §1, {_NOT_PORTED_DATASETS[name]}")
-
-
 def build_dataloaders(cfg):
     """(train, valid, test) loaders of the dataset family."""
     name = cfg.dataset.name
@@ -114,6 +107,10 @@ def build_dataloaders(cfg):
         from ossid_code_torch.data.dtoid_bop import get_dataloaders
 
         return get_dataloaders(cfg)
+    if name in ("dtoid", "render"):
+        from ossid_code_torch.data.hdf5_render import get_render_dataloaders
+
+        return get_render_dataloaders(cfg)
     if name == "fewshot_bop":
         from ossid_code_torch.data.fewshot import get_fewshot_dataloaders
 
@@ -130,7 +127,7 @@ def build_dataloaders(cfg):
         from ossid_code_torch.data.ycbv_sift import get_ycbv_sift_dataloaders
 
         return get_ycbv_sift_dataloaders(cfg)
-    raise SystemExit(f"unknown dataset {name!r} (dtoid_bop, fewshot_bop, fss_1000, detect, ycbv_sift)")
+    raise SystemExit(f"unknown dataset {name!r} (dtoid_bop, dtoid, render, fewshot_bop, fss_1000, detect, ycbv_sift)")
 
 
 def build_model(cfg):
@@ -162,7 +159,6 @@ def main(argv=None) -> int:
 
     argv = argv if argv is not None else sys.argv[1:]
     cfg = build_config(argv)
-    refuse_unported(cfg)
     np.random.seed(cfg.seed)
 
     exp_root = os.path.join(roots().OSSID_RESULT_ROOT, "train", cfg.exp_name)
@@ -193,10 +189,15 @@ def main(argv=None) -> int:
     logger = MetricLogger(os.path.join(exp_root, f"metrics_v{version}.jsonl"), tb_dir=os.path.join(exp_root, "tb"))
 
     monitor = cfg.model.get("monitor", "val_metric")
+    fig_interval = int(cfg.model.get("figure_interval", 0) or 0)
+    max_epochs = int(cfg.model.max_epochs)
     try:
-        for epoch in range(trainer.epoch, int(cfg.model.max_epochs)):
+        for epoch in range(trainer.epoch, max_epochs):
             metrics = trainer.train_epoch(train_loader)
             val = trainer.validate(valid_loaders[0], monitor=monitor)
+            if fig_interval and hasattr(trainer, "log_figures") and (
+                    epoch % fig_interval == 0 or epoch == max_epochs - 1):
+                trainer.log_figures(valid_loaders[0], exp_root, epoch)
             logger.log(epoch, **metrics, **{monitor: val})
             print(f"epoch {epoch}: loss={metrics.get('loss', float('nan')):.4f} "
                   f"{monitor}={val:.4f} (best {trainer.best_metric:.4f})")

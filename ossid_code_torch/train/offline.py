@@ -9,8 +9,8 @@ ref models/dtoid/__init__.py:258). The model's finetune optimizer is left
 as it was. Checkpoints are torch files (core/checkpoint.py). The JAX
 package's data-parallel mesh is not ported (ROADMAP.md, multi-device
 families): `n_devices` other than 1 raises. `validate` keeps `best.ckpt` by
-the monitored segmentation IoU; the JAX trainer's periodic prediction
-figures (`log_figures`, utils/vis.py) are not ported (ROADMAP.md §1 item 9).
+the monitored segmentation IoU; `log_figures` writes the periodic prediction
+figures of utils/vis.py as PNGs.
 
 `GenericTrainer` drives any model with `train_step(batch)` (loss terms as
 device scalars), `eval_metric(batch)` (a list of floats) and `state_dict()`:
@@ -28,6 +28,8 @@ import torch
 
 from ossid_code_torch.core.checkpoint import save_checkpoint
 from ossid_code_torch.core.optim import make_optimizer, piecewise_constant_schedule
+from ossid_code_torch.utils.png import write_png
+from ossid_code_torch.utils.vis import vis_in_out
 
 FEED_KEYS = ("img", "limg", "lmask", "gimg", "gmask", "bbox_gt", "heatmap", "mask")
 
@@ -146,20 +148,41 @@ class OfflineTrainer:
         self.best_metric = float(payload.get("best_metric", -np.inf))
         return True
 
+    def _eval_forward(self, batch: dict) -> tuple[dict, dict]:
+        """The eval-mode forward of `batch`, the first local template of an
+        all-templates batch: (the batch with `limg` / `lmask` squeezed to
+        one template, the network's outputs on the device)."""
+        limg, lmask = np.asarray(batch["limg"]), np.asarray(batch["lmask"])
+        if limg.ndim == 5:
+            batch = {**batch, "limg": limg[:, 0], "lmask": lmask[:, 0]}
+        feed = self.model._on_device({k: batch[k] for k in ("img", "limg", "lmask", "gimg", "gmask")})
+        return batch, self.model.net(*(feed[k].float() for k in ("img", "limg", "lmask", "gimg", "gmask")))
+
+    @torch.inference_mode()
+    def log_figures(self, loader, out_dir: str, epoch: int, n: int = 2) -> None:
+        """The first `n` samples of `loader` drawn by utils/vis.py::vis_in_out
+        from the eval-mode forward, as <out_dir>/figures/epoch{epoch}_{i}.png
+        (JAX train/offline.py:205-235)."""
+        os.makedirs(os.path.join(out_dir, "figures"), exist_ok=True)
+        done = 0
+        for batch in loader:
+            batch, out = self._eval_forward(batch)
+            out = {k: v.float().cpu().numpy() for k, v in out.items()}
+            for i in range(len(np.asarray(batch["img"]))):
+                fig, _ = vis_in_out(batch, out, idx=i)
+                write_png(os.path.join(out_dir, "figures", f"epoch{epoch}_{done}.png"), fig)
+                done += 1
+                if done >= n:
+                    return
+
     @torch.inference_mode()
     def validate(self, loader, monitor: str = "seg_IoU") -> float:
         """The mean segmentation IoU of the eval-mode forward over `loader`
         (the first local template of an all-templates batch), best.ckpt when
         it is the best so far (JAX train/offline.py:237-267)."""
-        m = self.model
         ious = []
         for batch in loader:
-            limg, lmask = np.asarray(batch["limg"]), np.asarray(batch["lmask"])
-            if limg.ndim == 5:
-                limg, lmask = limg[:, 0], lmask[:, 0]
-            feed = m._on_device({"img": batch["img"], "limg": limg, "lmask": lmask, "gimg": batch["gimg"],
-                                 "gmask": batch["gmask"]})
-            out = m.net(*(feed[k].float() for k in ("img", "limg", "lmask", "gimg", "gmask")))
+            _, out = self._eval_forward(batch)
             seg = (out["seg_logits"] > 0.0).cpu().numpy()
             gt = np.asarray(batch["mask"]) > 0.5
             inter = np.logical_and(seg, gt).sum(axis=(1, 2, 3))

@@ -132,6 +132,23 @@ def expand_box(x1, y1, x2, y2, img_h, img_w, expand_ratio):
     return x1n, y1n, x2n, y2n
 
 
+def robust_crop(image: np.ndarray, x1: int, x2: int, y1: int, y2: int) -> np.ndarray:
+    """Crop rows [x1, x2) and columns [y1, y2) (rows first, as the
+    reference names them), zero-padded outside the image
+    (ref utils/__init__.py:340-352)."""
+    if not (x2 > x1 and y2 > y1):
+        raise ValueError(f"robust_crop: empty crop rows [{x1}, {x2}) columns [{y1}, {y2})")
+    from_h, from_w = image.shape[:2]
+    to_h, to_w = x2 - x1, y2 - y1
+    crop = np.zeros((to_h, to_w, *image.shape[2:]), dtype=image.dtype)
+    fx1, fy1 = max(0, x1), max(0, y1)
+    fx2, fy2 = min(from_h, x2), min(from_w, y2)
+    tx1, ty1 = max(0, -x1), max(0, -y1)
+    tx2, ty2 = min(to_h, from_h - x1), min(to_w, from_w - y1)
+    crop[tx1:tx2, ty1:ty2] = image[fx1:fx2, fy1:fy2]
+    return crop
+
+
 def heatmap_gaussian(img_h, img_w, cx, cy, sigma, normalize=False) -> np.ndarray:
     """Unnormalized isotropic Gaussian centered at (cx, cy)
     (ref utils/__init__.py:354-366)."""

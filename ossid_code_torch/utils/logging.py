@@ -3,7 +3,7 @@ MetricLogger): one JSON object a line, {'step', 'time', **scalars}, and the
 same scalars as TensorBoard events where `torch.utils.tensorboard` imports
 (observability only; the JSONL stream is the record). The JAX module's log
 readers (`tflog2pandas`, `read_log`, `load_result`) are not ported
-(ROADMAP.md §1 item 9)."""
+(ROADMAP.md §1 item 5.2)."""
 
 from __future__ import annotations
 

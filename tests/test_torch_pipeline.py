@@ -23,6 +23,7 @@ Beside them: HostCopy and RunStats. Each loop run takes about 20 s here
 (the plain scorer), so the runs are split over three files.
 """
 
+import json
 import pickle
 
 import numpy as np
@@ -295,3 +296,30 @@ def test_rpc_stats_matches_jax():
     got.reset()
     assert got.summary() == "(no rpc stats)" and got.spec_hit_rate() is None
 
+
+
+def test_turns_report_runs_whose_hypothesis_counts_differ():
+    """chip_smoke.py's report of runs in turns: a target scored with another
+    number of hypotheses in one run (or not scored at all) is counted and
+    its scores left out of the spread, and the schedule's differences are
+    counted by key, where the schedule check alone would fail."""
+    import chip_smoke
+
+    def row(n, shift=0.0):
+        return {"obj_id": 1, "scene_id": 0, "im_id": 0, "dtoid_confident": True, "zephyr_confident": True,
+                "use_dtoid_mask": True, "finetune": False, "n_hypos": n, "pred_score": 0.5 + shift,
+                "hypo_scores": None if n == 0 else np.linspace(0.0, 1.0, n) + shift, "pred_pose": np.eye(4)}
+
+    sync = [row(132), row(8), row(0)]
+    pipe = [row(119), row(8, 0.25), row(4)]
+    d = chip_smoke.run_spread(pipe, sync)
+    assert d == pytest.approx({"pred_score": 0.25, "hypo_scores": 0.25, "pred_pose": 0.0, "hypo_counts_differ": 2})
+    assert chip_smoke.run_spread(sync, sync)["hypo_counts_differ"] == 0
+    runs = [{"mode": m, "rows": r, "wall_s": 1.0, "stats": {"counts": {}, "rpcs": {}}, "hit_rate": None,
+             "fetches_per_frame": 2.0, "launches": {}}
+            for m, r in (("sync", sync), ("pipelined", pipe), ("pipelined", pipe), ("sync", sync))]
+    out = chip_smoke.turns_summary(runs)
+    assert not out["schedules_equal"]
+    assert out["schedule_diffs"] == [{}, {"n_hypos": 2}, {"n_hypos": 2}, {}]
+    assert out["spread"]["pipelined_vs_sync"][0]["hypo_counts_differ"] == 2
+    json.dumps(out)

@@ -129,7 +129,8 @@ def test_port_imports_nothing_of_jax(rel):
 def test_import_scan_covers_the_training_and_script_modules():
     """The scan above reaches the trainers, the demo script, the CLI and the
     modules they brought (SIFT among them: no cv2), and the legacy
-    families' models, data and host utilities (JPEG: no imageio or PIL)."""
+    families' models, data and host utilities (JPEG: no imageio or PIL),
+    the figures (no matplotlib) and the render family (HDF5: no h5py)."""
     for rel in ("ossid_code_torch/train/offline.py", "ossid_code_torch/train/zephyr_offline.py",
                 "ossid_code_torch/scripts/demo_e2e.py", "ossid_code_torch/core/checkpoint.py",
                 "ossid_code_torch/eval/bop_ar.py", "ossid_code_torch/hypo/icp.py",
@@ -142,7 +143,8 @@ def test_import_scan_covers_the_training_and_script_modules():
                 "ossid_code_torch/data/ycbv_sift.py", "ossid_code_torch/utils/jpeg.py",
                 "ossid_code_torch/utils/metrics.py", "ossid_code_torch/utils/homographies.py",
                 "ossid_code_torch/utils/augmentation.py", "ossid_code_torch/utils/sphere_sampling.py",
-                "ossid_code_torch/ops/warp.py"):
+                "ossid_code_torch/ops/warp.py", "ossid_code_torch/utils/vis.py", "ossid_code_torch/utils/hdf5.py",
+                "ossid_code_torch/data/hdf5_render.py", "ossid_code_torch/scripts/index_render_dataset.py"):
         assert rel in _PORT_FILES, rel
 
 

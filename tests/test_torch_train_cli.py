@@ -3,8 +3,9 @@ the JAX package's, on the CPU.
 
 One synthetic world (2 objects x 5 frames of 128x160, a template grid).
 `dataset=detect` trains the class-conditional detector (full DenseNet-121,
-2 classes) and `dataset=dtoid_bop` DTOID (DenseNet (2, 2, 2)), 2 epochs at
-batch 2 each, once per module; the override parser and the saved
+2 classes) and `dataset=dtoid_bop model=dtoid` DTOID (DenseNet (2, 2, 2);
+the preset's figure_interval draws figures), 2 epochs at batch 2 each, once
+per module; the override parser and the saved
 config_v0.yaml are compared with JAX's for the same argv (JAX's CLI stops
 after it has saved its config). The port's config tree has three keys the
 JAX tree lacks, left out of the comparison: `device` (the port's own CLI
@@ -22,13 +23,16 @@ import pytest
 import torch
 import yaml
 
+from ossid_code_torch.utils.png import read_png
+from ossid_code_torch.utils.vis import FIG_H, FIG_W
+
 torch.set_num_threads(2)
 
 H, W = 128, 160
 PORT_ONLY_MODEL = ("bf16_finetune", "bf16_infer")
 FAMILIES = {
     "detect": ["dataset=detect", "dataset.n_classes=2", "dataset.img_h=128", "dataset.img_w=160"],
-    "dtoid_bop": ["dataset=dtoid_bop", "dataset.heatmap_shorter_length=7", "dataset.n_local_test=2",
+    "dtoid_bop": ["dataset=dtoid_bop", "model=dtoid", "dataset.heatmap_shorter_length=7", "dataset.n_local_test=2",
                   "model.img_h=128", "model.img_w=160", "model.heatmap_h=7", "model.heatmap_w=9",
                   "model.densenet_blocks=[2, 2, 2]"],
 }
@@ -139,8 +143,9 @@ def test_saved_config_matches_jax(family, world, runs, tmp_path, monkeypatch):
 def test_training_writes_its_run_and_resumes(family, runs):
     """Two epochs write config_v0.yaml, metrics_v0.jsonl (a row an epoch
     with the loss terms and the monitored metric), TensorBoard events,
-    last.ckpt and best.ckpt; the loss moves. The resume from last.ckpt starts at epoch 2, writes
-    version 1 and logs one epoch."""
+    last.ckpt and best.ckpt, and DTOID's prediction figures; the loss moves.
+    The resume from last.ckpt starts at epoch 2, writes version 1 and logs
+    one epoch."""
     from ossid_code_torch.core.checkpoint import load_checkpoint
 
     exp = runs[family]
@@ -154,6 +159,14 @@ def test_training_writes_its_run_and_resumes(family, runs):
     assert [r["step"] for r in _rows(exp, 1)] == [2]
     last = torch.load(os.path.join(exp, "last.ckpt"), map_location="cpu", weights_only=False)
     assert last["epoch"] == 3 and ("opt_state" in last) == (family == "dtoid_bop")
+    fig_dir = os.path.join(exp, "figures")
+    if family == "dtoid_bop":
+        # the prediction figures at epoch 0 and at each run's last epoch
+        assert sorted(os.listdir(fig_dir)) == [f"epoch{e}_{i}.png" for e in range(3) for i in range(2)]
+        for name in os.listdir(fig_dir):
+            assert read_png(os.path.join(fig_dir, name)).shape == (FIG_H, FIG_W, 3)
+    else:
+        assert not os.path.exists(fig_dir)   # GenericTrainer draws none
     assert load_checkpoint(os.path.join(exp, "best.ckpt")).keys() == last["state_dict"].keys()
 
 
@@ -208,19 +221,6 @@ def test_offline_validate_matches_jax(world):
     want = JTrainer(jm, cfgs[0], n_devices=1).validate(jloaders(cfgs[0])[1])
     got = OfflineTrainer(tm, cfgs[1]).validate(get_dataloaders(cfgs[1])[1])
     assert 0.0 < want < 1.0 and abs(got - want) <= 1e-3, (got, want)
-
-
-@pytest.mark.parametrize("override, item", [("dataset=dtoid", "item 7"), ("dataset=render", "item 7")])
-def test_unported_families_raise(override, item, tmp_path, monkeypatch):
-    """Each family the port does not train (the h5py render families)
-    raises, naming its ROADMAP.md item, before it writes anything. The
-    legacy families train: tests/test_torch_legacy_cli.py."""
-    from ossid_code_torch.scripts import train
-
-    monkeypatch.setenv("OSSID_RESULT_ROOT", str(tmp_path))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1, {item}"):
-        train.main([override, "device=cpu"])
-    assert not os.path.exists(os.path.join(str(tmp_path), "train"))
 
 
 def test_data_parallel_devices_raise(world, tmp_path, monkeypatch):
