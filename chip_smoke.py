@@ -143,6 +143,27 @@ Phases, each of which exits non-zero on failure:
      configuration 1's 160 templates (x (160, 29, 39, 640) with stride 0
      over T, a 463 MB output) against its plain version, timed beside its
      byte bound and cuDNN.
+ 14. scale-out on the one card: (a) kernel 1 and 1b over frames x
+     templates (one launch for a round's head, 2 x 10 and 3 x 7, and the
+     stem of 2 frames with the taps at stride 0) against their plain
+     versions, timed beside the byte bound and cuDNN; (b) a farm round
+     (loop/multi_stream.py::make_farm_detect on a one-device mesh: 2 of
+     phase 3's frames, one trunk pass and kernel 1 twice) against
+     DtoidModel's one-frame detect of each frame (phase 4's detection
+     limits, the top pick's template and box equal), its host time and a
+     traced round beside two one-frame detects'; (c) MultiStreamLoop on
+     phase 6's kind of world cut to 2 scenes (streams) x 4 frames, native
+     PPF, device ICP of the top 24, a finetune at batch 8 every 8 targets,
+     twice from the same weights: a row list a stream covering its
+     targets, a finetune, the weights moved, and the launches the schedule
+     implies (kernel 1 twice a round and twice a step, its dx and kernel 3
+     twice a step, kernel 2 twice a score call), frames/s; (d) the
+     template-parallel, hypothesis-parallel (device ICP of the global top
+     24) and 2-D farm forwards on the meshes [cuda:0] and [cuda:0, cuda:0]
+     against the unsplit calls (scores within MESH_TOL, refined poses
+     equal); (e) one OfflineTrainer step under a one-process NCCL group
+     against the trainer with no group, from the same weights (phase 7's
+     limits).
 Weights are random, from fixed seeds (the demo trains its own). The float32 paths run with TF32 off
 for cuDNN convolutions and cuBLAS matmuls (main path and comparisons).
 
@@ -150,8 +171,10 @@ Before the last line it prints a `kernels` JSON line (six kernel instances,
 each with its launches by path: the loop, the demo and the CLI for float32,
 the bf16 runs and the CLI for bf16, and phase 10's CLI, demo and two train
 runs, phase 11's pipelined and synchronous runs, phase 12's four train
-runs and the wrapper, and phase 13's three render runs for all; kernel 1's
-entry also holds the T=160 row);
+runs and the wrapper, phase 13's three render runs, and phase 14's farm
+round and multi-stream loop (its warm pass) for all; kernel 1's entry also
+holds the T=160 row, and kernel 1's and 1b's the frame-indexed rows of
+phase 14a);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or without the ossid_code_torch package beside it, it exits
@@ -1322,7 +1345,9 @@ def phase11(torch, conv, sa, dtoid16, dtoid32, zephyr, cfg16, cfg32, bop, zr_lis
         torch.backends.cudnn.deterministic = det
     out = turns_summary(runs)
     if not out["schedules_equal"]:
-        fail("phase 11: the runs' gates, finetune schedules or hypotheses differ from the first synchronous run's")
+        fail(f"phase 11: the runs' gates, finetune schedules or hypotheses differ from the first synchronous run's: "
+             f"targets that differ, by key, run by run ({'/'.join(PIPE_TURNS)}): {json.dumps(out['schedule_diffs'])}; "
+             f"hypotheses a target: {json.dumps([[x['n_hypos'] for x in r['rows']] for r in runs])}")
     spread = out["spread"]
     for cross in spread["pipelined_vs_sync"]:
         for k, v in cross.items():
@@ -2717,6 +2742,334 @@ def phase13(torch, F, conv, sa):
     return {"render_dtoid": dtoid["launches"], "train_render": render["launches"], "train_dtoid": dtoid_cli}, t160
 
 
+FARM_FRAMES = 2          # phase 14b: frames a round, one detect of both
+FARM_TIMES = 10          # rounds (and pairs of one-frame detects) timed, host clock
+MS_SCENES = 2            # phase 14c: camera streams
+MS_FRAMES = 4            # frames a scene, x 2 objects x 2 scenes = 16 targets
+MESH_TOL = 1e-5          # 14d: a split forward's scores against the unsplit call
+
+
+def dw_frames_cases(torch, device, bf16=False):
+    """Kernel 1 with the frame indexing at the farm's shapes: the head of a
+    round of 2 frames x 10 templates (one launch, cross), the stem of 2
+    frames with the taps broadcast (stride 0), and 3 frames x 7 templates
+    (T odd: a frame's last block holds one template)."""
+    g = torch.Generator(device=device).manual_seed(16)
+    r = lambda *shape: torch.randn(*shape, device=device, generator=g)
+    cases = [
+        (f"farm head F x T = {FARM_FRAMES} x {N_TEMPLATES}", r(FARM_FRAMES, 29, 39, 640),
+         r(N_TEMPLATES, 3, 3, 640), True),
+        (f"farm stem F = {FARM_FRAMES}, taps stride 0", r(FARM_FRAMES, 240, 320, 64),
+         r(1, 3, 3, 64).expand(FARM_FRAMES, 3, 3, 64), False),
+        ("F x T = 3 x 7", r(3, 29, 39, 640), r(7, 3, 3, 640), True),
+    ]
+    return [(label, as_bf16(x), as_bf16(k), cross) for label, x, k, cross in cases] if bf16 else cases
+
+
+def measure_dw_frames(torch, F, conv, cases, check):
+    """measure_dw_corr for the frame-indexed calls: kernel, plain version and
+    cuDNN's grouped convolution on the F * T samples made whole."""
+    rows = []
+    for label, x, k, cross in cases:
+        got = conv.dw_corr3x3_cuda(x, k, cross=cross)
+        want = conv.depthwise_corr_plain(x, k, 1, cross=cross)
+        err = check(f"dw_corr3x3 ({label})", got, want)
+        xe, ke = conv._cross(x, k) if cross else (x, k)
+        b, h, w, c = got.shape
+        xi = xe.permute(0, 3, 1, 2).reshape(1, b * c, h, w).contiguous()
+        ki = ke.permute(0, 3, 1, 2).reshape(b * c, 1, 3, 3).contiguous()
+        bnd, by = bound_ms(unique_bytes(x) + unique_bytes(k) + got.numel() * got.element_size(),
+                           18.0 * got.numel())
+        rows.append({
+            "shape": f"{label}: x {tuple(x.shape)}, k {tuple(k.shape)} -> {tuple(got.shape)}",
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: conv.dw_corr3x3_cuda(x, k, cross=cross)),
+            "plain_ms": cuda_ms(torch, lambda: conv.depthwise_corr_plain(x, k, 1, cross=cross)),
+            "library_ms": cuda_ms(torch, lambda: F.conv2d(xi, ki, groups=b * c, padding=1)),
+            "bound_ms": bnd, "bound_by": by,
+        })
+    return rows
+
+
+def farm_round(torch, conv, sa, dtoid, scene, frames):
+    """14b: make_farm_detect on a one-device mesh (the F-frame detect) on
+    FARM_FRAMES frames, each held against DtoidModel's one-frame detect of
+    the same frame (compare_detections' limits, the top pick's template and
+    box equal); kernel 1 launched twice a round; the round's host time and
+    device busy time beside two one-frame detects'."""
+    from ossid_code_torch.loop.multi_stream import make_farm_detect
+    from ossid_code_torch.parallel.mesh import make_mesh_2d
+
+    farm = make_farm_detect(dtoid, make_mesh_2d(1, 1))
+    imgs = np.stack(frames[:FARM_FRAMES])
+    local, glob = dtoid.get_template_features(scene["obj_id"], scene["limg"], scene["lmask"])
+    run = lambda: {k: v.cpu().numpy() for k, v in farm(imgs, local, glob).items()}  # noqa: E731
+    run()  # warm-up: cuDNN plans at the round's batch
+    torch.cuda.synchronize()
+    read = zero_launches(conv, sa)
+    out = run()
+    launches = read()
+    if launches != {**dict.fromkeys(launches, 0), "dw_corr3x3": 2}:
+        fail(f"a farm round of {FARM_FRAMES} frames launched {launches}, expected kernel 1 twice")
+    pack, dtoid._pack_seg = dtoid._pack_seg, False
+    try:
+        one = lambda: [dtoid.forward_test_time(dict(scene, img=f)) for f in frames[:FARM_FRAMES]]  # noqa: E731
+        refs = one()
+        cmps = []
+        for i, ref in enumerate(refs):
+            det = {"pred_scores": out["pred_scores"][i], "pred_bbox": out["pred_bbox"][i],
+                   "pred_template_ids": out["pred_template_ids"][i], "valid": out["valid"][i],
+                   "heat_map": out["heat_map"][i], "segmentation": (out["seg_u8"][i] > 127).astype(np.float32)}
+            ref = dict(ref, segmentation=(ref["segmentation"] > 0.5).astype(np.float32))
+            cmp = compare_detections(det, ref)
+            if det["pred_template_ids"][0] != ref["pred_template_ids"][0] or \
+                    np.abs(det["pred_bbox"][0] - ref["pred_bbox"][0]).max() > 0.05:
+                fail(f"farm frame {i}: pick {det['pred_template_ids'][0]} {det['pred_bbox'][0]} against the "
+                     f"one-frame detect's {ref['pred_template_ids'][0]} {ref['pred_bbox'][0]}")
+            cmp["top_score_abs_err"] = float(abs(det["pred_scores"][0] - ref["pred_scores"][0]))
+            cmps.append(cmp)
+        timing = {"round_host_ms": host_ms(torch, run, FARM_TIMES),
+                  "two_detects_host_ms": host_ms(torch, one, FARM_TIMES),
+                  "round_profile": profile_call(torch, run), "two_detects_profile": profile_call(torch, one)}
+    finally:
+        dtoid._pack_seg = pack
+    # a round moves what two detects move, or less: more copies mean the
+    # weights went to a copy of the network (a device taken for another)
+    if timing["round_profile"]["device_copies"] > timing["two_detects_profile"]["device_copies"]:
+        fail(f"a farm round made {timing['round_profile']['device_copies']} device copies, two one-frame detects "
+             f"{timing['two_detects_profile']['device_copies']}")
+    return {"frames": cmps, "launches": launches, **timing}
+
+
+def multi_stream_world(root):
+    """Phase 6's world with MS_SCENES scenes (camera streams) of MS_FRAMES
+    frames at 480x640, 2 objects, 10-view template grids."""
+    import pickle
+
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.data.bop import BopDataset, BopDatasetArgs
+    from ossid_code_torch.data.synthetic import (
+        default_objects, make_synthetic_bop, make_template_grid, make_zephyr_results_pkl,
+    )
+
+    make_synthetic_bop(root, n_frames=MS_FRAMES, img_h=480, img_w=640, n_scenes=MS_SCENES)
+    make_template_grid(os.path.join(root, "grid"), default_objects(), n_views=10)
+    cfg = default_config()
+    d = cfg.dataset
+    d.bop_root, d.test_dataset_name, d.grid_root = root, "synth", os.path.join(root, "grid")
+    d.n_local_test, d.load_zephyr_result = N_TEMPLATES, True
+    d.zephyr_result_path = os.path.join(root, "zr.pkl")
+    bop = BopDataset(BopDatasetArgs(bop_root=root, dataset_name="synth"))
+    make_zephyr_results_pkl(d.zephyr_result_path, bop, score=50.0)
+    with open(d.zephyr_result_path, "rb") as f:
+        return cfg, bop, pickle.load(f)
+
+
+def multi_stream_pass(torch, conv, sa, dtoid, zephyr, cfg, bop, zr_list):
+    """One MultiStreamLoop run on its default mesh (one device, the card):
+    (per-stream rows, the loop, its rounds, wall s, launches)."""
+    import argparse
+
+    from ossid_code_torch.data.dtoid_bop import get_dataloaders
+    from ossid_code_torch.loop.multi_stream import MultiStreamLoop
+
+    args = argparse.Namespace(
+        dataset_name="synth", exp_name="chip_smoke_streams", use_dtoid_segmask=False, ignore_dtoid_mask=False,
+        always_dtoid_mask=True, use_oracle_gt=True, use_sift_hypos=False, use_maskrcnn=False,
+        finetune_interval=FINETUNE_INTERVAL, finetune_warmup=0, finetune_epochs=1, finetune_reset=False,
+        finetune_batch_size=FINETUNE_BATCH, non_cum=False, save_each=False, raw_dtoid=False,
+        no_finetune=False, fast=True, zephyr_depth_crop=0, yuv_transfer=False)
+    train_loader, _, test_loader = get_dataloaders(cfg, zr_list)
+    test_loader.dataset.sortTargets()
+    train_ds = train_loader.dataset
+    train_ds.clearTargets()
+    zr = {(r["obj_id"], r["scene_id"], r["im_id"]): dict(r) for r in zr_list}
+    train_ds.zephyr_results = dict(zr)
+    loop = MultiStreamLoop(args, cfg, dtoid, bop, train_ds, test_loader, zr, zephyr_model=zephyr,
+                           hypo_gens=hypo_gens(bop))
+    rounds = len(loop._rounds())
+    torch.cuda.synchronize()
+    read = zero_launches(conv, sa)
+    t0 = time.perf_counter()
+    per_stream = loop.run(progress=False)
+    torch.cuda.synchronize()
+    return per_stream, loop, rounds, time.perf_counter() - t0, read()
+
+
+def multi_stream_run(torch, conv, sa, device):
+    """14c: MultiStreamLoop over MS_SCENES streams, twice from the same
+    weights (the first pass builds the renderers, the PPF models and cuDNN's
+    plans): native PPF with LOOP_HYPOS hypotheses, device ICP of the top
+    REFINE_TOP, a finetune at batch FINETUNE_BATCH every FINETUNE_INTERVAL
+    buffered targets, oracle labels, always the DTOID mask. Holds in each
+    pass a row list a stream covering its targets, a finetune, the weights
+    moved, and the launches the schedule implies: kernel 1 twice a round
+    and twice a step, its dx and kernel 3 twice a step, kernel 2 twice a
+    score call."""
+    import tempfile
+
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ossid_streams_") as root:
+        cfg, bop, zr_list = multi_stream_world(root)
+        dtoid = DtoidModel(cfg, seed=1, device=device)
+        perturb_heads(dtoid.net, 2)
+        weights = dtoid.state_dict()
+        zephyr = ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False,
+                             refine_top=REFINE_TOP, device=device)
+        for name in ("cold", "warm"):
+            dtoid.load_state_dict(weights)
+            dtoid.reset_optimizer()
+            wv0 = dtoid.weights_version
+            per_stream, loop, rounds, wall_s, launches = multi_stream_pass(torch, conv, sa, dtoid, zephyr, cfg,
+                                                                           bop, zr_list)
+            rows = [r for rs in per_stream.values() for r in rs]
+            if sorted(per_stream) != sorted({t["scene_id"] for t in bop.targets}):
+                fail(f"multi-stream loop: streams {sorted(per_stream)}")
+            for sid, rs in per_stream.items():
+                want = sorted((t["obj_id"], t["im_id"]) for t in bop.targets if t["scene_id"] == sid)
+                if sorted((r["obj_id"], r["im_id"]) for r in rs) != want or any(r["scene_id"] != sid for r in rs):
+                    fail(f"multi-stream loop: stream {sid}'s rows do not cover its targets")
+            n_steps = sum(len(ep) for logs in loop.finetune_logs for ep in logs)
+            n_finetunes = sum(r["finetune"] for r in rows)
+            if n_finetunes < 1 or dtoid.weights_version == wv0 or not n_steps:
+                fail(f"multi-stream loop: {n_finetunes} finetunes, {n_steps} steps, weights version {wv0} -> "
+                     f"{dtoid.weights_version}")
+            n_scored = sum(r["n_hypos"] > 0 for r in rows)
+            expected = {**dict.fromkeys(launches, 0), "dw_corr3x3": 2 * rounds + 2 * n_steps,
+                        "dw_corr3x3_dx": 2 * n_steps, "dw_corr3x3_dk": 2 * n_steps, "sa_mlp_max": 2 * n_scored}
+            if launches != expected:
+                fail(f"multi-stream loop ({name} pass) launched {launches}, the schedule implies {expected}")
+            out[name] = {"streams": len(per_stream), "targets": len(rows), "rounds": rounds,
+                         "finetunes": n_finetunes, "steps": n_steps, "scored": n_scored, "wall_s": wall_s,
+                         "frames_per_s": len(rows) / wall_s, "mean_hypos": float(np.mean([r["n_hypos"] for r in rows])),
+                         "add01d": float(np.mean([r["pred_add01d"] for r in rows])), "launches": launches,
+                         "stage_ms": {k: float(np.mean([r[f"time_{k}"] or 0.0 for r in rows]) * 1e3)
+                                      for k in ("dtoid", "mask", "ppf", "zephyr", "label", "finetune", "iter",
+                                                "complete")}}
+    return out
+
+
+def mesh_forwards(torch, dtoid, zephyr, scene, frames, poses):
+    """14d: the template-parallel, hypothesis-parallel and 2-D farm forwards
+    on the meshes [cuda:0] and [cuda:0, cuda:0] (the second runs the split
+    and gather code on the one card), each against the unsplit call: the
+    scores within MESH_TOL, the refined first REFINE_TOP poses equal."""
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+    from ossid_code_torch.parallel import mesh as pm
+
+    local, glob = dtoid.get_template_features(scene["obj_id"], scene["limg"], scene["lmask"])
+    images = torch.from_numpy(np.stack(frames[:FARM_FRAMES]).astype(np.float32) / 255.0).cuda()
+    zr = ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False, refine_top=REFINE_TOP,
+                     device="cuda")
+    zr.load_state_dict(zephyr.state_dict())
+    prep = zr.prepare_object(scene["obj_id"], scene["model_points"], scene["model_colors"], scene["model_normals"])
+    frame = [torch.from_numpy(frames[1]).cuda(), torch.from_numpy(scene["depth"].astype(np.int32)).cuda(),
+             torch.zeros(2, dtype=torch.int32, device="cuda"), torch.from_numpy(scene["cam_K"]).cuda()]
+    pz = torch.from_numpy(np.asarray(poses, np.float32)).cuda()
+    valid = torch.ones(len(poses), dtype=torch.bool, device="cuda")
+    with torch.inference_mode():
+        unsplit = [dtoid.net.forward_all_templates(images[i:i + 1], local, glob) for i in range(FARM_FRAMES)]
+        unsplit_scores = zr._score(*frame, *prep, pz, valid)
+    out = {}
+    for name, devs in (("[cuda:0]", ["cuda:0"]), ("[cuda:0, cuda:0]", ["cuda:0", "cuda:0"])):
+        tp = pm.make_template_parallel_forward(dtoid, pm.make_mesh(len(devs), devices=devs))(images[:1], local, glob)
+        farm = pm.make_serving_farm_forward(dtoid, pm.make_mesh_2d(1, len(devs), devices=devs))(images, local, glob)
+        hp = pm.make_hypothesis_parallel_scorer(zr, pm.make_mesh(len(devs), devices=devs))(*frame, *prep, pz, valid)
+        s_ref, s_got = unsplit_scores[0].cpu().numpy(), hp[0].cpu().numpy()
+        if not np.array_equal(np.isfinite(s_ref), np.isfinite(s_got)):
+            fail(f"hypothesis-parallel scorer on {name}: pruned hypotheses differ")
+        fin = np.isfinite(s_ref)
+        errs = {"template_parallel": float((tp[0] - unsplit[0][0]).abs().max()),
+                "farm_2d": max(float((farm[0][i] - unsplit[i][0]).abs().max()) for i in range(FARM_FRAMES)),
+                "hypothesis_parallel": float(np.abs(s_got[fin] - s_ref[fin]).max())}
+        refined_equal = bool(torch.equal(hp[5], unsplit_scores[5]))
+        if max(errs.values()) > MESH_TOL or not refined_equal:
+            fail(f"mesh {name}: scores against the unsplit calls {errs} (tol {MESH_TOL}), refined poses equal "
+                 f"{refined_equal}")
+        out[name] = {"scores_max_abs_err": errs, "refined_equal": refined_equal, "hypotheses": len(poses)}
+    return out
+
+
+def dp_step_nccl(torch, cfg, device):
+    """14e: one OfflineTrainer step under a one-process NCCL group (world
+    size 1: the data-parallel step with its all-reduces) against the
+    trainer with no group, from the same weights, batch 2 at 480x640:
+    phase 7's limits for the loss, the parameters (where both gradients
+    agree in sign) and the BatchNorm running statistics."""
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.parallel.launch import process_group
+    from ossid_code_torch.train.offline import OfflineTrainer
+
+    cfg2 = cfg.merged({"train": {"batch_size": 2}})
+    a = DtoidModel(cfg2, seed=3, device=device)
+    perturb_heads(a.net, 4)
+    b = DtoidModel(cfg2, seed=3, device=device)
+    b.load_state_dict(a.state_dict())
+    before = {n: p.detach().double().clone() for n, p in a.net.named_parameters()}
+    batch = finetune_batch(np.random.default_rng(6), 2)
+    t0 = time.perf_counter()
+    loss_a = OfflineTrainer(a, cfg2, n_devices=1).train_epoch([batch])["loss"]
+    with process_group("nccl"):
+        trainer = OfflineTrainer(b, cfg2, n_devices=None)  # None: the group's size
+        if not trainer.dp:
+            fail("OfflineTrainer under a process group did not take the data-parallel step")
+        loss_b = trainer.train_epoch([batch])["loss"]
+    out = {"loss_no_group": loss_a, "loss_nccl_group": loss_b, "loss_rel_err": abs(loss_a - loss_b) / abs(loss_a)}
+    wd = float(cfg2.model.weight_decay)
+    worst = 0.0
+    params_b = dict(b.net.named_parameters())
+    for n, p in a.net.named_parameters():
+        ga, gb = p.grad.double(), params_b[n].grad.double()
+        held = (ga + wd * before[n]).abs() > 2.0 * (ga - gb).abs().max()
+        d = (p.detach().double() - params_b[n].detach().double()).abs()[held]
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    sa_, sb = a.state_dict(), b.state_dict()
+    stat = max(float((sa_[n] - sb[n]).abs().max()) / max(float(sa_[n].abs().max()), 1e-30)
+               for n, buf in a.net.named_buffers() if buf.dtype.is_floating_point)
+    out.update(param_max_abs_err=worst, stat_max_rel_err=stat, seconds=time.perf_counter() - t0)
+    if out["loss_rel_err"] > STEP_LOSS_TOL or worst > STEP_PARAM_TOL or stat > STEP_STAT_TOL:
+        fail(f"the step under a one-process NCCL group against the trainer with no group: {out}")
+    return out
+
+
+def phase14(torch, F, conv, sa, dtoid, zephyr, scene, frames, poses, cfg):
+    """Phase 14, scale-out on the one card: (a) kernel 1 and 1b with the
+    frame indexing against their plain versions, timed; (b) the farm's
+    F-frame detect; (c) the multi-stream loop; (d) the mesh forwards on
+    [cuda:0] and [cuda:0, cuda:0]; (e) the data-parallel step under a
+    one-process NCCL group. Prints what it measured; returns the rows of
+    (a) and the launches of (b) and (c)."""
+    t_phase = time.perf_counter()
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    device = torch.device("cuda")
+    with torch.inference_mode():
+        rows32 = measure_dw_frames(torch, F, conv, dw_frames_cases(torch, device), dw_check(torch, False))
+        rows16 = measure_dw_frames(torch, F, conv, dw_frames_cases(torch, device, bf16=True), dw_check(torch, True))
+    for label, rows in (("dw_corr3x3", rows32), ("dw_corr3x3 bf16", rows16)):
+        for r in rows:
+            print(f"{label} {r['shape']}: err {r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+    farm = farm_round(torch, conv, sa, dtoid, scene, frames)
+    print(f"phase 14b farm round of {FARM_FRAMES} frames (make_farm_detect, one-device mesh, 480x640, T="
+          f"{N_TEMPLATES}): {json.dumps({k: v for k, v in farm.items() if not k.endswith('profile')})}")
+    for key in ("round_profile", "two_detects_profile"):
+        print(f"profile {key}: {json.dumps(farm[key])}")
+    streams = multi_stream_run(torch, conv, sa, device)
+    print(f"phase 14c multi-stream loop ({MS_SCENES} streams x {MS_FRAMES} frames x 2 objects, 480x640, PPF "
+          f"{LOOP_HYPOS}, device ICP top {REFINE_TOP}, finetune batch {FINETUNE_BATCH} every "
+          f"{FINETUNE_INTERVAL}; a cold and a warm pass from the same weights): {json.dumps(streams)}")
+    meshes = mesh_forwards(torch, dtoid, zephyr, scene, frames, poses)
+    print(f"phase 14d mesh forwards against the unsplit calls: {json.dumps(meshes)}")
+    dp = dp_step_nccl(torch, cfg, device)
+    print(f"phase 14e OfflineTrainer step under a one-process NCCL group against no group: {json.dumps(dp)}")
+    print(f"phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return rows32, rows16, {"farm_round": farm["launches"], "multi_stream": streams["warm"]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -3087,6 +3440,9 @@ def main() -> int:
     # -- 13. the render family at full width, kernel 1 at T=160 ----------------
     p13, t160 = phase13(torch, F, conv, sa)
 
+    # -- 14. scale-out on the one card: the farm, the streams, the mesh ----------
+    frames14, frames14_bf16, p14 = phase14(torch, F, conv, sa, dtoid, zephyr, scene, frames, poses, cfg)
+
     hbm = f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"
     dw_src, bwd_src = "ossid_code_torch/csrc/dw_corr3x3.cu", "ossid_code_torch/csrc/dw_corr3x3_bwd.cu"
     dw_replaces = "ossid_code_tpu/ops/pallas_kernels.py:49"
@@ -3098,7 +3454,8 @@ def main() -> int:
     by_path10 = lambda name: {"cli_maskrcnn": mcli_launches[name], "demo_maskrcnn": mdemo_launches[name],
                             **{f"train_{f}": r["launches"][name] for f, r in train_runs.items()},
                             **{path: launches[name] for path, launches in p12.items()},
-                            **{path: launches[name] for path, launches in p13.items()}}
+                            **{path: launches[name] for path, launches in p13.items()},
+                            **{path: launches[name] for path, launches in p14.items()}}
     by_path11 = lambda name: {"loop_yuv_pipelined": p11_pipe[name], "loop_yuv_sync": p11_sync[name]}
     by_path = lambda name: {"serving_bf16": serve16_launches.get(name, 0), "loop_bf16": loop16_launches[name],
                             "cli": cli_launches[name], **by_path10(name), **by_path11(name)}
@@ -3107,7 +3464,7 @@ def main() -> int:
     kernels = [
         dict(summary("dw_corr3x3", dw_src, dw_replaces, loop_launches["dw_corr3x3"], dw_rows, dw_edge_err, hbm),
              dtype="float32", launches_by_path=by_path32("dw_corr3x3"), demo_shapes=demo_dw,
-             pretrained_templates=t160),
+             pretrained_templates=t160, frame_shapes=frames14),
         dict(summary("dw_corr3x3_bwd", bwd_src, bwd_replaces, loop_launches["dw_corr3x3_dk"], bwd_rows,
                      bwd_edge_err, hbm), dtype="float32", dx_launches=loop_launches["dw_corr3x3_dx"],
              launches_by_path=by_path32("dw_corr3x3_dk"), dx_launches_by_path=by_path32("dw_corr3x3_dx"),
@@ -3117,7 +3474,8 @@ def main() -> int:
                      f"TF32 tensor cores {TF32_FLOPS / 1e12} TFLOP/s"), dtype="float32",
              launches_by_path=by_path32("sa_mlp_max"), demo_shapes=demo_sa),
         dict(summary("dw_corr3x3_bf16", dw_src, dw_replaces, sum(by_path("dw_corr3x3_bf16").values()),
-                     dw16_rows, dw16_edge_err, hbm), dtype="bfloat16", launches_by_path=by_path("dw_corr3x3_bf16")),
+                     dw16_rows, dw16_edge_err, hbm), dtype="bfloat16", launches_by_path=by_path("dw_corr3x3_bf16"),
+             frame_shapes=frames14_bf16),
         dict(summary("dw_corr3x3_bwd_bf16", bwd_src, bwd_replaces, loop16_launches["dw_corr3x3_dk_bf16"],
                      bwd16_rows, bwd16_edge_err, hbm), dtype="bfloat16",
              dx_launches=loop16_launches["dw_corr3x3_dx_bf16"],

@@ -7,6 +7,9 @@
 // On DTOID's detect path it runs twice per frame: the correlation head,
 // x (T, 29, 39, 640) with one image feature broadcast over the T templates,
 // and the image-encoder stem, x (1, 240, 320, 64) with a broadcast kernel.
+// The serving farm's detect of F frames runs it twice a round whatever F is:
+// the head as F * T samples, sample i frame i / T against template i % T,
+// and the stem as F samples with the kernel broadcast.
 //
 // What bounds it on an H100: memory. It does 18 flops per output element
 // against 4 bytes written (2 in bf16, and at best as many read), so the least
@@ -19,21 +22,26 @@
 //    along the row, so each new output costs 3 vector loads of x (one per
 //    kernel row) where one thread per output made 9 of x and 9 of k: at
 //    R = 4, 27 loads for 4 outputs in place of 72;
-//  * where x is broadcast over B (the correlation head: one image feature,
-//    T templates), the float32 instance covers 2 samples of the same pixels
-//    per thread, so each x load serves both, and runs of R = 8;
+//  * where x is broadcast over a frame's templates (the correlation head:
+//    one image feature, T templates), the float32 instance covers 2
+//    templates of the same frame and pixels per thread, so each x load
+//    serves both, and runs of R = 8; a block never spans two frames (a
+//    frame's last block holds one template where T is odd);
 //  * neighbouring threads hold neighbouring channel vectors of the same run,
 //    so every load and store is coalesced along C: at C = 640 (160 float32
 //    vectors) a warp spans 32 vectors of one pixel, at C = 64 (16 vectors)
 //    two runs; a ragged last run (W % R != 0) is masked at its loads and
 //    stores;
-//  * the grid is (row segments, H, B / samples per thread): a thread finds
-//    its (b, y) in blockIdx and its (run, cv) with one 32-bit division;
+//  * the grid is (row segments, H, blocks of samples): ceil(B / samples
+//    per thread) for a batch, F * ceil(T / samples per thread) for frames;
+//    a thread finds its first sample (frame and template) and y in
+//    blockIdx and its (run, cv) with one 32-bit division;
 //  * the zero padding is a bounds check, so no padded copy of x is made (the
 //    Pallas wrapper padded x in HBM);
-//  * x and k come with their batch strides as arguments: a stride of 0
-//    reads the broadcast image feature (correlation head) or the broadcast
-//    global kernel (stem) in place, without materialising the broadcast.
+//  * x and k come with a frame stride and a template stride each: a
+//    stride of 0 reads the broadcast image feature (correlation head) or the
+//    broadcast global kernel (stem) in place, without materialising the
+//    broadcast.
 // No tensor cores: there is no reduction over channels to feed them.
 //
 // bf16 (kernel 1b): the taps and x are widened to float32 in registers, the
@@ -95,29 +103,55 @@ __device__ __forceinline__ void load(const typename V::raw* p, bool ok, float (&
   V::widen(ok ? __ldg(p) : V::zero(), v);
 }
 
-// R outputs along a row and NB samples b0 .. b0 + NB - 1 per thread (NB > 1
-// only with x broadcast, so that every x load serves NB outputs). CV: channel
-// vectors per pixel; strides in elements.
-template <class V, int R, int NB>
+// R outputs along a row and NB samples per thread. FRAMES = false: a batch
+// of B samples, sample b at b * stride of each operand (x_fstride,
+// k_fstride; the t strides unused), block z samples z * NB .. + NB - 1.
+// FRAMES = true: sample i is the pair (frame f, template t) = (i / T, i % T)
+// of F = B / T frames of T templates, an operand's sample at f * fstride +
+// t * tstride; block z covers templates t0 .. t0 + NB - 1 of one frame (z =
+// f * ceil(T / NB) + t0 / NB), so its samples never straddle two frames: a
+// frame's last block holds T % NB samples where NB does not divide T. The
+// two are separate instances: the frame indexing costs the (8, 2) instance
+// 13 registers (84 -> 97) and 19-35% of its time at the one-frame head
+// (on an H100 80GB HBM3 at 700 W), so a per-sample batch keeps its own.
+// NB > 1 only where a block's samples read one x (x's stride 0 over the
+// batch, or over a frame's templates), so that every x load serves NB
+// outputs. CV: channel vectors per pixel.
+template <class V, int R, int NB, bool FRAMES>
 __global__ void __launch_bounds__(THREADS)
 dw_corr3x3_kernel(const typename V::T* __restrict__ x, const typename V::T* __restrict__ k,
-                  typename V::T* __restrict__ out, int B, int H, int W, int CV, int nruns,
-                  long long x_bstride, long long k_bstride) {
+                  typename V::T* __restrict__ out, int B, int T, int H, int W, int CV, int nruns,
+                  long long x_fstride, long long x_tstride, long long k_fstride,
+                  long long k_tstride) {
   constexpr int N = V::N;
   using raw = typename V::raw;
   const int t = blockIdx.x * THREADS + threadIdx.x;  // run * CV + cv
   if (t >= nruns * CV) return;
   const int py = blockIdx.y;
-  const int b0 = blockIdx.z * NB;
   const int run = t / CV;
   const int cv = t - run * CV;
   const int x0 = run * R;
   const int row = W * CV;                            // vectors in one image row
-  const int nb = B - b0 < NB ? B - b0 : NB;
-
-  const raw* xb = reinterpret_cast<const raw*>(x + b0 * x_bstride) + cv;
-  const raw* kb = reinterpret_cast<const raw*>(k + b0 * k_bstride) + cv;
-  const long long kstep = k_bstride / N;             // vectors between samples' taps
+  int b0, nb;                                        // the block's first sample, its samples
+  const raw* xb;
+  const raw* kb;
+  long long kstep;                                   // vectors between the block's samples' taps
+  if (FRAMES) {
+    const int tblocks = (T + NB - 1) / NB;
+    const int f = blockIdx.z / tblocks;
+    const int t0 = (blockIdx.z - f * tblocks) * NB;
+    b0 = f * T + t0;
+    nb = T - t0 < NB ? T - t0 : NB;
+    xb = reinterpret_cast<const raw*>(x + f * x_fstride + t0 * x_tstride) + cv;
+    kb = reinterpret_cast<const raw*>(k + f * k_fstride + t0 * k_tstride) + cv;
+    kstep = k_tstride / N;
+  } else {
+    b0 = blockIdx.z * NB;
+    nb = B - b0 < NB ? B - b0 : NB;
+    xb = reinterpret_cast<const raw*>(x + b0 * x_fstride) + cv;
+    kb = reinterpret_cast<const raw*>(k + b0 * k_fstride) + cv;
+    kstep = k_fstride / N;
+  }
   float acc[NB][R][N];
 #pragma unroll
   for (int j = 0; j < NB; ++j)
@@ -175,51 +209,76 @@ dw_corr3x3_kernel(const typename V::T* __restrict__ x, const typename V::T* __re
 // holds twice the channels per vector: (4, 1) everywhere (130 registers; at
 // the head (4, 2) took 164 and timed 0.0203 ms against 0.0193, in two calls
 // on an H100 80GB HBM3 at 700 W).
-template <class V, int R, int NB>
-int launch(const void* x, const void* k, void* out, int B, int H, int W, int C,
-           long long x_bstride, long long k_bstride, void* stream) {
+template <class V, int R, int NB, bool FRAMES>
+int launch(const void* x, const void* k, void* out, int B, int T, int H, int W, int C,
+           long long x_fstride, long long x_tstride, long long k_fstride, long long k_tstride,
+           void* stream) {
   const int CV = C / V::N;
   const int nruns = (W + R - 1) / R;
-  const dim3 grid((unsigned)((nruns * CV + THREADS - 1) / THREADS), (unsigned)H,
-                  (unsigned)((B + NB - 1) / NB));
-  using T = typename V::T;
-  dw_corr3x3_kernel<V, R, NB><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(k), static_cast<T*>(out), B, H, W, CV,
-      nruns, x_bstride, k_bstride);
+  const long long zblocks = FRAMES ? (long long)(B / T) * ((T + NB - 1) / NB) : (B + NB - 1) / NB;
+  if (zblocks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((nruns * CV + THREADS - 1) / THREADS), (unsigned)H, (unsigned)zblocks);
+  using T_ = typename V::T;
+  dw_corr3x3_kernel<V, R, NB, FRAMES><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const T_*>(x), static_cast<const T_*>(k), static_cast<T_*>(out), B, T, H, W, CV,
+      nruns, x_fstride, x_tstride, k_fstride, k_tstride);
   return (int)cudaGetLastError();
 }
 
-int check_shape(int B, int H, int W, int C) {
-  if ((long long)H * W * C > 0x7fffffffLL || H > 65535 || B > 65535)
+// The instance for the call: a per-sample batch (T = 1) or F frames x T
+// templates; 2 samples a thread where they read one x.
+template <class V, int R, int NB, int R1>
+int dispatch(const void* x, const void* k, void* out, int B, int T, int H, int W, int C,
+             long long x_fstride, long long x_tstride, long long k_fstride, long long k_tstride,
+             void* stream) {
+  if (T == 1 && x_fstride == 0 && B > 1)
+    return launch<V, R, NB, false>(x, k, out, B, 1, H, W, C, 0, 0, k_fstride, 0, stream);
+  if (T == 1)
+    return launch<V, R1, 1, false>(x, k, out, B, 1, H, W, C, x_fstride, 0, k_fstride, 0, stream);
+  if (x_tstride == 0)
+    return launch<V, R, NB, true>(x, k, out, B, T, H, W, C, x_fstride, 0, k_fstride, k_tstride, stream);
+  return launch<V, R1, 1, true>(x, k, out, B, T, H, W, C, x_fstride, x_tstride, k_fstride, k_tstride,
+                                stream);
+}
+
+int check_shape(int B, int T, int H, int W, int C) {
+  if ((long long)H * W * C > 0x7fffffffLL || H > 65535 || T < 1 || B % T)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 }  // namespace
 
-// x: (B, H, W, C) with (H, W, C) contiguous and batch stride x_bstride
-// (elements, may be 0); k: (B, 3, 3, C) with (3, 3, C) contiguous and batch
-// stride k_bstride (may be 0); out: contiguous (B, H, W, C). All pointers
-// 16-byte aligned; C and the batch strides multiples of one vector (4
-// float32 or 8 bf16 channels; the wrapper checks). One image, H * W * C,
-// must fit an int; H and B at most 65535. Returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for a shape out of those bounds).
+// B = F * T samples, sample i the pair (frame i / T, template i % T). x:
+// (H, W, C) contiguous per sample, sample (f, t) at f * x_fstride + t *
+// x_tstride elements (either stride may be 0: x_tstride = 0 is one frame's
+// x broadcast over its T templates); k: (3, 3, C) contiguous per sample,
+// likewise with k_fstride and k_tstride (k_fstride = 0: the same T taps for
+// every frame; T = 1 and k_fstride = 0: one tap set broadcast over B); out:
+// contiguous (B, H, W, C). A per-sample batch, as autograd's dx takes it, is
+// T = 1 with the batch strides as the frame strides. All pointers 16-byte
+// aligned; C and the strides multiples of one vector (4 float32 or 8 bf16
+// channels; the wrapper checks). One image, H * W * C, must fit an int; H
+// and F * ceil(T / NB) at most 65535, T at least 1 and a divisor of B.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// shape out of those bounds).
 extern "C" int dw_corr3x3_f32(const float* x, const float* k, float* out,
-                              int B, int H, int W, int C,
-                              long long x_bstride, long long k_bstride,
-                              void* stream) {
+                              int B, int T, int H, int W, int C,
+                              long long x_fstride, long long x_tstride,
+                              long long k_fstride, long long k_tstride, void* stream) {
   if (B == 0 || H == 0 || W == 0 || C == 0) return 0;
-  if (int err = check_shape(B, H, W, C)) return err;
-  if (x_bstride == 0 && B > 1)
-    return launch<F32x4, 8, 2>(x, k, out, B, H, W, C, x_bstride, k_bstride, stream);
-  return launch<F32x4, 4, 1>(x, k, out, B, H, W, C, x_bstride, k_bstride, stream);
+  if (int err = check_shape(B, T, H, W, C)) return err;
+  return dispatch<F32x4, 8, 2, 4>(x, k, out, B, T, H, W, C, x_fstride, x_tstride, k_fstride, k_tstride,
+                                  stream);
 }
 
 extern "C" int dw_corr3x3_bf16(const void* x, const void* k, void* out,
-                               int B, int H, int W, int C,
-                               long long x_bstride, long long k_bstride,
-                               void* stream) {
+                               int B, int T, int H, int W, int C,
+                               long long x_fstride, long long x_tstride,
+                               long long k_fstride, long long k_tstride, void* stream) {
   if (B == 0 || H == 0 || W == 0 || C == 0) return 0;
-  if (int err = check_shape(B, H, W, C)) return err;
-  return launch<BF16x8, 4, 1>(x, k, out, B, H, W, C, x_bstride, k_bstride, stream);
+  if (int err = check_shape(B, T, H, W, C)) return err;
+  // (4, 1) everywhere: the instance that shares x is never picked
+  return dispatch<BF16x8, 4, 1, 4>(x, k, out, B, T, H, W, C, x_fstride, x_tstride, k_fstride, k_tstride,
+                                   stream);
 }

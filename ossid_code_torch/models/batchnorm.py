@@ -19,15 +19,80 @@ as
 (the weakly typed momentum becomes bf16(0.9) = 0.8984375 and the product is
 rounded to bf16 before the float32 batch term is added); they are stored
 back in float32.
+
+Inside `global_batch()` (the data-parallel train step of train/offline.py,
+one process a device), a layer in training mode under a process group of
+more than one process normalises with the statistics of the global batch,
+as the JAX package's one GSPMD program does: the per-channel sum and
+count, then the sum of squared deviations from the global mean, are
+all-reduced over the group with autograd through the reductions (the
+gradient of a sum over the group is the sum of the gradients over the
+group), and the running statistics update by flax's rule from the global
+mean and biased variance (`torch.nn.SyncBatchNorm` updates them with the
+unbiased one). With no group, or a group of one process, the layer runs as
+it does outside.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+# set inside global_batch(): the processes' batches make one global batch
+_GLOBAL = False
+
+
+@contextlib.contextmanager
+def global_batch():
+    """BatchNorm layers in training mode take their statistics over the
+    global batch of the process group inside the block."""
+    global _GLOBAL
+    prev, _GLOBAL = _GLOBAL, True
+    try:
+        yield
+    finally:
+        _GLOBAL = prev
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of x over the process group, differentiable: its gradient is
+    the sum of the output gradients over the group."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = x.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad)
+        return grad
+
+
+def _global_moments(xf: torch.Tensor) -> tuple | None:
+    """(mean, biased variance) per channel of the float32 (B, C, H, W) xf
+    over the global batch, with autograd; None outside global_batch() or
+    without a group of more than one process."""
+    if not _GLOBAL or dist.get_world_size() == 1:
+        return None
+    c = xf.shape[1]
+    tot = _AllReduceSum.apply(torch.cat([xf.sum((0, 2, 3)), xf.new_full((1,), xf.numel() // c)]))
+    count = tot[c]
+    mean = tot[:c] / count
+    dev = xf - mean[None, :, None, None]
+    return mean, _AllReduceSum.apply((dev * dev).sum((0, 2, 3))) / count
+
+
+def _normalise(xf, mean, var, weight, bias, eps):
+    inv = torch.rsqrt(var + eps)
+    return (xf - mean[None, :, None, None]) * (inv * weight)[None, :, None, None] + bias[None, :, None, None]
 
 
 @functools.cache
@@ -55,11 +120,18 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         if x.dtype == torch.bfloat16:
             return self._train_bf16(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        moments = _global_moments(x)
+        if moments is not None:
+            y = _normalise(x, *moments, self.weight, self.bias, self.eps)
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
-            xd = x.detach()
-            mean = xd.mean((0, 2, 3))
-            var = xd.var((0, 2, 3), unbiased=False)
+            if moments is not None:
+                mean, var = (m.detach() for m in moments)
+            else:
+                xd = x.detach()
+                mean = xd.mean((0, 2, 3))
+                var = xd.var((0, 2, 3), unbiased=False)
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked.add_(1)
@@ -70,9 +142,16 @@ class BatchNorm2d(nn.BatchNorm2d):
         # rounds intermediates); a float32 scale and bias (the bf16 step's
         # upcasts of its bf16 parameters) are used as they are
         xf = x.float()
-        y = F.batch_norm(xf, None, None, self.weight.float(), self.bias.float(), True, 0.0, self.eps)
+        moments = _global_moments(xf)
+        if moments is not None:
+            y = _normalise(xf, *moments, self.weight.float(), self.bias.float(), self.eps)
+        else:
+            y = F.batch_norm(xf, None, None, self.weight.float(), self.bias.float(), True, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(xf.detach(), (0, 2, 3), unbiased=False)
+            if moments is not None:
+                mean, var = (m.detach() for m in moments)
+            else:
+                var, mean = torch.var_mean(xf.detach(), (0, 2, 3), unbiased=False)
             if self.stats_sink is not None:
                 if self in self.stats_sink:
                     raise RuntimeError("a BatchNorm layer ran twice in one bf16 step")

@@ -263,15 +263,19 @@ class DtoidModel:
         return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))).to(self.device)
                 for k, v in batch.items()}
 
-    def train_step(self, batch: dict, optimizer=None, bf16: bool | None = None) -> dict:
+    def train_step(self, batch: dict, optimizer=None, bf16: bool | None = None,
+                   loss_scale: float = 1.0, reduce_grads=None) -> dict:
         """One train step on a batch of float [0, 1] images: 'img'
         (B, H, W, 3), 'limg', 'lmask', 'gimg', 'gmask' (B, h, w, 3 | 1),
         'bbox_gt' (B, G, 5), 'heatmap' (B, fh, fw, 1), 'mask' (B, H, W, 1).
         With `bf16_finetune` (or `bf16=True`) the forward and backward run in
         bf16 (module doc); the parameters, statistics and optimizer state
         stay float32. `optimizer` defaults to the finetune optimizer (an
-        offline trainer passes its own). Returns the loss terms as device
-        scalars (no host sync)."""
+        offline trainer passes its own). The data-parallel trainer passes
+        `loss_scale` (its shard's share of the global batch: the backward
+        runs on loss * loss_scale) and `reduce_grads`, called on the
+        parameters after the backward and before the optimizer. Returns the
+        loss terms as device scalars (no host sync)."""
         bf16 = self.bf16_finetune if bf16 is None else bf16
         if bf16 and self._bf16_step is None:
             raise ValueError("a bf16 step needs DtoidModel built with model.bf16_finetune")
@@ -300,10 +304,12 @@ class DtoidModel:
             if not bf16:
                 # the bf16 step's float32 gradients are views that stay set
                 opt.zero_grad(set_to_none=self._bf16_step is None)
-            loss.backward()
+            (loss if loss_scale == 1.0 else loss * loss_scale).backward()
             marks.append(time.perf_counter())
             if bf16:
                 step.upcast_grads()
+            if reduce_grads is not None:
+                reduce_grads(self.net.parameters())
             marks.append(time.perf_counter())
             opt.step()
             marks.append(time.perf_counter())

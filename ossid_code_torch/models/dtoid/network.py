@@ -213,16 +213,25 @@ class CorrelationHead(nn.Module):
             nn.init.zeros_(conv.weight)
             nn.init.constant_(conv.bias, PRIOR_BIAS)
 
-    def correlate(self, image_feat: torch.Tensor, template_feat: torch.Tensor):
+    def correlate(self, image_feat: torch.Tensor, template_feat: torch.Tensor, cross: bool = False):
         """image_feat (B, 640, h, w) channels_last (a stride-0 broadcast over B
-        is read in place); template_feat (B, 640, 7, 7)."""
+        is read in place); template_feat (B, 640, 7, 7). `cross`: image_feat
+        (F, ...) frames and template_feat (T, ...) templates, every frame
+        against every template; the outputs hold F * T samples, sample
+        f * T + t."""
         t1 = self.n1(F.elu(self.c1(template_feat)))
         t2 = self.n2(F.elu(self.c2(t1)))
-        dot3x3 = _dw_corr(image_feat, _nhwc(t2).contiguous())
-
+        taps = _nhwc(t2).contiguous()
         avg = _nchw(avg_pool(_nhwc(template_feat), template_feat.shape[2]))  # (B, 640, 1, 1)
-        dot = image_feat * avg
-        sub = image_feat - avg
+        if cross:
+            dot3x3 = _nchw(depthwise_corr(_nhwc(image_feat), taps, padding=1, cross=True))
+            frames = image_feat[:, None]
+            dot = _cl((frames * avg[None]).flatten(0, 1))
+            sub = _cl((frames - avg[None]).flatten(0, 1))
+        else:
+            dot3x3 = _dw_corr(image_feat, taps)
+            dot = image_feat * avg
+            sub = image_feat - avg
 
         dot_c = self.norm_corr_dot(F.elu(self.corr_conv_dot(dot)))
         dot3_c = self.norm_corr_dot3x3(F.elu(self.corr_conv_dot3x3(dot3x3)))
@@ -342,31 +351,14 @@ class DtoidNetwork(nn.Module):
         weights in bf16; the template features are cast here); scores and
         box deltas are upcast to float32 before ranking and decoding, so
         top-k, NMS and the boxes run in float32."""
-        img_h, img_w = self.img_size
         image = image_u8.to(compute_dtype) / 255.0
         xcors, heatmap, cls, reg = self._heads(imagenet_normalize(image), local_feats.to(compute_dtype),
                                                global_feat.to(compute_dtype))
-        t, n = cls.shape[0], cls.shape[1]
-        scores_all = cls[..., 1].float().reshape(-1)
-        boxes_all = clip_boxes(decode_boxes(anchors, reg.float()), img_h, img_w).reshape(-1, 4)
-
-        top_scores, top_idx = topk_stable(scores_all, min(pre_nms_topk, t * n))
-        top_boxes = boxes_all[top_idx]
-        top_tids = torch.div(top_idx, n, rounding_mode="floor").to(torch.int32)
-        sel_scores, sel_boxes, sel_idx, valid = nms_topk(top_boxes, top_scores, nms_iou, topk)
-        sel_tids = top_tids[sel_idx]
-
-        best = sel_tids[:1].long()  # stays on the device: no host sync
+        out = self._select(cls, reg, anchors, pre_nms_topk, topk, nms_iou)
+        best = out["pred_template_ids"][:1].long()  # stays on the device: no host sync
         seg_logits = self.correlation_model.decode_seg(xcors.index_select(0, best))
-        heat_best = heatmap.index_select(0, best)[0, 0].float()
-
-        out = {
-            "pred_scores": sel_scores,
-            "pred_bbox": sel_boxes,
-            "pred_template_ids": sel_tids,
-            "valid": valid,
-            "heat_map": heat_best,
-        }
+        out["heat_map"] = heatmap.index_select(0, best)[0, 0].float()
+        img_h, img_w = self.img_size
         logits = seg_logits[0, 0]
         if pack_seg:
             # threshold at 0.5 (logit 0), 8 px per byte, little-endian bits
@@ -376,6 +368,74 @@ class DtoidNetwork(nn.Module):
         else:
             out["seg_u8"] = (torch.sigmoid(logits) * 255.0).to(torch.uint8)
         return out
+
+    def _select(self, cls, reg, anchors, pre_nms_topk, topk, nms_iou) -> dict:
+        """One frame's detections from its T templates' head outputs, cls
+        (T, N, 2) and reg (T, N, 4): top-k over every template's anchors,
+        then NMS, in float32 on the device."""
+        img_h, img_w = self.img_size
+        t, n = cls.shape[0], cls.shape[1]
+        scores_all = cls[..., 1].float().reshape(-1)
+        boxes_all = clip_boxes(decode_boxes(anchors, reg.float()), img_h, img_w).reshape(-1, 4)
+        top_scores, top_idx = topk_stable(scores_all, min(pre_nms_topk, t * n))
+        top_boxes = boxes_all[top_idx]
+        top_tids = torch.div(top_idx, n, rounding_mode="floor").to(torch.int32)
+        sel_scores, sel_boxes, sel_idx, valid = nms_topk(top_boxes, top_scores, nms_iou, topk)
+        return {"pred_scores": sel_scores, "pred_bbox": sel_boxes, "pred_template_ids": top_tids[sel_idx],
+                "valid": valid}
+
+    def heads_frames(self, image_n: torch.Tensor, local_feats: torch.Tensor, global_feat: torch.Tensor):
+        """The all-templates trunk of F frames at once: image_n (F, H, W, 3)
+        normalised; local_feats (T, 7, 7, 640); global_feat (1, 3, 3, 64).
+        The trunk runs once on the F frames (the stem's correlation with the
+        global kernel broadcast over them) and the heads on F * T samples,
+        sample f * T + t (one correlation of every frame with every
+        template). Returns (xcors, heatmap, cls, reg), NCHW maps."""
+        feat = _cl(self.image_feature_extractor.features(_cl(_nchw(image_n)), global_feat))
+        xcors, heatmap = self.correlation_model.correlate(feat, _cl(_nchw(local_feats)), cross=True)
+        return xcors, heatmap, self.classification(xcors), self.regression(xcors)
+
+    def detect_frames(self, images_u8: torch.Tensor, local_feats: torch.Tensor,
+                      global_feat: torch.Tensor, anchors: torch.Tensor,
+                      pre_nms_topk: int = 1000, topk: int = 500, nms_iou: float = 0.5,
+                      compute_dtype: torch.dtype = torch.float32) -> dict:
+        """`detect` for F frames of one object (the serving farm's detect):
+        images_u8 (F, H, W, 3) uint8. The trunk and heads run once for all F
+        (`heads_frames`: kernel 1 twice, whatever F is), top-k and NMS per
+        frame, and the winning template's segmentation decoder once on the F
+        winners. Returns `detect`'s keys (seg as `seg_u8`) stacked over the
+        frames: pred_scores (F, topk), pred_bbox (F, topk, 4),
+        pred_template_ids (F, topk), valid (F, topk), heat_map (F, fh, fw),
+        seg_u8 (F, H, W)."""
+        image = images_u8.to(compute_dtype) / 255.0
+        heads = self.heads_frames(imagenet_normalize(image), local_feats.to(compute_dtype),
+                                  global_feat.to(compute_dtype))
+        return self.select_frames(*heads, images_u8.shape[0], anchors, pre_nms_topk, topk, nms_iou)
+
+    def select_frames(self, xcors, heatmap, cls, reg, f: int, anchors: torch.Tensor,
+                      pre_nms_topk: int = 1000, topk: int = 500, nms_iou: float = 0.5) -> dict:
+        """The second half of `detect_frames`, on `heads_frames`' outputs of
+        f frames (F * T samples, frame-major): per-frame top-k and NMS, then
+        the winners' segmentation decode in one batch."""
+        t = cls.shape[0] // f
+        cls = cls.reshape(f, t, *cls.shape[1:])
+        reg = reg.reshape(f, t, *reg.shape[1:])
+        frames = [self._select(cls[i], reg[i], anchors, pre_nms_topk, topk, nms_iou) for i in range(f)]
+        out = {k: torch.stack([o[k] for o in frames]) for k in frames[0]}
+        best = out["pred_template_ids"][:, 0].long() + t * torch.arange(f, device=cls.device)
+        seg_logits = self.correlation_model.decode_seg(xcors.index_select(0, best))
+        out["heat_map"] = heatmap.index_select(0, best)[:, 0].float()
+        out["seg_u8"] = (torch.sigmoid(seg_logits[:, 0]) * 255.0).to(torch.uint8)
+        return out
+
+    def forward_frames(self, images: torch.Tensor, local_feats: torch.Tensor, global_feat: torch.Tensor):
+        """`forward_all_templates` of F frames at once (the serving farm's
+        forward): images (F, H, W, 3) in [0,1]. Returns cls (F, T, N, 2),
+        reg (F, T, N, 4), heatmap (F, T, fh, fw, 1), seg_probs (F, T, H, W)."""
+        f, t = images.shape[0], local_feats.shape[0]
+        xcors, heatmap, cls, reg = self.heads_frames(imagenet_normalize(images), local_feats, global_feat)
+        seg = torch.sigmoid(self.correlation_model.decode_seg(xcors)[:, 0])
+        return tuple(a.reshape(f, t, *a.shape[1:]) for a in (cls, reg, _nhwc(heatmap), seg))
 
     def forward_all_templates(self, image: torch.Tensor, local_feats: torch.Tensor,
                               global_feat: torch.Tensor):

@@ -215,19 +215,27 @@ class ZephyrModel:
         return prep
 
     # -------------------------------------------------------- score program
+    def _refine(self, depth, depth_origin, cam_K, ricp_pts, ricp_nrms, poses, valid):
+        """Device ICP of the first `refine_top` hypotheses against the depth
+        (metres): (poses with the valid refined rows in place, the refined
+        rows)."""
+        k = min(self.refine_top, poses.shape[0])
+        scene_pts, scene_ok = sample_valid_points(depth, cam_K, origin=depth_origin, k=4096)
+        refined = batched_icp(poses[:k], ricp_pts, scene_pts, scene_ok,
+                              max_dist=REFINE_MAX_DIST, iters=REFINE_ITERS,
+                              model_normals=ricp_nrms)
+        refined = torch.where(valid[:k, None, None], refined, poses[:k])
+        return torch.cat([refined, poses[k:]], 0), refined
+
     def _score(self, img_u8, depth_u16, depth_origin, cam_K, pts, cols, nrms,
-               sa1c, sa1g, sa2c, sa2g, ricp_pts, ricp_nrms, poses, valid):
+               sa1c, sa1g, sa2c, sa2g, ricp_pts, ricp_nrms, poses, valid, refine: bool = True):
+        """The score program; `refine=False` scores the poses as given (a
+        hypothesis-parallel shard, whose batch was refined before the split)."""
         img = _blur5(img_u8.to(torch.float32) / 255.0)
         depth = depth_u16.to(torch.float32) / 1000.0
         refined = None
-        if self.refine_top > 0:
-            k = min(self.refine_top, poses.shape[0])
-            scene_pts, scene_ok = sample_valid_points(depth, cam_K, origin=depth_origin, k=4096)
-            refined = batched_icp(poses[:k], ricp_pts, scene_pts, scene_ok,
-                                  max_dist=REFINE_MAX_DIST, iters=REFINE_ITERS,
-                                  model_normals=ricp_nrms)
-            refined = torch.where(valid[:k, None, None], refined, poses[:k])
-            poses = torch.cat([refined, poses[k:]], 0)
+        if refine and self.refine_top > 0:
+            poses, refined = self._refine(depth, depth_origin, cam_K, ricp_pts, ricp_nrms, poses, valid)
         point_x, uv, inconst = assemble_score_features(
             img, depth, cam_K, pts, cols, nrms, poses, return_uv=self.need_uv,
             depth_origin=depth_origin, packed_sample=True)

@@ -13,6 +13,11 @@ cluster, no scratch in device memory; `dw_corr3x3_dk_plan` sizes it). The
 wrappers raise on what their kernels do not take. There is no other switch
 and no fallback.
 
+`cross=True` (the serving farm's head) correlates F frames of x with T
+tap sets in one launch of kernel 1: sample f * T + t is frame f against
+template t (a frame and a template stride an operand); the plain version
+takes the same argument. It has no gradient on the card.
+
 Both operands are float32 or both bfloat16; each kernel has an instance of
 each (1 / 1b, 3 / 3b) and the wrappers choose it by dtype, a mix raises. In
 bf16 every function accumulates in float32 and rounds once to bf16, as the
@@ -43,11 +48,24 @@ def _dtype_of(x: torch.Tensor, other: torch.Tensor, what: str,
 _PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 
-def depthwise_corr_plain(x: torch.Tensor, kernel: torch.Tensor, padding: int = 0) -> torch.Tensor:
+def _cross(x: torch.Tensor, kernel: torch.Tensor) -> tuple:
+    """x (F, H, W, C) and kernel (T, kh, kw, C) as F * T samples, sample
+    f * T + t the pair (frame f, template t): broadcast views, not copies."""
+    f, t = x.shape[0], kernel.shape[0]
+    return (x[:, None].expand(f, t, *x.shape[1:]).reshape(f * t, *x.shape[1:]),
+            kernel[None].expand(f, t, *kernel.shape[1:]).reshape(f * t, *kernel.shape[1:]))
+
+
+def depthwise_corr_plain(x: torch.Tensor, kernel: torch.Tensor, padding: int = 0,
+                         cross: bool = False) -> torch.Tensor:
     """x (B, H, W, C); kernel (B, kh, kw, C): each batch element correlated with
     its own kernel, channel by channel. The reference's reshape trick: the
     batch folds into the channels and one grouped conv runs B*C groups.
-    bf16 operands: the float32 result rounded once to bf16."""
+    bf16 operands: the float32 result rounded once to bf16. `cross`: x (F, H,
+    W, C) frames and kernel (T, kh, kw, C) templates, every frame against
+    every template: (F * T, H, W, C), sample f * T + t."""
+    if cross:
+        return depthwise_corr_plain(*_cross(x, kernel), padding)
     if _dtype_of(x, kernel, "depthwise_corr_plain", _PLAIN_DTYPES) == torch.bfloat16:
         return depthwise_corr_plain(x.float(), kernel.float(), padding).to(torch.bfloat16)
     b, h, w, c = x.shape
@@ -80,7 +98,7 @@ def _inner_contiguous(t: torch.Tensor) -> bool:
     return t.stride(3) == 1 and (w == 1 or t.stride(2) == c) and (h == 1 or t.stride(1) == w * c)
 
 
-_FWD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+_FWD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p],
              ctypes.c_int)
 _SIGNATURES = {"dw_corr3x3_f32": _FWD_ARGS, "dw_corr3x3_bf16": _FWD_ARGS}
 _DK_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
@@ -117,29 +135,40 @@ def _count(fn, dtype: torch.dtype) -> None:
         fn.launches += 1
 
 
-def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str) -> torch.Tensor:
-    b, h, w, c = x.shape
-    dtype = _check_operands(what, x, kernel, (b, 3, 3, c))
+def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str, cross: bool = False) -> torch.Tensor:
+    """Kernel 1 (1b) over B = F * T samples, sample i the pair (frame i // T,
+    template i % T), each operand with a frame and a template stride: a
+    per-sample batch is T = 1 with the batch strides (the library runs the
+    instance that shares x's rows where x's stride is 0); `cross` is F
+    frames of x against T tap sets."""
+    f, h, w, c = x.shape
+    t = kernel.shape[0] if cross else 1
+    dtype = _check_operands(what, x, kernel, (t if cross else f, 3, 3, c))
+    xs, ks = _batch_stride(x), _batch_stride(kernel)
+    # (frame, template) strides of x and of the taps
+    strides = (xs, 0, 0, ks) if cross else (xs, 0, ks, 0)
+    b = f * t
     out = torch.empty((b, h, w, c), device=x.device, dtype=dtype)
     err = getattr(library("dw_corr3x3", _SIGNATURES), f"dw_corr3x3_{_SUFFIX[dtype]}")(
-        x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, h, w, c,
-        _batch_stride(x), _batch_stride(kernel), stream_ptr(x.device))
+        x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, t, h, w, c, *strides, stream_ptr(x.device))
     check(err, what)
     return out
 
 
-def dw_corr3x3_cuda(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def dw_corr3x3_cuda(x: torch.Tensor, kernel: torch.Tensor, cross: bool = False) -> torch.Tensor:
     """Kernel 1 (float32) or 1b (bf16): 3x3 / padding-1 depthwise
     correlation on the card.
 
     x (B, H, W, C) with (H, W, C) contiguous and any batch stride (0 for a
     broadcast); kernel (B, 3, 3, C) likewise, of x's dtype (C % 8 == 0 in
-    bf16). Returns a contiguous (B, H, W, C) tensor of that dtype. Raises on
-    what the kernel does not take. It records no gradient: `depthwise_corr`
-    is the differentiable entry."""
+    bf16). Returns a contiguous (B, H, W, C) tensor of that dtype. `cross`:
+    x (F, H, W, C) frames and kernel (T, 3, 3, C) templates, every frame
+    against every template in one launch: (F * T, H, W, C), sample f * T + t
+    (the serving farm's head). Raises on what the kernel does not take. It
+    records no gradient: `depthwise_corr` is the differentiable entry."""
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
         raise RuntimeError("dw_corr3x3_cuda records no gradient; call depthwise_corr")
-    out = _launch_dw_corr3x3(x, kernel, "dw_corr3x3_cuda")
+    out = _launch_dw_corr3x3(x, kernel, "dw_corr3x3_cuda", cross)
     _count(dw_corr3x3_cuda, out.dtype)
     return out
 
@@ -264,15 +293,20 @@ class DwCorr3x3(torch.autograd.Function):
         return dx, dk
 
 
-def depthwise_corr(x: torch.Tensor, kernel: torch.Tensor, padding: int = 0) -> torch.Tensor:
+def depthwise_corr(x: torch.Tensor, kernel: torch.Tensor, padding: int = 0, cross: bool = False) -> torch.Tensor:
     """Per-sample depthwise cross-correlation, NHWC (ref DTOID's
     conv2d_dw_group). The 3x3 / padding-1 case on a CUDA tensor goes through
-    `DwCorr3x3` (kernels 1 and 3); on a CPU tensor it runs the plain version."""
-    if padding == 1 and kernel.shape[1] == 3 and kernel.shape[2] == 3 and x.is_cuda:
-        return DwCorr3x3.apply(x, kernel)
-    if x.is_cuda:
+    `DwCorr3x3` (kernels 1 and 3); on a CPU tensor it runs the plain version.
+    `cross` (F frames of x against T templates, as `dw_corr3x3_cuda` takes
+    it) has no gradient on the card: training batches pair one image with
+    one template."""
+    if x.is_cuda and not (padding == 1 and kernel.shape[1] == 3 and kernel.shape[2] == 3):
         raise ValueError("on the card depthwise_corr takes only the 3x3 / padding-1 case")
-    return depthwise_corr_plain(x, kernel, padding)
+    if x.is_cuda and cross:
+        return dw_corr3x3_cuda(x, kernel, cross=True)
+    if x.is_cuda:
+        return DwCorr3x3.apply(x, kernel)
+    return depthwise_corr_plain(x, kernel, padding, cross)
 
 
 def max_pool_ceil(x: torch.Tensor, k: int, s: int, ceil_mode: bool = True) -> torch.Tensor:

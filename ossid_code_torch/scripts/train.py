@@ -28,8 +28,13 @@ last.ckpt. `OfflineTrainer` trains DTOID, `GenericTrainer` the others.
 KeyError 'limg', as JAX's does (ROADMAP.md, faults of the reference).
 
 The port's own key `device=cpu` runs on the CPU; without it the run is on
-the card. `train.dp_devices` other than 1 or -1 (the data-parallel mesh,
-not ported: ROADMAP.md, multi-device families) raises in OfflineTrainer.
+the card. `train.dp_devices` (DTOID) is the data-parallel axis: -1 means
+every visible device (the cards; one on the CPU), N means N. More than one
+starts that many processes of one `torch.distributed` group
+(parallel/launch.py::spawn): gloo processes with `device=cpu`, else one
+NCCL process a card (N above the cards raises, as JAX's `make_mesh` does).
+Each rank trains on its shard of every global batch (train/offline.py);
+rank 0 writes the config, the metrics, the checkpoints and the figures.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ import os
 import sys
 
 import numpy as np
+import torch
+import torch.distributed as dist
 import yaml
 
 from ossid_code_torch.conf import load_group, post_process_conf
@@ -153,21 +160,45 @@ def build_model(cfg):
     raise SystemExit(f"unknown model {name!r} (dtoid, maskrcnn, fewshot_seg, matcher)")
 
 
+def _dp_devices(cfg) -> int:
+    """The devices the DTOID trainer takes: of train.dp_devices (-1 or unset:
+    every visible device, the cards, or one on the CPU), the largest count
+    that divides train.batch_size (OfflineTrainer's rule)."""
+    n = cfg.train.get("dp_devices", -1)
+    if n in (-1, None):
+        n = 1 if cfg.get("device") == "cpu" else max(torch.cuda.device_count(), 1)
+    b = int(cfg.train.batch_size)
+    return max(d for d in range(1, int(n) + 1) if b % d == 0)
+
+
+def _rank_main(rank: int, world: int, argv: list) -> int:
+    return main(argv)
+
+
 def main(argv=None) -> int:
     from ossid_code_torch.core.checkpoint import load_checkpoint
     from ossid_code_torch.train.offline import GenericTrainer, OfflineTrainer
 
     argv = argv if argv is not None else sys.argv[1:]
     cfg = build_config(argv)
+    grouped = dist.is_available() and dist.is_initialized()
+    n_dp = _dp_devices(cfg) if cfg.model.get("name", "dtoid") == "dtoid" else 1
+    if n_dp > 1 and not grouped:
+        from ossid_code_torch.parallel.launch import spawn
+
+        spawn(_rank_main, n_dp, "gloo" if cfg.get("device") == "cpu" else "nccl", args=(list(argv),))
+        return 0
+    rank = dist.get_rank() if grouped else 0
     np.random.seed(cfg.seed)
 
     exp_root = os.path.join(roots().OSSID_RESULT_ROOT, "train", cfg.exp_name)
-    os.makedirs(exp_root, exist_ok=True)
     version = 0
-    while os.path.exists(os.path.join(exp_root, f"config_v{version}.yaml")):
-        version += 1
-    cfg.save(os.path.join(exp_root, f"config_v{version}.yaml"))
-    print(f"experiment {cfg.exp_name} v{version} -> {exp_root}")
+    if rank == 0:
+        os.makedirs(exp_root, exist_ok=True)
+        while os.path.exists(os.path.join(exp_root, f"config_v{version}.yaml")):
+            version += 1
+        cfg.save(os.path.join(exp_root, f"config_v{version}.yaml"))
+        print(f"experiment {cfg.exp_name} v{version} -> {exp_root}")
 
     train_loader, valid_loaders, _ = build_dataloaders(cfg)
     if not isinstance(valid_loaders, (list, tuple)):
@@ -178,15 +209,15 @@ def main(argv=None) -> int:
         model.load_state_dict(load_checkpoint(cfg.weights_path))
         print("loaded weights from", cfg.weights_path)
     if cfg.model.get("name", "dtoid") == "dtoid":
-        n_dev = None if cfg.train.dp_devices in (-1, None) else cfg.train.dp_devices
-        trainer = OfflineTrainer(model, cfg, n_devices=n_dev, ckpt_dir=exp_root)
+        trainer = OfflineTrainer(model, cfg, n_devices=n_dp, ckpt_dir=exp_root)
     else:
         trainer = GenericTrainer(model, cfg, ckpt_dir=exp_root)
     if cfg.get("resume_path"):
         full = trainer.restore_trainer_state(cfg.resume_path)
         print(f"resumed from {cfg.resume_path} at epoch {trainer.epoch}"
               + ("" if full else " (weights only; no optimizer state in ckpt)"))
-    logger = MetricLogger(os.path.join(exp_root, f"metrics_v{version}.jsonl"), tb_dir=os.path.join(exp_root, "tb"))
+    logger = (MetricLogger(os.path.join(exp_root, f"metrics_v{version}.jsonl"), tb_dir=os.path.join(exp_root, "tb"))
+              if rank == 0 else None)
 
     monitor = cfg.model.get("monitor", "val_metric")
     fig_interval = int(cfg.model.get("figure_interval", 0) or 0)
@@ -198,11 +229,13 @@ def main(argv=None) -> int:
             if fig_interval and hasattr(trainer, "log_figures") and (
                     epoch % fig_interval == 0 or epoch == max_epochs - 1):
                 trainer.log_figures(valid_loaders[0], exp_root, epoch)
-            logger.log(epoch, **metrics, **{monitor: val})
-            print(f"epoch {epoch}: loss={metrics.get('loss', float('nan')):.4f} "
-                  f"{monitor}={val:.4f} (best {trainer.best_metric:.4f})")
+            if logger is not None:
+                logger.log(epoch, **metrics, **{monitor: val})
+                print(f"epoch {epoch}: loss={metrics.get('loss', float('nan')):.4f} "
+                      f"{monitor}={val:.4f} (best {trainer.best_metric:.4f})")
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return 0
 
 

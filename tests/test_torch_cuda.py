@@ -194,6 +194,34 @@ def test_dw_corr3x3_cuda_matches_plain(cuda, shape, k_broadcast):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f,t,h,w,c", [(1, 7, 29, 39, 640), (2, 10, 29, 39, 640), (3, 7, 29, 39, 640),
+                                       (2, 5, 6, 13, 16), (3, 3, 4, 1, 8)])
+def test_dw_corr3x3_frames_matches_plain(cuda, dtype, f, t, h, w, c):
+    """Kernel 1 (1b) over F frames x T templates in one launch (cross=True:
+    sample f * T + t is frame f against template t), T odd or not a
+    multiple of the float32 instance's 2 templates a block, against the
+    plain version: exact in float32, one bf16 step in bf16; one launch
+    counted. x is a strided view (frames of a larger batch)."""
+    g = torch.Generator(device="cuda").manual_seed(f * 100 + t)
+    x = torch.randn(2 * f, h, w, c, device="cuda", generator=g).to(dtype)[::2]
+    k = torch.randn(t, 3, 3, c, device="cuda", generator=g).to(dtype)
+    counter = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    before = getattr(tconv.dw_corr3x3_cuda, counter)
+    with torch.inference_mode():
+        got = tconv.dw_corr3x3_cuda(x, k, cross=True)
+        want = tconv.depthwise_corr_plain(x, k, 1, cross=True)
+    torch.cuda.synchronize()
+    assert got.shape == (f * t, h, w, c) and getattr(tconv.dw_corr3x3_cuda, counter) == before + 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        _bf16_agree(got, want, steps=1.0)
+    with pytest.raises(ValueError, match="fit"):
+        tconv.dw_corr3x3_cuda(x, k[:, :2], cross=True)
+
+
 def _dw_plain_grads(x, k, dout):
     """dx, dk of the plain version by PyTorch's autograd (x and k expanded
     to dout's batch: a broadcast input gets its gradient summed over B)."""

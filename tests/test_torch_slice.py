@@ -130,7 +130,9 @@ def test_import_scan_covers_the_training_and_script_modules():
     """The scan above reaches the trainers, the demo script, the CLI and the
     modules they brought (SIFT among them: no cv2), and the legacy
     families' models, data and host utilities (JPEG: no imageio or PIL),
-    the figures (no matplotlib) and the render family (HDF5: no h5py)."""
+    the figures (no matplotlib), the render family (HDF5: no h5py), and
+    the scale-out modules (the mesh, the launcher, the multi-stream loop,
+    global-batch BatchNorm)."""
     for rel in ("ossid_code_torch/train/offline.py", "ossid_code_torch/train/zephyr_offline.py",
                 "ossid_code_torch/scripts/demo_e2e.py", "ossid_code_torch/core/checkpoint.py",
                 "ossid_code_torch/eval/bop_ar.py", "ossid_code_torch/hypo/icp.py",
@@ -144,7 +146,10 @@ def test_import_scan_covers_the_training_and_script_modules():
                 "ossid_code_torch/utils/metrics.py", "ossid_code_torch/utils/homographies.py",
                 "ossid_code_torch/utils/augmentation.py", "ossid_code_torch/utils/sphere_sampling.py",
                 "ossid_code_torch/ops/warp.py", "ossid_code_torch/utils/vis.py", "ossid_code_torch/utils/hdf5.py",
-                "ossid_code_torch/data/hdf5_render.py", "ossid_code_torch/scripts/index_render_dataset.py"):
+                "ossid_code_torch/data/hdf5_render.py", "ossid_code_torch/scripts/index_render_dataset.py",
+                "ossid_code_torch/parallel/mesh.py", "ossid_code_torch/parallel/launch.py",
+                "ossid_code_torch/parallel/__init__.py", "ossid_code_torch/loop/multi_stream.py",
+                "ossid_code_torch/models/batchnorm.py"):
         assert rel in _PORT_FILES, rel
 
 

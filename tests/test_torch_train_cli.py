@@ -224,10 +224,14 @@ def test_offline_validate_matches_jax(world):
 
 
 def test_data_parallel_devices_raise(world, tmp_path, monkeypatch):
-    """train.dp_devices other than 1 or -1 asks for the data-parallel mesh,
-    which OfflineTrainer refuses, naming the multi-device families."""
+    """train.dp_devices=N on the cards starts one NCCL process a card, and
+    more devices than cards raise as JAX's make_mesh does ("requested N
+    devices, have M"), before any process starts. On the CPU (device=cpu)
+    N gloo processes train: tests/test_torch_dp.py runs that against
+    train.dp_devices=1."""
     from ossid_code_torch.scripts import train
 
     monkeypatch.setenv("OSSID_RESULT_ROOT", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        train.main(_argv(world, "dtoid_bop", "device=cpu", "train.dp_devices=2"))
+    have = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"requested {have + 2} devices, have {have}"):
+        train.main(_argv(world, "dtoid_bop", f"train.dp_devices={have + 2}", f"train.batch_size={have + 2}"))
