@@ -368,13 +368,15 @@ def profile_call(torch, fn) -> dict:
 
 
 def zero_launches(conv, sa):
-    """Sets every kernel wrapper's launch counts to 0 and returns a reader:
-    a call gives {kernel: float32 launches, kernel_bf16: bf16 launches}
-    since then (kernel 1, its dx, kernel 3 and kernel 2; 1b, 3b and 2b)."""
+    """Sets every kernel wrapper's launch counts (and FLOP tally) to 0 and
+    returns a reader: a call gives {kernel: float32 launches, kernel_bf16:
+    bf16 launches} since then (kernel 1, its dx, kernel 3 and kernel 2; 1b,
+    3b and 2b). A wrapper replaced for a run (recording_dw_calls) gets the
+    counters here: the wrappers count on the name they are bound to."""
     counters = {"dw_corr3x3": conv.dw_corr3x3_cuda, "dw_corr3x3_dx": conv.dw_corr3x3_dx_cuda,
                 "dw_corr3x3_dk": conv.dw_corr3x3_dk_cuda, "sa_mlp_max": sa.sa_mlp_max_cuda}
     for c in counters.values():
-        c.launches = c.launches_bf16 = 0
+        c.launches = c.launches_bf16 = c.flops = 0
 
     def read() -> dict:
         out = {name: c.launches for name, c in counters.items()}
@@ -3070,6 +3072,186 @@ def phase14(torch, F, conv, sa, dtoid, zephyr, scene, frames, poses, cfg):
     return rows32, rows16, {"farm_round": farm["launches"], "multi_stream": streams["warm"]["launches"]}
 
 
+AB_TEMPLATE_SIZES = (10, T_PRETRAINED)   # phase 15b: JAX's ab_templates runs 10, 40, 80, 160
+AB_SCORER_HYPOS = 128                    # 15c
+RANK_BLEND_ARGV = ["--frames", "12", "--targets", "12", "--zephyr_epochs", "2"]  # 15e: JAX's 60 / 72 / 16
+
+
+def capture_json(fn, *args) -> tuple:
+    """fn(*args) with its standard output captured: (its result, the JSON
+    objects it printed, one a line)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+
+
+def flops_card_vs_cpu(torch, roofline, build, what: str) -> dict:
+    """One program's FLOP count (scripts/roofline.py::flop_breakdown) on the
+    card and on the CPU, from the same seeds: the card's hand-written
+    kernels' tally must stand in for the grouped convolution and the matrix
+    products that their plain versions run on the CPU. The detect's NMS
+    runs (2 K^2 FLOPs a sweep) until its fixed point, which the data decide:
+    its sweeps are reported on each side, and everything else must be equal
+    (the totals too where the sweeps are)."""
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        fn, args = build(dev)
+        counts[dev] = roofline.flop_breakdown(fn, *args)
+    card, cpu = counts["cuda"], counts["cpu"]
+    if card["hand-written kernels"] <= 0 or cpu["hand-written kernels"] != 0:
+        fail(f"15a {what}: the card's count holds no hand-written kernel's work ({card}; CPU {cpu})")
+    nms = {}
+    if what.startswith("detect"):
+        from ossid_code_torch.core.config import default_config
+
+        k2 = 2 * int(default_config().model.get("topk_pre_nms", 1000)) ** 2  # a sweep over the top-K boxes
+        nms = {dev: c.get("aten.mm", 0) / k2 for dev, c in counts.items()}
+        if any(v != int(v) for v in nms.values()):
+            fail(f"15a {what}: matrix products not whole NMS sweeps: {counts}")
+    rest = {dev: sum(c.values()) - (c.get("aten.mm", 0) if nms else 0) for dev, c in counts.items()}
+    if rest["cuda"] != rest["cpu"]:
+        fail(f"15a {what}: the card counts {rest['cuda']} FLOPs, the CPU {rest['cpu']} ({counts})")
+    return {"card": card, "cpu": cpu, "card_total": sum(card.values()), "cpu_total": sum(cpu.values()),
+            "totals_equal": sum(card.values()) == sum(cpu.values()), "nms_sweeps": nms}
+
+
+def phase15(torch, conv, sa, cli_summary, cli_summary_keys):
+    """Phase 15, the measuring tools on the card: (a) scripts/roofline.py's
+    main at full width, under PyTorch's default TF32 flags (the port's main
+    path leaves them), and the FLOP counts of detect T=10 and score M=128
+    card against CPU; (b) ab_templates at T = 10 and 160, kernel 1 held at 2
+    launches a detect; (c) ab_scorer at M = 128, four-tap and packed, f32
+    and bf16, kernel 2 / 2b held at 2 a call; (d) ab_finetune at batch 8,
+    bf16 and f32, dx and kernel 3 held at 2 a step; (e) ab_rank_blend at its
+    width and a reduced depth; (f) utils/profiling.py's trace over one detect
+    and one score call: device time under the names "dw_corr3x3" and
+    "sa_mlp_max", their spans' or the kernels' own (trace raises if the
+    profiler saw no device time), and whether each span was tied; (g)
+    summarize_result of phase 9's results pickle (read in phase 9). Every
+    launch count is set to 0 before each path and read after it. Returns
+    the launches of each path."""
+    import tempfile
+
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+    from ossid_code_torch.scripts import ab_finetune, ab_rank_blend, ab_scorer, ab_templates, roofline
+    from ossid_code_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    launches = {}
+
+    # -- 15a. the roofline
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False  # PyTorch's defaults
+    try:
+        read = zero_launches(conv, sa)
+        t0 = time.perf_counter()
+        rows = roofline.main(["--hypos", "128", "512"])
+        torch.cuda.synchronize()
+        launches["roofline"] = read()
+        roofline_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    def detect_on(dev):
+        return roofline.detect_program(DtoidModel(default_config(), seed=0, device=dev), np.random.default_rng(0))
+
+    def score_on(dev):
+        zm = ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False, device=dev)
+        return roofline.score_program(zm, roofline.score_inputs(np.random.default_rng(0)), AB_SCORER_HYPOS)
+
+    t0 = time.perf_counter()
+    flops = {"detect t=10 f32": flops_card_vs_cpu(torch, roofline, detect_on, "detect t=10"),
+             f"score M={AB_SCORER_HYPOS} f32": flops_card_vs_cpu(torch, roofline, score_on, "score")}
+    print(f"phase 15a roofline ({roofline_s:.1f} s, PyTorch's TF32 defaults: cudnn on, matmul off): "
+          f"{json.dumps({'roofline': rows})}")
+    print(f"phase 15a FLOPs card against CPU ({time.perf_counter() - t0:.1f} s): {json.dumps(flops)}")
+
+    # -- 15b-d. the A/B scripts
+    read = zero_launches(conv, sa)
+    t0 = time.perf_counter()
+    lines, _ = capture_json(ab_templates.main, ["--sizes", *map(str, AB_TEMPLATE_SIZES), "--iters", "4"])
+    torch.cuda.synchronize()
+    launches["ab_templates"] = read()
+    if [ln["dw_corr3x3_launches_per_detect"] for ln in lines] != [2] * len(AB_TEMPLATE_SIZES):
+        fail(f"15b ab_templates: kernel 1 launches a detect {lines}, expected 2 at each T")
+    print(f"phase 15b ab_templates ({time.perf_counter() - t0:.1f} s): {json.dumps(lines)}")
+
+    read = zero_launches(conv, sa)
+    t0 = time.perf_counter()
+    score_rows, _ = capture_json(ab_scorer.main, ["--hypos", str(AB_SCORER_HYPOS), "--iters", "6"])
+    torch.cuda.synchronize()
+    launches["ab_scorer"] = read()
+    if any(r["sa_mlp_max_launches"] != 2 for r in score_rows):
+        fail(f"15c ab_scorer: kernel 2 / 2b launches a call {score_rows}, expected 2")
+    for bf16 in (False, True):
+        sums = {r["config"]: r["score_sum"] for r in score_rows if r["bf16"] == bf16}
+        if sums["packed"] != sums["baseline"]:
+            fail(f"15c ab_scorer: four-tap and packed sampling score differently ({sums}, bf16 {bf16})")
+    print(f"phase 15c ab_scorer ({time.perf_counter() - t0:.1f} s): {json.dumps(score_rows)}")
+
+    read = zero_launches(conv, sa)
+    t0 = time.perf_counter()
+    ft_lines, _ = capture_json(ab_finetune.main, ["--iters", "4"])
+    torch.cuda.synchronize()
+    launches["ab_finetune"] = read()
+    if any((ln["dw_corr3x3_dx_launches"], ln["dw_corr3x3_dk_launches"]) != (2, 2) for ln in ft_lines):
+        fail(f"15d ab_finetune: dx / kernel 3 launches a step {ft_lines}, expected 2 each")
+    print(f"phase 15d ab_finetune ({time.perf_counter() - t0:.1f} s): {json.dumps(ft_lines)}")
+
+    # -- 15e. ab_rank_blend at its width (240x320), reduced depth
+    read = zero_launches(conv, sa)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ossid_rank_blend_") as root:
+        rc, blend_lines = capture_json(ab_rank_blend.main, [*RANK_BLEND_ARGV, "--root", root])
+    torch.cuda.synchronize()
+    launches["ab_rank_blend"] = read()
+    summary = next((d for d in blend_lines if "summary" in d), None)
+    if rc != 0 or summary is None or summary["n_frames"] < 1 or launches["ab_rank_blend"]["sa_mlp_max"] < 2:
+        fail(f"15e ab_rank_blend: rc {rc}, summary {summary}, launches {launches['ab_rank_blend']}")
+    print(f"phase 15e ab_rank_blend {' '.join(RANK_BLEND_ARGV)} ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(summary)}")
+
+    # -- 15f. a trace of one detect and one score call
+    dtoid = DtoidModel(default_config(), seed=0, device="cuda")
+    det_fn, det_args = roofline.detect_program(dtoid, np.random.default_rng(1))
+    zm = ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False, device="cuda")
+    sc_fn, sc_args = roofline.score_program(zm, roofline.score_inputs(np.random.default_rng(1)), AB_SCORER_HYPOS)
+    det_fn(*det_args)
+    sc_fn(*sc_args)  # warm: templates, cuDNN plans
+    read = zero_launches(conv, sa)
+    with tempfile.TemporaryDirectory(prefix="ossid_trace_") as log_dir:
+        with profiling.trace(log_dir) as prof:
+            det_fn(*det_args)
+            sc_fn(*sc_args)
+        trace_mb = os.path.getsize(prof.trace_path) / 1e6
+    launches["trace"] = read()
+    spans = profiling.device_summary(prof, ["dw_corr3x3", "sa_mlp_max"])
+    # the trace must name each kernel with device time: under its span, or,
+    # where the profiler did not tie the ctypes launch to the span (it does
+    # not always: ROADMAP.md §3), under the kernel's own name, which holds it
+    named = {n: max(spans["spans_device_ms"][n], spans["kernels_device_ms"][n]) for n in spans["spans_device_ms"]}
+    if not all(ms > 0 for ms in named.values()):
+        fail(f"15f trace: no device time under the kernels' names: {spans}")
+    spans["launched"] = {"dw_corr3x3": launches["trace"]["dw_corr3x3"], "sa_mlp_max": launches["trace"]["sa_mlp_max"]}
+    spans["spans_tied"] = {n: spans["spans_device_ms"][n] > 0 for n in named}
+    print(f"phase 15f trace of one detect and one score call (M={AB_SCORER_HYPOS}), {trace_mb:.1f} MB: "
+          f"{json.dumps(spans)}")
+
+    # -- 15g. summarize_result of phase 9's results pickle
+    if not cli_summary or not all(np.isfinite(cli_summary.get(k, np.nan)) for k in cli_summary_keys):
+        fail(f"15g summarize_result of phase 9's pickle: {cli_summary}")
+    print(f"phase 15g summarize_result of phase 9's results pickle: {json.dumps(cli_summary)}")
+    print(f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3188,7 +3370,7 @@ def main() -> int:
     torch.cuda.synchronize()
     counters = (conv.dw_corr3x3_cuda, conv.dw_corr3x3_dx_cuda, conv.dw_corr3x3_dk_cuda, sa.sa_mlp_max_cuda)
     for c in counters:
-        c.launches = c.launches_bf16 = 0
+        c.launches = c.launches_bf16 = c.flops = 0
     served16 = [serve16(img, r[1]) for img, r in zip(frames[1:], results)]
     serve16_launches = {"dw_corr3x3_bf16": conv.dw_corr3x3_cuda.launches_bf16,
                         "sa_mlp_max_bf16": sa.sa_mlp_max_cuda.launches_bf16,
@@ -3418,6 +3600,9 @@ def main() -> int:
             torch, conv, sa, cli_w, cli_argv(cli_w, "dtoid", "--use_sift_hypos"))
         cli_rows, cli_counts = check_cli(cli_out, cli_launches, calls, cli_hypos, cli_bop)
         sift_cmp, sift_ms, sift_blank_ms, sift_profile = sift_card_vs_cpu(torch, cli_w, cli_out["loop"])
+        from ossid_code_torch.utils.logging import summarize_result
+
+        cli_result_summary = summarize_result(cli_out["results_path"])  # phase 15g
     stage = lambda key: float(np.mean([r[key] for r in cli_rows if r[key] is not None]) * 1e3)  # noqa: E731
     print(f"CLI {len(cli_rows)} targets 480x640 (ycbv-named world, PPF + SIFT, two scorers, host ICP, device ICP "
           f"top {REFINE_TOP}, finetune every {CLI_FINETUNE_INTERVAL}): world {world_s:.1f} s, main {cli_wall:.1f} s, "
@@ -3443,6 +3628,9 @@ def main() -> int:
     # -- 14. scale-out on the one card: the farm, the streams, the mesh ----------
     frames14, frames14_bf16, p14 = phase14(torch, F, conv, sa, dtoid, zephyr, scene, frames, poses, cfg)
 
+    # -- 15. the measuring tools: roofline, the A/B scripts, a trace, the log readers
+    p15 = phase15(torch, conv, sa, cli_result_summary, ("dtoid_mean_iou", "add01d", "mean_time_dtoid"))
+
     hbm = f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"
     dw_src, bwd_src = "ossid_code_torch/csrc/dw_corr3x3.cu", "ossid_code_torch/csrc/dw_corr3x3_bwd.cu"
     dw_replaces = "ossid_code_tpu/ops/pallas_kernels.py:49"
@@ -3455,7 +3643,8 @@ def main() -> int:
                             **{f"train_{f}": r["launches"][name] for f, r in train_runs.items()},
                             **{path: launches[name] for path, launches in p12.items()},
                             **{path: launches[name] for path, launches in p13.items()},
-                            **{path: launches[name] for path, launches in p14.items()}}
+                            **{path: launches[name] for path, launches in p14.items()},
+                            **{path: launches[name] for path, launches in p15.items()}}
     by_path11 = lambda name: {"loop_yuv_pipelined": p11_pipe[name], "loop_yuv_sync": p11_sync[name]}
     by_path = lambda name: {"serving_bf16": serve16_launches.get(name, 0), "loop_bf16": loop16_launches[name],
                             "cli": cli_launches[name], **by_path10(name), **by_path11(name)}

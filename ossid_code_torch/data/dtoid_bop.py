@@ -316,6 +316,14 @@ class NumpyLoader:
             yield item
 
 
+def sort_target_by_image(targets):
+    """Group target object ids per (scene, image) (ref datasets/utils.py:88)."""
+    out: dict = {}
+    for t in targets:
+        out.setdefault((t["scene_id"], t["im_id"]), []).append(t["obj_id"])
+    return out
+
+
 def load_process_zephyr_results(cfg, zephyr_results):
     """Filter/sort/split precomputed zephyr results (ref datasets/utils.py:6-33)."""
     if cfg.zephyr_filter_key is not None and cfg.zephyr_filter_threshold is not None:

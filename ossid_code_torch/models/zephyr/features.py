@@ -56,6 +56,28 @@ def bilinear_sample_packed(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) 
     return _blend(q[..., :c], q[..., c:2 * c], q[..., 2 * c:3 * c], q[..., 3 * c:], du, dv)
 
 
+def filter_hypos_by_mask(model_points, cam_K, pose_hypos, mask, th: float = 0.5):
+    """Keep hypotheses that project more than `th` of their model points
+    inside `mask`: a (M,) bool numpy array (host helper, interface of ref
+    utils/zephyr_utils.py:49-71)."""
+    import numpy as np
+
+    poses = np.asarray(pose_hypos, np.float64)
+    pts = np.asarray(model_points, np.float64)
+    K = np.asarray(cam_K, np.float64)
+    cam = np.einsum("mij,nj->mni", poses[:, :3, :3], pts) + poses[:, None, :3, 3]
+    z = np.clip(cam[..., 2], 1e-9, None)
+    u = (K[0, 0] * cam[..., 0] / z + K[0, 2]).round().astype(int)
+    v = (K[1, 1] * cam[..., 1] / z + K[1, 2]).round().astype(int)
+    h, w = mask.shape
+    invalid = (u < 0) | (u >= w) | (v < 0) | (v >= h)
+    u = np.clip(u, 0, w - 1)
+    v = np.clip(v, 0, h - 1)
+    inmask = np.asarray(mask, bool)[v, u]
+    inmask[invalid] = False
+    return inmask.mean(axis=1) > th
+
+
 def assemble_score_features(img, depth, cam_K, model_points, model_colors, model_normals,
                             poses, depth_margin: float = 0.02, return_uv: bool = True,
                             depth_origin: torch.Tensor | None = None,

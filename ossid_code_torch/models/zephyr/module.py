@@ -15,7 +15,10 @@ the depth before they are scored, and the refined rows replace them where
 they are valid. With `bf16=True` (the JAX package's OSSID_BF16_SCORER) the
 network runs in bf16 on a cached bf16 copy of its weights: geometry, ICP,
 feature assembly and the alignment statistic stay float32, and the point
-features are cast to bf16 just before the network.
+features are cast to bf16 just before the network. `packed_sample` (default
+on, the JAX package's OSSID_PACKED_SAMPLE) gathers each bilinear sample's
+four taps at once from a packed image; `packed_sample=False` takes the four
+taps one by one (the same values: `bilinear_sample`, `bilinear_sample_packed`).
 
 `train_step` trains the scorer as the JAX package does: the network in
 training mode (in-graph grouping, flax-rule BatchNorm, dropout from a
@@ -119,10 +122,12 @@ def scorer_loss(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor)
 class ZephyrModel:
     def __init__(self, num_points: int = 512, inconst_ratio_th: float = 100.0, seed: int = 0,
                  need_uv: bool = True, refine_top: int = 0, rank_blend: float = 0.0, align_feats: bool = False,
-                 bf16: bool = False, device: str | torch.device | None = None):
+                 bf16: bool = False, packed_sample: bool = True, device: str | torch.device | None = None):
         self.device = resolve_device(device)
         # the scorer network in bf16 (the JAX package's OSSID_BF16_SCORER)
         self.bf16 = bool(bf16)
+        # one gather of packed taps a bilinear sample (the JAX package's OSSID_PACKED_SAMPLE)
+        self.packed_sample = bool(packed_sample)
         self._bf16_net = None  # bf16 copy of self.net, dropped when the weights load
         self.num_points = num_points
         self.inconst_ratio_th = inconst_ratio_th
@@ -238,7 +243,7 @@ class ZephyrModel:
             poses, refined = self._refine(depth, depth_origin, cam_K, ricp_pts, ricp_nrms, poses, valid)
         point_x, uv, inconst = assemble_score_features(
             img, depth, cam_K, pts, cols, nrms, poses, return_uv=self.need_uv,
-            depth_origin=depth_origin, packed_sample=True)
+            depth_origin=depth_origin, packed_sample=self.packed_sample)
         if uv is None:
             uv = torch.zeros((poses.shape[0], 1, 2), device=poses.device)
         # geometric alignment statistic per hypothesis (see _pick)

@@ -22,7 +22,13 @@ Both operands are float32 or both bfloat16; each kernel has an instance of
 each (1 / 1b, 3 / 3b) and the wrappers choose it by dtype, a mix raises. In
 bf16 every function accumulates in float32 and rounds once to bf16, as the
 JAX package's bf16 grouped convolution does. Each wrapper counts its
-launches per dtype: `.launches` (float32) and `.launches_bf16`.
+launches per dtype: `.launches` (float32) and `.launches_bf16`, and the
+floating-point operations its launches did, `.flops` (2 * 9 * B * H * W * C a
+launch of kernel 1, its dx or kernel 3: a multiply and an add a tap), which
+`scripts/roofline.py::program_flops` adds to what PyTorch's FLOP counter sees
+(it cannot see a ctypes launch). Each launch runs inside a
+`utils/profiling.py::annotate` span named after its kernel ("dw_corr3x3",
+"dw_corr3x3_dx", "dw_corr3x3_dk").
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ossid_code_torch.kernels.build import check, library, stream_ptr
+from ossid_code_torch.utils.profiling import annotate
 
 
 def _dtype_of(x: torch.Tensor, other: torch.Tensor, what: str,
@@ -128,14 +135,18 @@ def _check_operands(what: str, x: torch.Tensor, other: torch.Tensor, other_shape
     return dtype
 
 
-def _count(fn, dtype: torch.dtype) -> None:
+def _count(fn, dtype: torch.dtype, shape: torch.Size) -> None:
+    """One launch of `fn`'s kernel in `dtype` over (B, H, W, C) = `shape`:
+    9 multiply-adds an element."""
     if dtype == torch.bfloat16:
         fn.launches_bf16 += 1
     else:
         fn.launches += 1
+    fn.flops += 2 * 9 * shape.numel()
 
 
-def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str, cross: bool = False) -> torch.Tensor:
+def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str, cross: bool = False,
+                       span: str = "dw_corr3x3") -> torch.Tensor:
     """Kernel 1 (1b) over B = F * T samples, sample i the pair (frame i // T,
     template i % T), each operand with a frame and a template stride: a
     per-sample batch is T = 1 with the batch strides (the library runs the
@@ -149,8 +160,9 @@ def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str, cross: 
     strides = (xs, 0, 0, ks) if cross else (xs, 0, ks, 0)
     b = f * t
     out = torch.empty((b, h, w, c), device=x.device, dtype=dtype)
-    err = getattr(library("dw_corr3x3", _SIGNATURES), f"dw_corr3x3_{_SUFFIX[dtype]}")(
-        x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, t, h, w, c, *strides, stream_ptr(x.device))
+    fn = getattr(library("dw_corr3x3", _SIGNATURES), f"dw_corr3x3_{_SUFFIX[dtype]}")
+    with annotate(span):
+        err = fn(x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, t, h, w, c, *strides, stream_ptr(x.device))
     check(err, what)
     return out
 
@@ -169,7 +181,7 @@ def dw_corr3x3_cuda(x: torch.Tensor, kernel: torch.Tensor, cross: bool = False) 
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
         raise RuntimeError("dw_corr3x3_cuda records no gradient; call depthwise_corr")
     out = _launch_dw_corr3x3(x, kernel, "dw_corr3x3_cuda", cross)
-    _count(dw_corr3x3_cuda, out.dtype)
+    _count(dw_corr3x3_cuda, out.dtype, out.shape)
     return out
 
 
@@ -177,8 +189,8 @@ def dw_corr3x3_dx_cuda(dout: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor
     """dx of kernel 1 (1b): kernel 1 (1b) on dout (B, H, W, C), contiguous,
     with the taps of kernel (B, 3, 3, C) turned by 180 degrees."""
     flipped = kernel.flip(1, 2).contiguous()
-    out = _launch_dw_corr3x3(dout, flipped, "dw_corr3x3_dx_cuda")
-    _count(dw_corr3x3_dx_cuda, out.dtype)
+    out = _launch_dw_corr3x3(dout, flipped, "dw_corr3x3_dx_cuda", span="dw_corr3x3_dx")
+    _count(dw_corr3x3_dx_cuda, out.dtype, out.shape)
     return out
 
 
@@ -262,16 +274,17 @@ def dw_corr3x3_dk_cuda(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
                               lambda cs, nb: _dk_clusters(dtype == torch.bfloat16, cs, nb, x.device.index))
     dk = torch.empty((b, 3, 3, c), device=x.device, dtype=dtype)
     name = f"dw_corr3x3_dk_{_SUFFIX[dtype]}"
-    err = getattr(library("dw_corr3x3_bwd", _BWD_SIGNATURES), name)(
-        x.data_ptr(), dout.data_ptr(), dk.data_ptr(), b, h, w, c, _batch_stride(x),
-        plan.slice_vectors, plan.band_rows, plan.bands, stream_ptr(x.device))
+    fn = getattr(library("dw_corr3x3_bwd", _BWD_SIGNATURES), name)
+    with annotate("dw_corr3x3_dk"):
+        err = fn(x.data_ptr(), dout.data_ptr(), dk.data_ptr(), b, h, w, c, _batch_stride(x),
+                 plan.slice_vectors, plan.band_rows, plan.bands, stream_ptr(x.device))
     check(err, name)
-    _count(dw_corr3x3_dk_cuda, dtype)
+    _count(dw_corr3x3_dk_cuda, dtype, dout.shape)
     return dk
 
 
 for _fn in (dw_corr3x3_cuda, dw_corr3x3_dx_cuda, dw_corr3x3_dk_cuda):
-    _fn.launches = _fn.launches_bf16 = 0
+    _fn.launches = _fn.launches_bf16 = _fn.flops = 0
 
 
 class DwCorr3x3(torch.autograd.Function):

@@ -23,6 +23,13 @@ kernel by dtype:
     feature rows 16-byte aligned (rows of their own, as SA2's input) by
     16-byte `cp.async`, others (a view into the point rows, as SA1's) and
     the xyz rows through registers.
+
+The wrapper counts its launches (`.launches` float32, `.launches_bf16`) and
+the floating-point operations they did, `.flops`: 2 * M * S * k * (Cin * C1
++ C1 * C2 + C2 * C3) a launch, the three layers' multiply-adds (the max and
+the bias are not counted), which `scripts/roofline.py::program_flops` adds
+to what PyTorch's FLOP counter sees. Each launch runs inside a
+`utils/profiling.py::annotate` span named "sa_mlp_max".
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from ossid_code_torch.kernels.build import check, library, stream_ptr
+from ossid_code_torch.utils.profiling import annotate
 
 EPS = 1e-5  # BatchNorm epsilon of the JAX package (flax default)
 _MAX_GROUP = 64
@@ -260,21 +268,24 @@ def sa_mlp_max_cuda(xyz, feats, center_idx, group_idx, Ws, bs) -> torch.Tensor:
     vec = 8 if bf16 else 4  # channels in 16 bytes
     aligned = int(feats.data_ptr() % 16 == 0 and all(v % vec == 0 for v in (feats.stride(0), feats.stride(1), cf)))
     name = "sa_mlp_max_bf16" if bf16 else "sa_mlp_max_tf32"
-    err = getattr(lib, name)(
-        xyz.data_ptr(), xyz.stride(0), xyz.stride(1),
-        feats.data_ptr(), feats.stride(0), feats.stride(1), cf, aligned,
-        cidx.data_ptr(), gidx.data_ptr(), m, s, k, *widths, packed.data_ptr(),
-        bs[0].data_ptr(), bs[1].data_ptr(), bs[2].data_ptr(), out.data_ptr(), stream_ptr(dev))
+    with annotate("sa_mlp_max"):
+        err = getattr(lib, name)(
+            xyz.data_ptr(), xyz.stride(0), xyz.stride(1),
+            feats.data_ptr(), feats.stride(0), feats.stride(1), cf, aligned,
+            cidx.data_ptr(), gidx.data_ptr(), m, s, k, *widths, packed.data_ptr(),
+            bs[0].data_ptr(), bs[1].data_ptr(), bs[2].data_ptr(), out.data_ptr(), stream_ptr(dev))
     check(err, name)
     if bf16:
         sa_mlp_max_cuda.launches_bf16 += 1
     else:
         sa_mlp_max_cuda.launches += 1
+    sa_mlp_max_cuda.flops += 2 * m * s * k * sum(cin * cout for cin, cout in zip(cins, widths))
     return out
 
 
 sa_mlp_max_cuda.launches = 0       # kernel 2, float32
 sa_mlp_max_cuda.launches_bf16 = 0  # kernel 2b
+sa_mlp_max_cuda.flops = 0          # both
 
 
 _vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

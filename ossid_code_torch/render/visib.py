@@ -29,6 +29,12 @@ def _estimate_visib_mask(
     raise ValueError(f"unknown visib_mode {visib_mode}")
 
 
+def estimate_visib_mask(
+    d_test: np.ndarray, d_model: np.ndarray, delta: float, visib_mode: str = "bop19"
+) -> np.ndarray:
+    return _estimate_visib_mask(d_test, d_model, delta, visib_mode)
+
+
 def estimate_visib_mask_gt(
     d_test: np.ndarray, d_gt: np.ndarray, delta: float, visib_mode: str = "bop19"
 ) -> np.ndarray:

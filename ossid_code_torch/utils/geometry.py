@@ -68,11 +68,54 @@ def depth2cloud(depth: np.ndarray, mask: np.ndarray, cam_K: np.ndarray) -> np.nd
 # Rotations
 # ---------------------------------------------------------------------------
 
+def proj_cloud(pts: np.ndarray, cam_K: np.ndarray) -> np.ndarray:
+    """Project (N, 3) camera-frame points to pixel coordinates: (N, 2) of
+    (row, col) = (v, u), the reference's (px, py) order at
+    utils/__init__.py:269-287, where px is the row."""
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    col = cam_K[0, 0] * x / z + cam_K[0, 2]
+    row = cam_K[1, 1] * y / z + cam_K[1, 2]
+    return np.stack([row, col], axis=1)
+
+
+def project_points_uv(poses: np.ndarray, model_points: np.ndarray, cam_K: np.ndarray) -> np.ndarray:
+    """Model points under M pose hypotheses: poses (M, 4, 4), model_points
+    (N, 3) -> integer (M, N, 2) of (u, v) pixels (u the column), the
+    interface of zephyr.utils.projectPointsUv (call site ref
+    utils/zephyr_utils.py:58)."""
+    R = poses[:, :3, :3]
+    t = poses[:, :3, 3]
+    cam = np.einsum("mij,nj->mni", R, model_points) + t[:, None, :]
+    z = np.clip(cam[..., 2], 1e-9, None)
+    u = cam_K[0, 0] * cam[..., 0] / z + cam_K[0, 2]
+    v = cam_K[1, 1] * cam[..., 1] / z + cam_K[1, 2]
+    return np.stack([u, v], axis=-1).round().astype(np.int64)
+
+
+def depth_im_to_dist_im(depth: np.ndarray, cam_K: np.ndarray) -> np.ndarray:
+    """Z-depth image -> per-pixel ray distance image, dist = depth *
+    ||[(u-cx)/fx, (v-cy)/fy, 1]|| (the role of bop_toolkit_lib.misc.
+    depth_im_to_dist_im_fast; call site ref scripts/online_learning.py:427)."""
+    h, w = depth.shape
+    u = np.arange(w, dtype=np.float32)[None, :]
+    v = np.arange(h, dtype=np.float32)[:, None]
+    xs = (u - cam_K[0, 2]) / cam_K[0, 0]
+    ys = (v - cam_K[1, 2]) / cam_K[1, 1]
+    return np.asarray(depth, np.float32) * np.sqrt(xs * xs + ys * ys + 1.0)
+
+
 def mat2quat(R: np.ndarray) -> np.ndarray:
     """Rotation matrix (..., 3, 3) -> quaternion (..., 4) scalar-last."""
     single = R.ndim == 2
     q = _R.from_matrix(R.reshape(-1, 3, 3)).as_quat()
     return q[0] if single else q.reshape(R.shape[:-2] + (4,))
+
+
+def quat2mat(q: np.ndarray) -> np.ndarray:
+    """Quaternion (..., 4) scalar-last -> rotation matrix (..., 3, 3)."""
+    single = q.ndim == 1
+    m = _R.from_quat(q.reshape(-1, 4)).as_matrix()
+    return m[0] if single else m.reshape(q.shape[:-1] + (3, 3))
 
 
 def quat_angular_diff_batch(Q1: np.ndarray, Q2: np.ndarray) -> np.ndarray:

@@ -55,6 +55,21 @@ def normalize_image(img: np.ndarray) -> np.ndarray:
     return img.astype(np.float32) / 255.0
 
 
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+def normalize_image_range(img: np.ndarray) -> np.ndarray:
+    """[0,1] float RGB (..., 3 last axis) -> ImageNet-normalized
+    (ref utils/__init__.py:33-39; applied channel-last here)."""
+    return (img - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def denormalize_image_range(img: np.ndarray) -> np.ndarray:
+    """The inverse of normalize_image_range."""
+    return img * IMAGENET_STD + IMAGENET_MEAN
+
+
 def process_data(
     img: np.ndarray,
     mask: np.ndarray,

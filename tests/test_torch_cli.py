@@ -399,6 +399,7 @@ def _check_cli_runs(jax_run, port_run):
             picked.append(pickle.load(f))
     want, got = picked
     assert set(got) == set(want) == {"test_results", "main_args", "finetune_logs", "final_state_dict"}
+    _check_result_readers([os.path.join(r["OSSID_RESULT_ROOT"], "results_cli.pkl") for r in (jroots, troots)])
     assert {k: v for k, v in got["main_args"].items() if k != "device"} == want["main_args"]
     assert len(got["finetune_logs"]) == len(want["finetune_logs"]) == 2
     rows, jrows = got["test_results"], want["test_results"]
@@ -421,6 +422,22 @@ def _check_cli_runs(jax_run, port_run):
         np.testing.assert_allclose(g["score"], w["score"], rtol=2e-3, atol=5e-4)
         np.testing.assert_allclose(g["pose"][:3, :3], w["pose"][:3, :3], rtol=0, atol=1e-4)
         np.testing.assert_allclose(g["pose"][:3, 3], w["pose"][:3, 3], rtol=0, atol=0.1)  # mm
+
+
+def _check_result_readers(paths):
+    """The log readers (utils/logging.py) of both packages on each CLI's
+    results pickle: the port's columns equal JAX's DataFrame, the summaries
+    equal."""
+    from ossid_code_tpu.utils.logging import load_result, summarize_result
+    from test_torch_tooling import assert_columns_match
+
+    from ossid_code_torch.utils import logging as tlog
+
+    for path in paths:
+        assert_columns_match(tlog.load_result(path), load_result(path))
+        summary = tlog.summarize_result(path)
+        assert {"dtoid_mean_iou", "add01d", "mean_time_dtoid"} <= set(summary)
+        assert summary == pytest.approx(summarize_result(path), rel=1e-12, nan_ok=True)
 
 
 def test_cli_raw_dtoid_matches_jax(world, weights, tmp_path, monkeypatch, capsys):

@@ -102,10 +102,10 @@ def test_serving_slice_matches_jax():
     assert tscore["pred_idx"] == jscore["pred_idx"]
 
 
-# JAX and the JAX package, and the image and table libraries the card's
+# JAX and the JAX package, and the image, table and log libraries the card's
 # machine lacks
 _BANNED = {"jax", "jaxlib", "flax", "optax", "ossid_code_tpu", "cv2", "imageio", "PIL", "pandas", "matplotlib",
-           "torchvision", "h5py"}
+           "torchvision", "h5py", "tensorboard"}
 
 
 def _imports(path: Path):
@@ -132,7 +132,9 @@ def test_import_scan_covers_the_training_and_script_modules():
     families' models, data and host utilities (JPEG: no imageio or PIL),
     the figures (no matplotlib), the render family (HDF5: no h5py), and
     the scale-out modules (the mesh, the launcher, the multi-stream loop,
-    global-batch BatchNorm)."""
+    global-batch BatchNorm), and the measuring tools (profiling, probes, the
+    log readers and their event-file reader: no pandas, no tensorboard;
+    the roofline and the A/B scripts)."""
     for rel in ("ossid_code_torch/train/offline.py", "ossid_code_torch/train/zephyr_offline.py",
                 "ossid_code_torch/scripts/demo_e2e.py", "ossid_code_torch/core/checkpoint.py",
                 "ossid_code_torch/eval/bop_ar.py", "ossid_code_torch/hypo/icp.py",
@@ -149,7 +151,12 @@ def test_import_scan_covers_the_training_and_script_modules():
                 "ossid_code_torch/data/hdf5_render.py", "ossid_code_torch/scripts/index_render_dataset.py",
                 "ossid_code_torch/parallel/mesh.py", "ossid_code_torch/parallel/launch.py",
                 "ossid_code_torch/parallel/__init__.py", "ossid_code_torch/loop/multi_stream.py",
-                "ossid_code_torch/models/batchnorm.py"):
+                "ossid_code_torch/models/batchnorm.py", "ossid_code_torch/utils/profiling.py",
+                "ossid_code_torch/utils/probe.py", "ossid_code_torch/utils/timing.py",
+                "ossid_code_torch/utils/logging.py", "ossid_code_torch/utils/event_file.py",
+                "ossid_code_torch/scripts/roofline.py", "ossid_code_torch/scripts/ab_templates.py",
+                "ossid_code_torch/scripts/ab_scorer.py", "ossid_code_torch/scripts/ab_finetune.py",
+                "ossid_code_torch/scripts/ab_rank_blend.py", "ossid_code_torch/scripts/file_copy.py"):
         assert rel in _PORT_FILES, rel
 
 

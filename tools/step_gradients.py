@@ -60,7 +60,7 @@ def gradients(model, weights, cfg, batch, dtype=torch.float32):
 
 def patched(name, fn):
     """Replace conv.<name> (a counted wrapper) by fn for one run."""
-    fn.launches = fn.launches_bf16 = 0
+    fn.launches = fn.launches_bf16 = fn.flops = 0
     orig = getattr(conv, name)
 
     class Patch:
