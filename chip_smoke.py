@@ -102,19 +102,20 @@ Phases, each of which exits non-zero on failure:
      pretrained detector's IoU exceeds the untrained one's.
  11. (run inside phase 6, on its world and bf16-step weights) the loop with
      --yuv_transfer, synchronous and pipelined in turns (PIPE_TURNS, after a
-     warm-up run) from the same weights with cuDNN deterministic: the
-     same gates, finetune schedule and hypothesis counts in every run, and
-     scores and poses no further apart between the modes than between the
-     synchronous runs (that spread printed); the launches of each run
-     (kernel 1: 2 a detection, redispatches included; kernel 2: 2 a score
-     call; 1b, its dx and 3b: 2 a step) and its speculation as in phase 6;
-     frames/s of each run, the speculation's hit rate, fetches a frame, the
-     fetch and wait times by kind, one traced pipelined pass. 11b. the same
-     turns in the default configuration (phase 6's float32-step weights,
-     RGB uploads, cuDNN's normal algorithms): launches and speculation
-     held, frames/s, rows' agreement and spread reported. Then a 480x640
-     frame's YUV upload and unpack against the direct upload (the card's
-     unpack within 1 of the CPU's).
+     warm-up run) from the same weights with cuDNN deterministic, each run
+     fingerprinted (the detector's state after each finetune, the depth
+     crop and pose count of each hypothesis generation): the same gates,
+     finetune schedule and hypothesis counts in every run, the synchronous
+     runs' scores and poses equal and the pipelined runs' no further
+     (hold_turns: a failure names the first divergent target, its fields in
+     both runs, the row counts and the stage where the runs part); the
+     launches of each run (kernel 1: 2 a detection, redispatches included;
+     kernel 2: 2 a score call; 1b, its dx and 3b: 2 a step) and its
+     speculation as in phase 6; frames/s of each run, the speculation's hit
+     rate, fetches a frame, the fetch and wait times by kind, one traced
+     pipelined pass (CUDA activity only). Then a 480x640 frame's YUV upload
+     and unpack against the direct upload (the card's unpack within 1 of
+     the CPU's). The default configuration's turns are phase 16b's.
  12. the train CLI's legacy families at the presets' widths on a world built
      here (10 frames of 480x640 with 2 textured wedges, object 2 seen and 1
      unseen on a ycbv-named world; 128x128 and 124x124 template grids; an
@@ -164,6 +165,29 @@ Phases, each of which exits non-zero on failure:
      equal); (e) one OfflineTrainer step under a one-process NCCL group
      against the trainer with no group, from the same weights (phase 7's
      limits).
+ 15. the measuring tools: the roofline, the four A/B scripts, and (15f,
+     run before phase 3: the profiler loses a session's first records once
+     a process has opened about 15 sessions) the CUDA runtime the kernels
+     resolve (built with `-cudart shared`: the one libcudart PyTorch maps,
+     or the phase fails naming both), then 5 detect and score calls in one
+     trace, where every launch of kernel 1 and 2 must be one device record
+     under the kernel's own name inside a span of its name (trace_kernels);
+     the log readers.
+ 16. the main path at the canonical configurations: (a) BASELINE config 3
+     at its full length, 72 targets (36 frames x 2 objects), a finetune
+     every 32 at batch 8, bf16 steps, RGB uploads, cuDNN deterministic, in
+     turns (4 synchronous, 4 pipelined), held by hold_turns and each run's
+     launch schedule, the dw-corr calls of one run against their plain
+     versions, one pipelined pass traced; (b) the same turns in the port's
+     default configuration (float32 steps, RGB, cuDNN's normal algorithms):
+     launches and speculation held, medians and spreads of frames/s,
+     schedules, divergences and spread reported; (c) configuration 1's 160
+     templates through the CLI on a world named lmo (LMO_ARGV, 36 targets,
+     a grid of 160 views an object), synchronous and pipelined: a row a
+     target, the gates and schedule equal, the launches of the schedule, a
+     finite CSV, kernel 1's T=160 calls against the plain version; (d)
+     ossid_code_torch/entry.py: entry() and dryrun_multidevice(2) on the
+     card.
 Weights are random, from fixed seeds (the demo trains its own). The float32 paths run with TF32 off
 for cuDNN convolutions and cuBLAS matmuls (main path and comparisons).
 
@@ -174,7 +198,7 @@ runs, phase 11's pipelined and synchronous runs, phase 12's four train
 runs and the wrapper, phase 13's three render runs, and phase 14's farm
 round and multi-stream loop (its warm pass) for all; kernel 1's entry also
 holds the T=160 row, and kernel 1's and 1b's the frame-indexed rows of
-phase 14a);
+phase 14a; phase 16's runs are among the paths);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or without the ossid_code_torch package beside it, it exits
@@ -295,6 +319,14 @@ DEMO_POINTS = 256
 SLEEP_CYCLES = 20_000_000  # ~10 ms of a 1.98 GHz SM clock: longer than enqueueing one timed run
 
 
+T_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """A line with the seconds since the script started, before `what`."""
+    print(f"-- {what} at {time.perf_counter() - T_START:.1f} s", flush=True)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -365,6 +397,50 @@ def profile_call(torch, fn) -> dict:
             "device_kernels": n_kernels, "device_copies": n_copies,
             "top_kernels_ms": [(name[:70], ms) for name, ms in top],
             "host_top_ops_self_ms": [(a.key[:50], a.self_cpu_time_total / 1e3, a.count) for a in host]}
+
+
+def trace_pass(torch, fn) -> dict:
+    """One call of fn under torch.profiler with CUDA activity alone, read from
+    the profiler's raw records (a loop pass launches some 3,500 kernels a
+    target; building the CPU ops' event tree would take longer than the
+    pass): the host-clock wall time, the device's busy time (the union of
+    its kernels' and copies' intervals), the idle share of the wall time,
+    the kernels and copies, the kernels that took most of the time, and the
+    seconds the records took to read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t_read = time.perf_counter()
+    intervals, by_name = [], {}
+    n_kernels = n_copies = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        start, dur = e.start_ns(), e.duration_ns()
+        intervals.append((start, start + dur))
+        name = e.name()
+        by_name[name] = by_name.get(name, 0.0) + dur / 1e6
+        if name.startswith(("Memcpy", "Memset")):
+            n_copies += 1
+        else:
+            n_kernels += 1
+    busy_ns, end = 0, None
+    for a, b in sorted(intervals):
+        if end is None or b > end:
+            busy_ns += b - (a if end is None else max(a, end))
+            end = b
+    busy_ms = busy_ns / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if intervals else None,
+            "device_kernels": n_kernels, "device_copies": n_copies,
+            "top_kernels_ms": [(name[:70], ms) for name, ms in top], "read_s": time.perf_counter() - t_read}
 
 
 def zero_launches(conv, sa):
@@ -913,9 +989,9 @@ def hold_dw_calls(torch, conv, calls):
     return rows
 
 
-def loop_world(root, cfg):
+def loop_world(root, cfg, n_frames=LOOP_FRAMES):
     """The port's synthetic BOP world at 480x640 (the JAX bench's world,
-    bench.py:77-110): LOOP_FRAMES frames of 2 objects, 10-view template
+    bench.py:77-110): `n_frames` frames of 2 objects, 10-view template
     grids, precomputed results (GT + noise, score 50) for the loaders."""
     import pickle
 
@@ -924,12 +1000,12 @@ def loop_world(root, cfg):
         default_objects, make_synthetic_bop, make_template_grid, make_zephyr_results_pkl,
     )
 
-    make_synthetic_bop(root, n_frames=LOOP_FRAMES, img_h=480, img_w=640)
+    make_synthetic_bop(root, n_frames=n_frames, img_h=480, img_w=640)
     make_template_grid(os.path.join(root, "grid"), default_objects(), n_views=10)
     d = cfg.dataset
     d.bop_root, d.test_dataset_name, d.grid_root = root, "synth", os.path.join(root, "grid")
     d.n_local_test, d.load_zephyr_result = N_TEMPLATES, True
-    d.cache_frames = d.proc_cache_frames = 4 * LOOP_FRAMES
+    d.cache_frames = d.proc_cache_frames = 4 * n_frames
     d.zephyr_result_path = os.path.join(root, "zr.pkl")
     bop = BopDataset(BopDatasetArgs(bop_root=root, dataset_name="synth"))
     make_zephyr_results_pkl(d.zephyr_result_path, bop, score=50.0)
@@ -946,10 +1022,12 @@ def hypo_gens(bop):
                                 ref_pt_rate=0.25, refine_top=0, max_poses=LOOP_HYPOS) for oid in bop.obj_ids}
 
 
-def run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens, pipeline_scoring=True, yuv_transfer=False):
-    """The loop under the gating profile, pipelined (the default) or not;
-    returns its rows, the host-clock wall time of the run (synchronised at
-    both ends) and the loop."""
+def run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens, pipeline_scoring=True, yuv_transfer=False,
+             interval=FINETUNE_INTERVAL):
+    """The loop under the gating profile (a finetune every `interval`
+    buffered targets), pipelined (the default) or not; returns its rows,
+    the host-clock wall time of the run (synchronised at both ends) and the
+    loop."""
     import argparse
 
     from ossid_code_torch.data.dtoid_bop import get_dataloaders
@@ -958,7 +1036,7 @@ def run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens, pipeline_scoring=Tru
     args = argparse.Namespace(
         dataset_name="synth", exp_name="chip_smoke", use_dtoid_segmask=False,
         ignore_dtoid_mask=False, always_dtoid_mask=True, use_oracle_gt=True,
-        use_sift_hypos=False, use_maskrcnn=False, finetune_interval=FINETUNE_INTERVAL,
+        use_sift_hypos=False, use_maskrcnn=False, finetune_interval=interval,
         finetune_warmup=0, finetune_epochs=1, finetune_reset=False,
         finetune_batch_size=FINETUNE_BATCH, non_cum=False, save_each=False, raw_dtoid=False,
         no_finetune=False, fast=True, zephyr_depth_crop=DEPTH_CROP, yuv_transfer=yuv_transfer)
@@ -1167,7 +1245,7 @@ def drive_loop(torch, conv, sa, dtoid, zephyr, cfg, bop, zr_list, gens):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     # the same loop again under torch.profiler (device busy time and the
     # kernels that take it), after the launch counts were read
-    profile = profile_call(torch, lambda: run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens))
+    profile = trace_pass(torch, lambda: run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens))
     return rows, wall_s, loop, launches, peak_gib, profile
 
 
@@ -1197,27 +1275,177 @@ PIPE_KEYS = ("obj_id", "scene_id", "im_id", "dtoid_confident", "zephyr_confident
 YUV_TIMES = 20   # uploads timed, host clock, each way
 
 
+def max_diff(a, b) -> float:
+    """The largest |a - b| over two arrays of one shape, NaN against NaN and
+    equal infinities counting as equal; NaN against a number, or shapes
+    that differ, as inf."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    same = (a == b) | (np.isnan(a) & np.isnan(b))
+    if same.all():
+        return 0.0
+    with np.errstate(invalid="ignore"):
+        d = np.abs(a - b)[~same]
+    return float(np.where(np.isnan(d), np.inf, d).max())
+
+
+def row_ids(r) -> tuple:
+    return int(r["obj_id"]), int(r["scene_id"]), int(r["im_id"])
+
+
 def run_spread(a: list, b: list) -> dict:
-    """The largest differences between two runs' rows: picked score,
-    hypothesis scores (finite ones, of the targets scored with as many
-    hypotheses in both runs) and picked pose; and the number of targets
-    whose hypothesis counts differ. Counts may differ where cuDNN's normal
-    algorithms let the finetuned detector's masks drift (phase 11b)."""
-    d = {"pred_score": 0.0, "hypo_scores": 0.0, "pred_pose": 0.0, "hypo_counts_differ": 0}
+    """The largest differences between two runs' rows, target by target:
+    picked score, hypothesis scores (of the targets scored with as many
+    hypotheses in both runs) and picked pose (max_diff: NaN equals NaN);
+    the number of targets whose hypothesis counts differ; and the rows that
+    do not pair with a row of the same target (`rows_misaligned`: another
+    count or another order), which make every spread inf. Counts may differ
+    where cuDNN's normal algorithms let the finetuned detector's masks
+    drift (phase 16b)."""
+    d = {"pred_score": 0.0, "hypo_scores": 0.0, "pred_pose": 0.0, "hypo_counts_differ": 0,
+         "rows_misaligned": abs(len(a) - len(b))}
     for ra, rb in zip(a, b):
-        d["pred_score"] = max(d["pred_score"], abs(ra["pred_score"] - rb["pred_score"]))
+        if row_ids(ra) != row_ids(rb):
+            d["rows_misaligned"] += 1
+            continue
+        d["pred_score"] = max(d["pred_score"], max_diff(ra["pred_score"], rb["pred_score"]))
         ha, hb = ra["hypo_scores"], rb["hypo_scores"]
         if (ha is None) != (hb is None) or (ha is not None and np.shape(ha) != np.shape(hb)):
             d["hypo_counts_differ"] += 1
         elif ha is not None:
-            sa_, sb = np.asarray(ha), np.asarray(hb)
-            fin = np.isfinite(sa_) & np.isfinite(sb)
-            if not np.array_equal(np.isfinite(sa_), np.isfinite(sb)):
-                d["hypo_scores"] = float("inf")
-            elif fin.any():
-                d["hypo_scores"] = max(d["hypo_scores"], float(np.abs(sa_[fin] - sb[fin]).max()))
-        d["pred_pose"] = max(d["pred_pose"], float(np.abs(np.asarray(ra["pred_pose"]) - rb["pred_pose"]).max()))
+            d["hypo_scores"] = max(d["hypo_scores"], max_diff(ha, hb))
+        d["pred_pose"] = max(d["pred_pose"], max_diff(ra["pred_pose"], rb["pred_pose"]))
+    if d["rows_misaligned"]:
+        d.update(pred_score=float("inf"), hypo_scores=float("inf"), pred_pose=float("inf"))
     return d
+
+
+def first_divergence(a: list, b: list) -> dict | None:
+    """The first target at which run b's rows depart from run a's in
+    PIPE_KEYS (the gates, the finetune schedule, the hypothesis count), a
+    row that one run lacks included: its index, its PIPE_KEYS fields in
+    both runs (None for a missing row) and the runs' row counts; None where
+    every row agrees."""
+    def keys(rows, i):
+        return None if i >= len(rows) else {k: (v.item() if hasattr(v, "item") else v)
+                                            for k, v in ((k, rows[i][k]) for k in PIPE_KEYS)}
+    for i in range(max(len(a), len(b))):
+        ka, kb = keys(a, i), keys(b, i)
+        if ka != kb:
+            return {"index": i, "a": ka, "b": kb, "rows": [len(a), len(b)]}
+    return None
+
+
+def digest(*arrays) -> str:
+    """A digest of the arrays' shapes, dtypes and bytes (None counts as an empty array)."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=8)
+    for x in arrays:
+        x = np.ascontiguousarray(np.asarray([] if x is None else x))
+        h.update(f"{x.shape}{x.dtype}".encode())
+        h.update(x.tobytes())
+    return h.hexdigest()
+
+
+def bits_checksum(torch, tensors):
+    """A checksum of the tensors' bits, left on their device (no wait): each
+    tensor's elements read as integers of their width, weighted by their
+    position in the concatenation of those of that width, summed in int64
+    (an integer sum wraps to the same value in any order)."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    groups: dict = {}
+    for t in tensors:
+        t = t.detach()
+        t = t.to(torch.uint8) if t.dtype == torch.bool else t
+        groups.setdefault(t.element_size(), []).append(t.reshape(-1).view(ints[t.element_size()]))
+    total = 0
+    for size, parts in sorted(groups.items()):
+        flat = torch.cat(parts).to(torch.int64)
+        weight = torch.arange(flat.numel(), device=flat.device, dtype=torch.int64) % 65521 + size
+        total = total + (flat * weight).sum()
+    return total
+
+
+@contextlib.contextmanager
+def fingerprinting(torch, gens: dict):
+    """Within, every finetune the loop runs (loop/online_learning.py's
+    finetune_dtoid) leaves a checksum of the detector's parameters,
+    BatchNorm statistics and optimiser state after it (bits_checksum, read
+    when the block ends), and every hypothesis generation by `gens`
+    (wrapped in place) a digest of its input cloud (the depth crop under
+    the detection's mask) and its pose count. Nothing enters the loop's
+    rows. Yields {"finetunes": [(buffered targets, checksum, the optimiser's
+    distinct step counts)], "ppf": [(obj_id, input digest, poses)]}."""
+    import ossid_code_torch.loop.online_learning as ol
+
+    rec = {"finetunes": [], "ppf": []}
+    finetune = ol.finetune_dtoid
+
+    def recorded(model, train_dataset, *args, **kwargs):
+        out = finetune(model, train_dataset, *args, **kwargs)
+        opt = [v for st in model.optimizer.state.values() for v in st.values()]
+        rec["finetunes"].append((len(train_dataset), bits_checksum(torch, [
+            *model.net.state_dict().values(), *(v for v in opt if isinstance(v, torch.Tensor))]),
+            sorted({int(v) for v in opt if not isinstance(v, torch.Tensor)})))
+        return out
+
+    def recording(oid, find):
+        def find_recorded(scene_pc, *args, **kwargs):
+            out = find(scene_pc, *args, **kwargs)
+            rec["ppf"].append((oid, digest(scene_pc), len(out[0])))
+            return out
+        return find_recorded
+
+    for oid, gen in gens.items():
+        gen.find_surface_model = recording(oid, gen.find_surface_model)
+    ol.finetune_dtoid = recorded
+    try:
+        yield rec
+    finally:
+        ol.finetune_dtoid = finetune
+        rec["finetunes"] = [(n, int(c), counts) for n, c, counts in rec["finetunes"]]
+
+
+def divergent_stage(a: dict, b: dict) -> dict | None:
+    """Where run b first departs from run a (each a pipe_turns run: rows and
+    fingerprints), target by target in the loop's order: "detection" (the
+    detection's boxes, scores and mask bits; "before any finetune" where no
+    event ran before that target), "mask" (the detection agrees, the depth
+    crop PPF reads does not), "host PPF" (equal input, another pose count),
+    "schedule" (another gate or finetune flag), "scoring" (scores, picked
+    pose), then "finetune" (the checksum after an event, or an event one
+    run lacks) before the next target. None where every stage agrees."""
+    ra, rb = a["rows"], b["rows"]
+    pa, pb = a["fingerprints"]["ppf"], b["fingerprints"]["ppf"]
+    fa, fb = a["fingerprints"]["finetunes"], b["fingerprints"]["finetunes"]
+    det = lambda r: digest(r["dtoid_bbox"], r["dtoid_score"], r["dtoid_pred_mask"])  # noqa: E731
+    score = lambda r: digest(r["hypo_scores"], r["pred_pose"], r["pred_score"])  # noqa: E731
+    events = 0
+    for i in range(max(len(ra), len(rb))):
+        if i >= len(ra) or i >= len(rb) or row_ids(ra[i]) != row_ids(rb[i]):
+            return {"index": i, "stage": "rows", "rows": [len(ra), len(rb)]}
+        x, y = ra[i], rb[i]
+        where = {"index": i, "target": row_ids(x), "finetunes_before": events}
+        if det(x) != det(y):
+            return dict(where, stage="detection" + ("" if events else " before any finetune"),
+                        top_scores=[np.asarray(x["dtoid_score"])[:3].tolist(), np.asarray(y["dtoid_score"])[:3].tolist()])
+        crop = [p[i] if i < len(p) else None for p in (pa, pb)]
+        if crop[0] != crop[1]:
+            stage = "mask" if crop[0] is None or crop[1] is None or crop[0][1] != crop[1][1] else "host PPF"
+            return dict(where, stage=stage, ppf=crop)
+        d = first_divergence([x], [y])
+        if d is not None:
+            return dict(where, stage="schedule", a=d["a"], b=d["b"])
+        if score(x) != score(y):
+            return dict(where, stage="scoring", pred_score=[x["pred_score"], y["pred_score"]])
+        if x["finetune"]:
+            ev = [f[events] if events < len(f) else None for f in (fa, fb)]
+            if ev[0] != ev[1]:
+                return dict(where, stage="finetune", event=events, fingerprints=ev)
+            events += 1
+    return None
 
 
 def yuv_transport(torch, frame: np.ndarray) -> dict:
@@ -1250,31 +1478,44 @@ def yuv_transport(torch, frame: np.ndarray) -> dict:
             "card_vs_cpu_max_diff": int(diff.max()), "card_vs_cpu_exact_share": float((diff == 0).mean())}
 
 
-def pipe_turns(torch, conv, sa, dtoid, zephyr, cfg, bop, zr_list, make_gens, yuv: bool, warm_up: bool) -> list:
-    """The loop synchronous and pipelined in turns (PIPE_TURNS, after one
-    pipelined warm-up run that is not counted when `warm_up`) from the same
-    weights, each run with fresh hypothesis generators from `make_gens` and
-    the launch counters and STATS at 0 just before and read just after.
-    Every run's launches are held to its own schedule (kernel 1: 2 a
+def pipe_turns(torch, conv, sa, dtoid, zephyr, cfg, bop, zr_list, make_gens, yuv: bool, warm_up: bool,
+               turns=PIPE_TURNS, targets=2 * LOOP_FRAMES, interval=FINETUNE_INTERVAL, where="phase 11",
+               record_dw=False) -> list:
+    """The loop synchronous and pipelined in turns (`turns`, after one
+    pipelined warm-up run when `warm_up`) from the same weights, a finetune
+    every `interval` buffered targets, each run with fresh hypothesis
+    generators from `make_gens`, fingerprinted (fingerprinting), and the
+    launch counters and STATS at 0 just before and read just after. Every
+    counted run's launches are held to its own schedule (kernel 1: 2 a
     detection, redispatches included; kernel 2: 2 a score call; the step's
-    three kernels, float32 or bf16: 2 a step), a pipelined run's
-    speculation to hold_speculation and a synchronous run to none. Returns
-    the runs."""
+    three kernels, float32 or bf16: 2 a step), its rows to `targets`, a
+    pipelined run's speculation to hold_speculation and a synchronous run
+    to none. With `record_dw`, the first counted run records the shapes
+    kernels 1 and 3 launch on (recording_dw_calls, its "dw_calls"). Returns
+    the runs, the warm-up first (mode "warm-up")."""
     from ossid_code_torch.utils.rpc_stats import STATS
 
     sd = dtoid.state_dict()
     step_kernels = ("dw_corr3x3_bf16", "dw_corr3x3_dx_bf16", "dw_corr3x3_dk_bf16") if dtoid.bf16_finetune else \
         ("dw_corr3x3", "dw_corr3x3_dx", "dw_corr3x3_dk")
     runs = []
-    for mode in ("warm-up",) * warm_up + PIPE_TURNS:
+    for i, mode in enumerate(("warm-up",) * warm_up + tuple(turns)):
         dtoid.load_state_dict(sd)
         dtoid.reset_optimizer()
+        gens = make_gens()
         STATS.reset()
-        read_launches = zero_launches(conv, sa)
-        rows, wall_s, loop = run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, make_gens(),
-                                      pipeline_scoring=mode != "sync", yuv_transfer=yuv)
-        launches = read_launches()
-        stats = STATS.snapshot()
+        recording = record_dw and i == int(warm_up)
+        with fingerprinting(torch, gens) as prints, \
+                (recording_dw_calls(conv) if recording else contextlib.nullcontext()) as dw_calls:
+            read_launches = zero_launches(conv, sa)
+            rows, wall_s, loop = run_loop(torch, dtoid, zephyr, cfg, bop, zr_list, gens,
+                                          pipeline_scoring=mode != "sync", yuv_transfer=yuv, interval=interval)
+            launches = read_launches()
+        run = {"mode": mode, "rows": rows, "wall_s": wall_s, "launches": launches, "stats": STATS.snapshot(),
+               "fingerprints": prints, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if recording:
+            run["dw_calls"] = dw_calls
+        runs.append(run)
         if mode == "warm-up":
             continue
         spec = speculation(STATS)
@@ -1282,19 +1523,21 @@ def pipe_turns(torch, conv, sa, dtoid, zephyr, cfg, bop, zr_list, make_gens, yuv
         if mode == "sync":
             stale = 0
             if any(spec.values()):
-                fail(f"phase 11: the synchronous run speculated: {spec}")
+                fail(f"{where}: the synchronous run speculated: {spec}")
         else:
-            stale = hold_speculation(spec, len(rows), sum(r["finetune"] for r in rows), f"phase 11 {mode}")
+            stale = hold_speculation(spec, len(rows), sum(r["finetune"] for r in rows), f"{where} {mode}")
         expected = dict.fromkeys(launches, 0)
         expected.update({"dw_corr3x3": 2 * (len(rows) + stale),
                          "sa_mlp_max": 2 * sum(x["n_hypos"] > 0 for x in rows)})
         for name in step_kernels:
             expected[name] += 2 * n_steps
-        if launches != expected or n_steps < 2 or len(rows) != 2 * LOOP_FRAMES:
-            fail(f"phase 11: {mode} launches {launches} differ from the schedule's {expected} "
-                 f"({len(rows)} targets, {n_steps} steps, {stale} redispatched)")
-        runs.append({"mode": mode, "rows": rows, "wall_s": wall_s, "launches": launches, "stats": stats,
-                     "fetches_per_frame": STATS.fetch_rpcs_per_frame(len(rows)), "hit_rate": STATS.spec_hit_rate()})
+        events = sum(r["finetune"] for r in rows)
+        if launches != expected or events != targets // interval or len(rows) != targets:
+            fail(f"{where}: {mode} launches {launches} differ from the schedule's {expected} "
+                 f"({len(rows)} targets of {targets}, {events} finetune events of {targets // interval}, "
+                 f"{n_steps} steps, {stale} redispatched)")
+        run.update(fetches_per_frame=STATS.fetch_rpcs_per_frame(len(rows)), hit_rate=STATS.spec_hit_rate(),
+                   steps=n_steps, redispatches=stale)
     dtoid.load_state_dict(sd)
     dtoid.reset_optimizer()
     return runs
@@ -1303,67 +1546,86 @@ def pipe_turns(torch, conv, sa, dtoid, zephyr, cfg, bop, zr_list, make_gens, yuv
 def turns_summary(runs: list) -> dict:
     """Frames/s of each mode, the spread of scores and poses within and
     between the modes, whether every run's gates, finetune schedule and
-    hypothesis counts are the first synchronous run's, and each run's
-    counts, fetches and waits by kind, and launches."""
+    hypothesis counts are the first synchronous run's (first_divergence of
+    each run from it, and the stage where it departs: divergent_stage),
+    each run's targets that differ by key, and each run's counts, fetches
+    and waits by kind, and launches. The warm-up run is left out."""
+    runs = [r for r in runs if r["mode"] != "warm-up"]
     sync = [r["rows"] for r in runs if r["mode"] == "sync"]
     pipe = [r["rows"] for r in runs if r["mode"] == "pipelined"]
+    first = next(r for r in runs if r["mode"] == "sync")
     worst = lambda ds: {k: max(d[k] for d in ds) for k in ds[0]}  # noqa: E731
     fps = {m: [len(r["rows"]) / r["wall_s"] for r in runs if r["mode"] == m] for m in ("sync", "pipelined")}
+    divergence = [first_divergence(sync[0], r["rows"]) for r in runs]
     return {"frames_per_s": fps, "frames_per_s_median": {m: float(np.median(v)) for m, v in fps.items()},
-            "schedules_equal": all([x[k] for x in r["rows"]] == [x[k] for x in sync[0]]
-                                   for r in runs for k in PIPE_KEYS),
-            "schedule_diffs": [{k: n for k in PIPE_KEYS
-                                if (n := int(sum(x[k] != y[k] for x, y in zip(r["rows"], sync[0]))))} for r in runs],
+            "frames_per_s_spread": {m: float(max(v) - min(v)) for m, v in fps.items()},
+            "schedules_equal": all(d is None for d in divergence), "first_divergence": divergence,
+            "divergent_stage": [divergent_stage(first, r) for r in runs],
+            "schedule_diffs": [dict({k: n for k in PIPE_KEYS if (n := int(sum(x[k] != y[k] for x, y in
+                                                                                zip(r["rows"], sync[0]))))},
+                                    **({"rows": len(r["rows"]) - len(sync[0])} if len(r["rows"]) != len(sync[0])
+                                       else {})) for r in runs],
             "spread": {"sync_vs_sync": worst([run_spread(sync[0], b) for b in sync[1:]]),
                        "pipelined_vs_pipelined": worst([run_spread(pipe[0], b) for b in pipe[1:]]),
                        "pipelined_vs_sync": [run_spread(b, sync[0]) for b in pipe]},
+            "peak_memory_gib": max(r["peak_gib"] for r in runs),
             "turns": [{"mode": r["mode"], "frames_per_s": len(r["rows"]) / r["wall_s"], "wall_s": r["wall_s"],
                        "spec_hit_rate": r["hit_rate"], "fetches_per_frame": r["fetches_per_frame"],
-                       "counts": r["stats"]["counts"],
+                       "counts": r["stats"]["counts"], "steps": r["steps"], "redispatches": r["redispatches"],
+                       "finetune_checksums": [f[1] for f in r["fingerprints"]["finetunes"]],
                        "fetches": {k: {"n": n, "ms": t * 1e3} for k, (n, t) in r["stats"]["rpcs"].items()},
                        "launches": r["launches"]} for r in runs]}
 
 
-def phase11(torch, conv, sa, dtoid16, dtoid32, zephyr, cfg16, cfg32, bop, zr_list, make_gens) -> dict:
-    """(a) The loop with --yuv_transfer and bf16 steps in turns (pipe_turns,
+def hold_turns(out: dict, where: str) -> None:
+    """Fails unless every run's gates, finetune schedule and hypothesis
+    counts are the first synchronous run's, the synchronous runs' scores and
+    poses agree exactly, and the pipelined runs' no further from them;
+    the message names the first divergent target and its stage."""
+    spread = out["spread"]
+    bad = [f"run {i} ({t['mode']}): first divergent target {json.dumps(d)}, stage {json.dumps(st)}"
+           for i, (d, st, t) in enumerate(zip(out["first_divergence"], out["divergent_stage"], out["turns"]))
+           if d is not None]
+    if bad:
+        fail(f"{where}: the runs' gates, finetune schedules or hypotheses differ from the first synchronous run's: "
+             + "; ".join(bad))
+    for k in ("pred_score", "hypo_scores", "pred_pose", "hypo_counts_differ", "rows_misaligned"):
+        if spread["sync_vs_sync"][k] != 0:
+            st = [x for x in out["divergent_stage"] if x is not None]
+            fail(f"{where}: {k} differs by {spread['sync_vs_sync'][k]} between synchronous runs; first divergent "
+                 f"stage {json.dumps(st[:1])} ({json.dumps(spread)})")
+        for cross in spread["pipelined_vs_sync"]:
+            if cross[k] > spread["sync_vs_sync"][k]:
+                fail(f"{where}: {k} differs by {cross[k]} between the modes, by {spread['sync_vs_sync'][k]} between "
+                     f"the synchronous runs ({json.dumps(spread)}; stages {json.dumps(out['divergent_stage'])})")
+
+
+def phase11(torch, conv, sa, dtoid16, zephyr, cfg16, bop, zr_list, make_gens) -> dict:
+    """The loop with --yuv_transfer and bf16 steps in turns (pipe_turns,
     after a warm-up run), cuDNN held to its deterministic algorithms so
-    that two runs of one mode can agree bit for bit. Fails unless the
-    gates, the finetune schedule and the hypothesis counts agree in every
-    run, and scores and poses differ between the modes no more than between
-    the two synchronous runs. Then one pipelined pass traced.
-    (b) The default configuration in turns: float32 steps, RGB uploads,
-    cuDNN's normal algorithms (its weight gradients are not bitwise
-    repeatable, so the two modes' rows are compared and reported, the
-    launches held). Then the transport timed. Returns what it measured."""
+    that two runs can agree bit for bit: hold_turns (every run's gates,
+    finetune schedule and hypothesis counts equal, the synchronous runs'
+    scores and poses equal, the pipelined runs' no further). Then one
+    pipelined pass traced (trace_pass) and the transport timed. The default
+    configuration's turns (float32 steps, RGB, cuDNN's normal algorithms)
+    are phase 16b's. Returns what it measured."""
     t_phase = time.perf_counter()
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         runs = pipe_turns(torch, conv, sa, dtoid16, zephyr, cfg16, bop, zr_list, make_gens, yuv=True, warm_up=True)
         gens = make_gens()
-        profile = profile_call(torch, lambda: run_loop(torch, dtoid16, zephyr, cfg16, bop, zr_list, gens,
-                                                       yuv_transfer=True))
+        profile = trace_pass(torch, lambda: run_loop(torch, dtoid16, zephyr, cfg16, bop, zr_list, gens,
+                                                     yuv_transfer=True))
     finally:
         torch.backends.cudnn.deterministic = det
     out = turns_summary(runs)
-    if not out["schedules_equal"]:
-        fail(f"phase 11: the runs' gates, finetune schedules or hypotheses differ from the first synchronous run's: "
-             f"targets that differ, by key, run by run ({'/'.join(PIPE_TURNS)}): {json.dumps(out['schedule_diffs'])}; "
-             f"hypotheses a target: {json.dumps([[x['n_hypos'] for x in r['rows']] for r in runs])}")
-    spread = out["spread"]
-    for cross in spread["pipelined_vs_sync"]:
-        for k, v in cross.items():
-            if v > spread["sync_vs_sync"][k]:
-                fail(f"phase 11: {k} differs by {v} between the modes, by {spread['sync_vs_sync'][k]} between "
-                     f"the two synchronous runs ({json.dumps(spread)})")
-    t32 = time.perf_counter()
-    out["float32_rgb"] = turns_summary(pipe_turns(torch, conv, sa, dtoid32, zephyr, cfg32, bop, zr_list, make_gens,
-                                                  yuv=False, warm_up=False))
-    out["float32_rgb"]["turns_s"] = time.perf_counter() - t32
+    hold_turns(out, "phase 11")
     out.update({"targets": 2 * LOOP_FRAMES, "profile_pipelined": profile,
                 "transport": yuv_transport(torch, np.random.default_rng(11).integers(0, 256, (480, 640, 3), np.uint8)),
                 "phase_s": time.perf_counter() - t_phase})
     return out
+
 
 def compare_bf16_serving(results32, results16):
     """bf16 serving against float32 serving on the same weights, frames and
@@ -1736,6 +1998,10 @@ def run_cli(torch, conv, sa, w, argv):
         # the class-conditional detector does not speculate: held at 0 with
         # the other launch counts
         launches["speculations"] = sum(spec.values())
+    elif not out["loop"].pipeline_scoring:
+        if any(spec.values()):
+            fail(f"the CLI's synchronous loop speculated: {spec}")
+        launches["redispatches"] = 0
     else:
         launches["redispatches"] = hold_speculation(spec, len(rows), sum(r["finetune"] for r in rows),
                                                     "the CLI's loop")
@@ -3074,6 +3340,8 @@ def phase14(torch, F, conv, sa, dtoid, zephyr, scene, frames, poses, cfg):
 
 AB_TEMPLATE_SIZES = (10, T_PRETRAINED)   # phase 15b: JAX's ab_templates runs 10, 40, 80, 160
 AB_SCORER_HYPOS = 128                    # 15c
+TRACE_REPS = 5                           # 15f: detect and score calls in one trace
+TRACED_KERNELS = {"dw_corr3x3": "dw_corr3x3_kernel", "sa_mlp_max": "sa_mlp_max_kernel"}  # span: kernel symbol
 RANK_BLEND_ARGV = ["--frames", "12", "--targets", "12", "--zephyr_epochs", "2"]  # 15e: JAX's 60 / 72 / 16
 
 
@@ -3119,6 +3387,80 @@ def flops_card_vs_cpu(torch, roofline, build, what: str) -> dict:
             "totals_equal": sum(card.values()) == sum(cpu.values()), "nms_sweeps": nms}
 
 
+def trace_kernels(torch, conv, sa) -> dict:
+    """15f: the CUDA runtime the kernel libraries resolve (kernels/build.py::
+    cudart_report), which must be the one the process maps (the phase fails
+    naming both); then TRACE_REPS detect (T=10) and score (M=128) calls in
+    one trace (utils/profiling.py::trace), held kernel by kernel: one device
+    record under the kernel's own name for each launch its wrapper counted,
+    and each of them inside an `annotate` span of its name
+    (device_summary's kernel_records and records_in_span). Returns the
+    launches in the trace."""
+    import tempfile
+
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.kernels import build
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+    from ossid_code_torch.scripts import roofline
+    from ossid_code_torch.utils import profiling
+
+    dtoid = DtoidModel(default_config(), seed=0, device="cuda")
+    det_fn, det_args = roofline.detect_program(dtoid, np.random.default_rng(1))
+    zm = ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False, device="cuda")
+    sc_fn, sc_args = roofline.score_program(zm, roofline.score_inputs(np.random.default_rng(1)), AB_SCORER_HYPOS)
+    det_fn(*det_args)
+    sc_fn(*sc_args)  # warm: templates, cuDNN plans
+    runtime = build.cudart_report()
+    print(f"phase 15f CUDA runtime: the process maps {json.dumps(runtime['mapped'])}; the kernel libraries resolve "
+          f"{json.dumps(runtime['kernels'])}")
+    if not runtime["shared"]:
+        fail(f"15f: the kernels do not share the process's CUDA runtime: mapped {runtime['mapped']}, "
+             f"the kernel libraries resolve {runtime['kernels']}")
+    read = zero_launches(conv, sa)
+    with tempfile.TemporaryDirectory(prefix="ossid_trace_") as log_dir:
+        with profiling.trace(log_dir) as prof:
+            for _ in range(TRACE_REPS):
+                det_fn(*det_args)
+                sc_fn(*sc_args)
+        trace_mb = os.path.getsize(prof.trace_path) / 1e6
+    launches = read()
+    spans = profiling.device_summary(prof, kernels=TRACED_KERNELS)
+    spans["launched"] = {n: launches[n] for n in TRACED_KERNELS}
+    lost = {n: {"launched": spans["launched"][n], "records": spans["kernel_records"][n],
+                "in_span": spans["records_in_span"][n]} for n in TRACED_KERNELS
+            if not spans["launched"][n] == spans["kernel_records"][n] == spans["records_in_span"][n]}
+    print(f"phase 15f trace of {TRACE_REPS} detect and score calls (M={AB_SCORER_HYPOS}), {trace_mb:.1f} MB: "
+          f"{json.dumps(spans)}")
+    if lost or any(v < 2 * TRACE_REPS for v in spans["launched"].values()):
+        where = {n: launches_without_record(prof, n, TRACED_KERNELS[n]) for n in lost}
+        fail(f"15f trace: kernel records by name against the wrappers' launches (a record a launch, each inside "
+             f"a span of its name): {json.dumps(lost or spans['launched'])}; the launches without a record: "
+             f"{json.dumps(where)}")
+    return launches
+
+
+def launches_without_record(prof, span: str, symbol: str) -> list:
+    """The runtime's launch calls inside `span`s (the profiler's raw records)
+    whose kernel `symbol` left no device record: the span's place among
+    the trace's spans of that name, the launch's correlation id and its
+    start in ms after the trace's first record."""
+    from torch.autograd import DeviceType
+
+    raw = prof.profiler.kineto_results.events()
+    t0 = min(e.start_ns() for e in raw)
+    recorded = {e.correlation_id() for e in raw if e.device_type() == DeviceType.CUDA and symbol in e.name()}
+    spans = sorted((e.start_ns(), e.end_ns()) for e in raw if e.device_type() == DeviceType.CPU and e.name() == span)
+    out = []
+    for e in raw:
+        if e.device_type() == DeviceType.CPU and "Launch" in e.name() and e.correlation_id() not in recorded:
+            k = next((i for i, (a, b) in enumerate(spans) if a <= e.start_ns() <= b), None)
+            if k is not None:
+                out.append({"span": k, "of": len(spans), "correlation_id": e.correlation_id(),
+                            "ms_after_first_record": (e.start_ns() - t0) / 1e6})
+    return out
+
+
 def phase15(torch, conv, sa, cli_summary, cli_summary_keys):
     """Phase 15, the measuring tools on the card: (a) scripts/roofline.py's
     main at full width, under PyTorch's default TF32 flags (the port's main
@@ -3127,10 +3469,9 @@ def phase15(torch, conv, sa, cli_summary, cli_summary_keys):
     launches a detect; (c) ab_scorer at M = 128, four-tap and packed, f32
     and bf16, kernel 2 / 2b held at 2 a call; (d) ab_finetune at batch 8,
     bf16 and f32, dx and kernel 3 held at 2 a step; (e) ab_rank_blend at its
-    width and a reduced depth; (f) utils/profiling.py's trace over one detect
-    and one score call: device time under the names "dw_corr3x3" and
-    "sa_mlp_max", their spans' or the kernels' own (trace raises if the
-    profiler saw no device time), and whether each span was tied; (g)
+    width and a reduced depth; (f) is trace_kernels, which main runs before
+    phase 3 (the profiler loses a session's first records once a process
+    has opened many sessions); (g)
     summarize_result of phase 9's results pickle (read in phase 9). Every
     launch count is set to 0 before each path and read after it. Returns
     the launches of each path."""
@@ -3218,38 +3559,287 @@ def phase15(torch, conv, sa, cli_summary, cli_summary_keys):
     print(f"phase 15e ab_rank_blend {' '.join(RANK_BLEND_ARGV)} ({time.perf_counter() - t0:.1f} s): "
           f"{json.dumps(summary)}")
 
-    # -- 15f. a trace of one detect and one score call
-    dtoid = DtoidModel(default_config(), seed=0, device="cuda")
-    det_fn, det_args = roofline.detect_program(dtoid, np.random.default_rng(1))
-    zm = ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False, device="cuda")
-    sc_fn, sc_args = roofline.score_program(zm, roofline.score_inputs(np.random.default_rng(1)), AB_SCORER_HYPOS)
-    det_fn(*det_args)
-    sc_fn(*sc_args)  # warm: templates, cuDNN plans
-    read = zero_launches(conv, sa)
-    with tempfile.TemporaryDirectory(prefix="ossid_trace_") as log_dir:
-        with profiling.trace(log_dir) as prof:
-            det_fn(*det_args)
-            sc_fn(*sc_args)
-        trace_mb = os.path.getsize(prof.trace_path) / 1e6
-    launches["trace"] = read()
-    spans = profiling.device_summary(prof, ["dw_corr3x3", "sa_mlp_max"])
-    # the trace must name each kernel with device time: under its span, or,
-    # where the profiler did not tie the ctypes launch to the span (it does
-    # not always: ROADMAP.md §3), under the kernel's own name, which holds it
-    named = {n: max(spans["spans_device_ms"][n], spans["kernels_device_ms"][n]) for n in spans["spans_device_ms"]}
-    if not all(ms > 0 for ms in named.values()):
-        fail(f"15f trace: no device time under the kernels' names: {spans}")
-    spans["launched"] = {"dw_corr3x3": launches["trace"]["dw_corr3x3"], "sa_mlp_max": launches["trace"]["sa_mlp_max"]}
-    spans["spans_tied"] = {n: spans["spans_device_ms"][n] > 0 for n in named}
-    print(f"phase 15f trace of one detect and one score call (M={AB_SCORER_HYPOS}), {trace_mb:.1f} MB: "
-          f"{json.dumps(spans)}")
-
     # -- 15g. summarize_result of phase 9's results pickle
     if not cli_summary or not all(np.isfinite(cli_summary.get(k, np.nan)) for k in cli_summary_keys):
         fail(f"15g summarize_result of phase 9's pickle: {cli_summary}")
     print(f"phase 15g summarize_result of phase 9's results pickle: {json.dumps(cli_summary)}")
     print(f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# phase 16: the main path at the canonical configurations
+LOOP72_FRAMES = 36        # x 2 objects = 72 targets: BASELINE config 3 (bench.py:299-302,374-390)
+LOOP72_INTERVAL = 32      # its finetune interval: 2 events in 72 targets
+TURNS16 = PIPE_TURNS * 2  # 4 synchronous and 4 pipelined runs, in turns
+LMO_FRAMES = 18           # 16c: x 2 objects = 36 targets on a world named lmo (72 cut to keep phase 16 in 300 s)
+LMO_VIEWS = T_PRETRAINED  # its template grid: configuration 1's 160 views an object
+LMO_ARGV = ["--dataset_name", "lmo", "--always_dtoid_mask", "--finetune_interval", "32", "--finetune_epochs", "1",
+            "--n_local_test", str(T_PRETRAINED)]  # README's configurations 1 and 2/3
+
+
+def lmo_world(root):
+    """16c's inputs under `root`: the BOP dataset `lmo` (LMO_FRAMES frames of
+    480x640, 2 objects), a template grid of LMO_VIEWS views an object and the
+    precomputed scorer pickle under the JAX names in the data root, a DTOID
+    checkpoint (seed 1, heads perturbed as phase 6's) and a scorer
+    checkpoint (seed 10)."""
+    from ossid_code_torch.core.checkpoint import save_checkpoint
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.data.bop import BopDataset, BopDatasetArgs
+    from ossid_code_torch.data.dtoid_bop import BOP_OBJECT_ID_OFFSETS
+    from ossid_code_torch.data.synthetic import (
+        default_objects, make_synthetic_bop, make_template_grid, make_zephyr_results_pkl,
+    )
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+
+    w = {k: os.path.join(root, k) for k in ("bop", "data", "ckpts", "results", "bop_results")}
+    make_synthetic_bop(w["bop"], dataset_name="lmo", n_frames=LMO_FRAMES, img_h=480, img_w=640)
+    make_template_grid(os.path.join(w["data"], "templates_LMO_DTOID"), default_objects(), n_views=LMO_VIEWS,
+                       obj_id_offset=BOP_OBJECT_ID_OFFSETS["lmo"])
+    bop = BopDataset(BopDatasetArgs(bop_root=w["bop"], dataset_name="lmo"))
+    make_zephyr_results_pkl(os.path.join(w["data"], "lmo_boptest_zephyr_result.pkl"), bop)
+    os.makedirs(w["ckpts"])
+    dtoid = DtoidModel(default_config(), seed=1, device="cpu")
+    perturb_heads(dtoid.net, 2)
+    w["dtoid"] = os.path.join(w["ckpts"], "dtoid_seed1.ckpt")
+    save_checkpoint(w["dtoid"], dtoid.state_dict())
+    w["scorer"] = os.path.join(w["ckpts"], "scorer_seed10.ckpt")
+    save_checkpoint(w["scorer"], ZephyrModel(num_points=NUM_POINTS, seed=10, device="cpu").state_dict())
+    return w, bop
+
+
+@contextlib.contextmanager
+def synchronous_loops():
+    """Within, every OnlineLearningLoop runs its synchronous path (the CLI
+    builds the pipelined one)."""
+    from ossid_code_torch.loop.online_learning import OnlineLearningLoop
+
+    init = OnlineLearningLoop.__init__
+
+    def sync_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.pipeline_scoring = False
+
+    OnlineLearningLoop.__init__ = sync_init
+    try:
+        yield
+    finally:
+        OnlineLearningLoop.__init__ = init
+
+
+def cli_t160(torch, conv, sa):
+    """16c: the CLI (scripts/online_learning.py's main, in process) with
+    LMO_ARGV on lmo_world, synchronous then pipelined, cuDNN deterministic:
+    a row a target in each, the gates and schedule equal between the two
+    (first_divergence), kernel 1 twice a detection (redispatches included)
+    and its dx and kernel 3 twice a step, kernel 2 twice a score call, the
+    CSV's rows finite, and kernel 1's calls of the first run held against
+    the plain version (hold_dw_calls: x (160, 29, 39, 640), stride 0 over
+    the templates). Returns what it measured."""
+    import pickle
+    import tempfile
+
+    from ossid_code_torch.eval.bop_csv import read_results_bop
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ossid_lmo_") as root:
+        w, bop = lmo_world(root)
+        out["world_s"] = time.perf_counter() - t0
+        argv = [*LMO_ARGV, "--exp_name", "chip_t160", "--dtoid_weights_path", w["dtoid"],
+                "--zephyr_ckpt_path", w["scorer"]]
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        runs = {}
+        try:
+            for mode in ("sync", "pipelined"):
+                torch.cuda.reset_peak_memory_stats()
+                with (synchronous_loops() if mode == "sync" else contextlib.nullcontext()), \
+                        (recording_dw_calls(conv) if mode == "sync" else contextlib.nullcontext()) as calls:
+                    res, launches, score_calls, _, wall_s, loop_s = run_cli(torch, conv, sa, w, argv)
+                with open(res["results_path"], "rb") as f:
+                    rows = pickle.load(f)["test_results"]
+                csv = read_results_bop(res["csv_path"])
+                runs[mode] = {"rows": rows, "launches": launches, "score_calls": len(score_calls), "wall_s": wall_s,
+                              "loop_s": loop_s, "csv": csv, "calls": calls,
+                              "steps": sum(len(ep) for logs in res["loop"].finetune_logs for ep in logs),
+                              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                              "summary": {k: res[k] for k in ("AR", "mAP", "dtoid_mean_iou", "add01d")}}
+        finally:
+            torch.backends.cudnn.deterministic = det
+    for mode, r in runs.items():
+        rows, steps, stale = r["rows"], r["steps"], r["launches"]["redispatches"]
+        expected = dict.fromkeys(r["launches"], 0)
+        expected.update({"dw_corr3x3": 2 * (len(rows) + stale) + 2 * steps, "dw_corr3x3_dx": 2 * steps,
+                         "dw_corr3x3_dk": 2 * steps, "sa_mlp_max": 2 * r["score_calls"], "redispatches": stale})
+        finite = all(np.isfinite(c["score"]) or c["score"] == -np.inf for c in r["csv"]) and \
+            all(np.isfinite(c["pose"]).all() for c in r["csv"])
+        if len(rows) != len(bop.targets) or len(r["csv"]) != len(rows) or not finite \
+                or r["launches"] != expected:
+            fail(f"16c {mode}: {len(rows)} rows for {len(bop.targets)} targets, {len(r['csv'])} CSV rows (finite "
+                 f"{finite}), launches {r['launches']} against the schedule's {expected}")
+    d = first_divergence(runs["sync"]["rows"], runs["pipelined"]["rows"])
+    if d is not None:
+        fail(f"16c: the pipelined run's gates or schedule depart from the synchronous run's: {json.dumps(d)}")
+    held = hold_dw_calls(torch, conv, runs["sync"]["calls"])
+    if not any(str(T_PRETRAINED) in h["shape"] for h in held if h["call"] == "forward"):
+        fail(f"16c: kernel 1 never ran at T={T_PRETRAINED}: {held}")
+    out.update({mode: {"frames_per_s": len(r["rows"]) / r["loop_s"], "loop_s": r["loop_s"], "main_s": r["wall_s"],
+                       "targets": len(r["rows"]), "finetune_events": sum(x["finetune"] for x in r["rows"]),
+                       "steps": r["steps"], "peak_memory_gib": r["peak_gib"],
+                       "detect_ms_mean": float(np.mean([x["time_dtoid"] for x in r["rows"]]) * 1e3),
+                       "launches": r["launches"], "summary": r["summary"]} for mode, r in runs.items()})
+    out.update(schedules_equal=True, spread=run_spread(runs["sync"]["rows"], runs["pipelined"]["rows"]),
+               kernel1_calls_held=held, phase_s=time.perf_counter() - t0)
+    return out
+
+
+def entry_on_card(torch, conv, sa) -> dict:
+    """16d: ossid_code_torch/entry.py on the card: entry()'s forward on its
+    example arguments (finite, JAX's shapes, kernel 1 twice: the stem and
+    the 4 templates' head) and dryrun_multidevice(2) on [cuda:0, cuda:0]
+    (the mesh helpers and a step in two gloo processes on the card)."""
+    from ossid_code_torch.entry import dryrun_multidevice, entry
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    fn(*args)
+    torch.cuda.synchronize()
+    read = zero_launches(conv, sa)
+    outs = fn(*args)
+    torch.cuda.synchronize()
+    launches = read()
+    shapes = [list(o.shape) for o in outs]
+    if shapes[2] != [4, 7, 9, 1] or shapes[3] != [4, 128, 160] or launches["dw_corr3x3"] != 2 or \
+            not all(bool(torch.isfinite(o).all()) for o in outs):
+        fail(f"16d entry(): outputs {shapes}, launches {launches}")
+    out = {"entry_shapes": shapes, "entry_launches": launches, "entry_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multidevice(2)
+    out["dryrun_s"] = time.perf_counter() - t0
+    return out
+
+
+def world72(root) -> dict:
+    """16a's and 16b's world under `root`: loop_world at LOOP72_FRAMES
+    frames, its float32 and bf16-step configurations, the scorer (device
+    ICP of the top REFINE_TOP) and fresh PPF generators a call."""
+    from ossid_code_torch.core.config import default_config
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
+
+    cfg32 = default_config()
+    bop, zr_list = loop_world(root, cfg32, n_frames=LOOP72_FRAMES)
+    return {"bop": bop, "zr_list": zr_list, "cfg32": cfg32, "cfg16": cfg32.merged({"model": {"bf16_finetune": True}}),
+            "zephyr": ZephyrModel(num_points=NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False,
+                                  refine_top=REFINE_TOP, device="cuda"),
+            "make_gens": lambda: hypo_gens(bop)}
+
+
+def config3_turns(torch, conv, sa, w: dict) -> dict:
+    """16a: BASELINE config 3 on world72 (72 targets, a finetune every 32,
+    bf16 steps, RGB, cuDNN deterministic) in TURNS16 (phases 6 and 11 ran
+    its paths at 16 targets: no warm-up run), held by hold_turns (and
+    pipe_turns' launch schedule), the dw-corr calls of the first counted run
+    against their plain versions, one pipelined pass traced (trace_pass)."""
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+
+    t0 = time.perf_counter()
+    dtoid16 = DtoidModel(w["cfg16"], seed=1, device="cuda")
+    perturb_heads(dtoid16.net, 2)
+    torch.cuda.reset_peak_memory_stats()
+    args = (torch, conv, sa, dtoid16, w["zephyr"], w["cfg16"], w["bop"], w["zr_list"], w["make_gens"])
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = pipe_turns(*args, yuv=False, warm_up=False, turns=TURNS16, targets=2 * LOOP72_FRAMES,
+                          interval=LOOP72_INTERVAL, where="phase 16a", record_dw=True)
+        gens = w["make_gens"]()
+        traced = trace_pass(torch, lambda: run_loop(torch, dtoid16, w["zephyr"], w["cfg16"], w["bop"], w["zr_list"],
+                                                    gens, interval=LOOP72_INTERVAL))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    a = turns_summary(runs)
+    print(f"phase 16a runs ({time.perf_counter() - t0:.1f} s): frames/s {json.dumps(a['frames_per_s'])}; "
+          f"first divergence {json.dumps(a['first_divergence'])}; stages {json.dumps(a['divergent_stage'])}; "
+          f"spread {json.dumps(a['spread'])}")
+    hold_turns(a, "phase 16a")
+    a.update(dw_calls_held=hold_dw_calls(torch, conv, runs[0]["dw_calls"]), traced_pass=traced,
+             phase_s=time.perf_counter() - t0)
+    return a
+
+
+def default_turns(torch, conv, sa, w: dict) -> dict:
+    """16b: the port's default configuration on world72 (float32 steps,
+    RGB, cuDNN's normal algorithms) in TURNS16: launches and speculation
+    held (pipe_turns), frames/s, schedules and spread reported."""
+    from ossid_code_torch.models.dtoid.module import DtoidModel
+
+    t0 = time.perf_counter()
+    dtoid32 = DtoidModel(w["cfg32"], seed=1, device="cuda")
+    perturb_heads(dtoid32.net, 2)
+    torch.cuda.reset_peak_memory_stats()
+    b = turns_summary(pipe_turns(torch, conv, sa, dtoid32, w["zephyr"], w["cfg32"], w["bop"], w["zr_list"],
+                                 w["make_gens"], yuv=False, warm_up=False, turns=TURNS16, targets=2 * LOOP72_FRAMES,
+                                 interval=LOOP72_INTERVAL, where="phase 16b"))
+    b["phase_s"] = time.perf_counter() - t0
+    return b
+
+
+def phase16(torch, conv, sa) -> dict:
+    """Phase 16, the main path at the canonical configurations: (a)
+    BASELINE config 3 at its full length (config3_turns), (b) the same turns
+    in the port's default configuration (default_turns; this folds phase
+    11b), both on world72; (c) configuration 1's 160 templates through the
+    CLI (cli_t160); (d) entry.py on the card (entry_on_card). Returns what
+    it measured."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ossid_world72_") as root:
+        t0 = time.perf_counter()
+        w = world72(root)
+        out["world_s"] = time.perf_counter() - t0
+        out["16a"] = config3_turns(torch, conv, sa, w)
+        out["16b"] = default_turns(torch, conv, sa, w)
+    out["16c"] = cli_t160(torch, conv, sa)
+    out["16d"] = entry_on_card(torch, conv, sa)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def report16(p16: dict) -> None:
+    """Phase 16's lines."""
+    for key, what in (("16a", "BASELINE config 3, 72 targets, finetune every 32, bf16 steps, RGB, cuDNN "
+                              "deterministic"),
+                      ("16b", "the default configuration (float32 steps, RGB, cuDNN's normal algorithms), "
+                              "72 targets, finetune every 32")):
+        r = p16[key]
+        fps = r["frames_per_s_median"]
+        print(f"phase {key}, {what}, in turns {'/'.join(TURNS16)} ({r['phase_s']:.1f} s): frames/s median "
+              f"{json.dumps(fps)} (pipelined / sync {fps['pipelined'] / fps['sync']:.3f}), spread (max - min) "
+              f"{json.dumps(r['frames_per_s_spread'])}; each run "
+              + ", ".join(f"{t['mode']} {t['frames_per_s']:.3f}" for t in r["turns"])
+              + "; speculation hit rate " + ", ".join(str(t["spec_hit_rate"]) for t in r["turns"])
+              + f"; peak memory {r['peak_memory_gib']:.2f} GiB; schedules equal {r['schedules_equal']}; first "
+              f"divergence {json.dumps(r['first_divergence'])}; stage {json.dumps(r['divergent_stage'])}; spread of "
+              f"scores and poses (max abs) {json.dumps(r['spread'])}")
+        print(f"phase {key} fetches and waits by kind, counts, launches, finetune checksums: {json.dumps(r['turns'])}")
+    a = p16["16a"]
+    print(f"phase 16a one pipelined pass traced: {json.dumps(a['traced_pass'])}")
+    print(f"phase 16a dw-corr calls of the first counted run against their plain versions: "
+          f"{json.dumps(a['dw_calls_held'])}")
+    c = p16["16c"]
+    print(f"phase 16c the CLI {' '.join(LMO_ARGV)} on a world named lmo ({LMO_FRAMES} frames x 2 objects, "
+          f"{LMO_VIEWS} views an object; world {c['world_s']:.1f} s, phase {c['phase_s']:.1f} s), cuDNN deterministic: "
+          + "; ".join(f"{m}: {json.dumps(c[m])}" for m in ("sync", "pipelined"))
+          + f"; schedules equal {c['schedules_equal']}; spread {json.dumps(c['spread'])}")
+    print(f"phase 16c kernel 1's calls (and the steps') against their plain versions: "
+          f"{json.dumps(c['kernel1_calls_held'])}")
+    print(f"phase 16d entry.py on the card: {json.dumps(p16['16d'])}")
+    print(f"phase 16 in {p16['phase_s']:.1f} s")
 
 
 def main() -> int:
@@ -3279,6 +3869,7 @@ def main() -> int:
           f"{FP32_FLOPS / 1e12} TFLOP/s FP32, {TF32_FLOPS / 1e12} TFLOP/s TF32, "
           f"{BF16_FLOPS / 1e12} TFLOP/s BF16")
 
+    stamp("phase 1")
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
     logs = build.build()
@@ -3290,6 +3881,7 @@ def main() -> int:
         for kernel, report in ptxas_report(log):
             print(f"  ptxas {src} {kernel}: {report}")
 
+    stamp("phase 2")
     # -- 2. kernels against their plain versions ----------------------------
     device = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -3326,6 +3918,13 @@ def main() -> int:
             print(f"{label} {r['shape']}: err {r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
+
+    stamp("phase 3")
+    # -- 15f, traced before any other profiling session of the process: the
+    # profiler loses a session's first records once a process has opened
+    # about 15 (utils/profiling.py::trace)
+    stamp("phase 15f")
+    trace_launches = trace_kernels(torch, conv, sa)
 
     # -- 3. serve full-width frames through the port's entry points ----------
     serve_frame(dtoid, zephyr, FakeHypoGen, scene, frames[0])  # warm-up: templates, cuDNN plans
@@ -3389,6 +3988,7 @@ def main() -> int:
                                                                        obj_id=scene["obj_id"]))):
         print(f"profile {label}: {json.dumps(profile_call(torch, fn))}")
 
+    stamp("phase 4")
     # -- 4. the first served frame again, plain path on the CPU ---------------
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
@@ -3411,6 +4011,7 @@ def main() -> int:
              f"(tol {BF16_SCORE_TOL})")
     print(f"GPU vs CPU plain path on frame 1 ({time.perf_counter() - t0:.1f} s): {json.dumps(cmp)}")
 
+    stamp("phase 5")
     # -- 5. the backward of dw_corr3x3 against its plain version -----------
     bwd_cases = dw_bwd_cases(torch, device)
     bwd_errs = [check_dw_bwd(torch, conv, *case) for case in bwd_cases]
@@ -3446,6 +4047,7 @@ def main() -> int:
               f"{r['dx_library_ms']:.4f}, bound {r['dx_bound_ms']:.4f})")
     bwd16_edge_err = max(r["max_abs_err"] for r in bwd16_edge_rows)
 
+    stamp("phase 6")
     # -- 6. the online loop at full width ---------------------------------------
     import tempfile
 
@@ -3477,8 +4079,8 @@ def main() -> int:
         dtoid_loop16.reset_optimizer()
         loop16 = drive_loop(torch, conv, sa, dtoid_loop16, zephyr_loop, cfg_loop16, bop, zr_list, gens)
         # -- 11. the pipelined loop against the synchronous one, YUV transport
-        p11 = phase11(torch, conv, sa, dtoid_loop16, dtoid_loop, zephyr_loop, cfg_loop16, cfg_loop, bop, zr_list,
-                      lambda: hypo_gens(bop))
+        stamp("phase 11")
+        p11 = phase11(torch, conv, sa, dtoid_loop16, zephyr_loop, cfg_loop16, bop, zr_list, lambda: hypo_gens(bop))
     for label, (rows, wall_s, loop, launches, peak_gib, loop_profile), ms, bf16 in (
             ("loop", loop32, step_ms, False), ("loop, bf16 finetune", loop16, step16_ms, True)):
         n_steps = sum(len(ep) for logs in loop.finetune_logs for ep in logs)
@@ -3503,17 +4105,9 @@ def main() -> int:
           + ", ".join(f"{t['mode']} {t['frames_per_s']:.3f}" for t in p11["turns"])
           + "; speculation hit rate " + ", ".join(str(t["spec_hit_rate"]) for t in p11["turns"])
           + "; fetches a frame " + ", ".join(f"{t['fetches_per_frame']:.3f}" for t in p11["turns"]))
-    print(f"phase 11 spread of scores and poses (max abs): {json.dumps(p11['spread'])}")
+    print(f"phase 11 spread of scores and poses (max abs): {json.dumps(p11['spread'])}; schedules equal "
+          f"{p11['schedules_equal']}")
     print(f"phase 11 fetches and waits by kind, counts, launches: {json.dumps(p11['turns'])}")
-    f32 = p11["float32_rgb"]
-    print(f"phase 11b, the default configuration (float32 steps, RGB uploads, cuDNN's normal algorithms) in turns "
-          f"{'/'.join(PIPE_TURNS)} ({f32['turns_s']:.1f} s): frames/s median {json.dumps(f32['frames_per_s_median'])}; "
-          f"each run " + ", ".join(f"{t['mode']} {t['frames_per_s']:.3f}" for t in f32["turns"])
-          + "; speculation hit rate " + ", ".join(str(t["spec_hit_rate"]) for t in f32["turns"])
-          + "; fetches a frame " + ", ".join(f"{t['fetches_per_frame']:.3f}" for t in f32["turns"])
-          + f"; schedules equal {f32['schedules_equal']} (targets that differ from the first synchronous run's, by "
-          f"key: {json.dumps(f32['schedule_diffs'])}); spread (max abs) {json.dumps(f32['spread'])}")
-    print(f"phase 11b fetches and waits by kind, counts, launches: {json.dumps(f32['turns'])}")
     print(f"profile pipelined loop with --yuv_transfer (after the turns): {json.dumps(p11['profile_pipelined'])}")
     print(f"YUV 4:2:0 transport of a 480x640 frame: {json.dumps(p11['transport'])}")
     p11_pipe = next(t["launches"] for t in p11["turns"] if t["mode"] == "pipelined")
@@ -3524,6 +4118,7 @@ def main() -> int:
     print(f"profile train step, bf16 (batch {FINETUNE_BATCH}, float feed): "
           f"{json.dumps(profile_call(torch, lambda: dtoid_loop16.train_step(batch8)))}")
 
+    stamp("phase 7")
     # -- 7. one finetune step, card against the CPU plain path --------------------
     t0 = time.perf_counter()
     dtoid_step = DtoidModel(cfg, seed=3, device=device)
@@ -3555,6 +4150,7 @@ def main() -> int:
           f"{STEP_TURNS}: float32 {t32:.1f} ms, bf16 {t16:.1f} ms (bf16 {'faster' if t16 < t32 else 'not faster'}); "
           f"readings {json.dumps(turns)}")
 
+    stamp("phase 8")
     # -- 8. the end-to-end demo at the bench's reduced quality protocol -------
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     demo_dw, demo_bwd, demo_sa = demo_kernels(torch, F, conv, sa, device)
@@ -3590,6 +4186,7 @@ def main() -> int:
              f"{picks16['add_correct_f32']} over {picks16['frames']} sets (limit {BF16_SCORER_ADD_SLACK} apart)")
     print(f"scorer train step on a demo frame, host clock: {json.dumps(zsplit)}")
 
+    stamp("phase 9")
     # -- 9. the online-learning CLI at full width on a world named ycbv -------
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     with tempfile.TemporaryDirectory(prefix="ossid_cli_") as root:
@@ -3616,20 +4213,36 @@ def main() -> int:
           f"{float(np.median(sift_ms))}; the blanked frame, ms: {json.dumps(sift_blank_ms)}")
     print(f"profile SIFT one textured 480x640 frame (500 features): {json.dumps(sift_profile)}")
 
+    stamp("phase 10")
     # -- 10. the class-conditional detector and the train CLI -----------------
     mcli_launches, mdemo_launches, train_runs = phase10(torch, conv, sa, cfg)
 
+    stamp("phase 12")
     # -- 12. the train CLI's legacy families and the DTOID wrapper -------------
     p12 = phase12(torch, conv, sa)
 
+    stamp("phase 13")
     # -- 13. the render family at full width, kernel 1 at T=160 ----------------
     p13, t160 = phase13(torch, F, conv, sa)
 
+    stamp("phase 14")
     # -- 14. scale-out on the one card: the farm, the streams, the mesh ----------
     frames14, frames14_bf16, p14 = phase14(torch, F, conv, sa, dtoid, zephyr, scene, frames, poses, cfg)
 
     # -- 15. the measuring tools: roofline, the A/B scripts, a trace, the log readers
+    stamp("phase 15")
     p15 = phase15(torch, conv, sa, cli_result_summary, ("dtoid_mean_iou", "add01d", "mean_time_dtoid"))
+    p15["trace"] = trace_launches
+
+    # -- 16. the main path at the canonical configurations -------------------
+    stamp("phase 16")
+    p16 = phase16(torch, conv, sa)
+    report16(p16)
+    p16_launches = {**{f"loop72_{dt}_{m}": next(t["launches"] for t in p16[k]["turns"] if t["mode"] == m)
+                       for k, dt in (("16a", "bf16"), ("16b", "f32")) for m in ("sync", "pipelined")},
+                    **{f"cli_lmo_t160_{m}": p16["16c"][m]["launches"] for m in ("sync", "pipelined")},
+                    "entry": p16["16d"]["entry_launches"]}
+    stamp("the kernels' line")
 
     hbm = f"HBM {HBM_BYTES_PER_S / 1e12} TB/s"
     dw_src, bwd_src = "ossid_code_torch/csrc/dw_corr3x3.cu", "ossid_code_torch/csrc/dw_corr3x3_bwd.cu"
@@ -3644,7 +4257,8 @@ def main() -> int:
                             **{path: launches[name] for path, launches in p12.items()},
                             **{path: launches[name] for path, launches in p13.items()},
                             **{path: launches[name] for path, launches in p14.items()},
-                            **{path: launches[name] for path, launches in p15.items()}}
+                            **{path: launches[name] for path, launches in p15.items()},
+                            **{path: launches[name] for path, launches in p16_launches.items()}}
     by_path11 = lambda name: {"loop_yuv_pipelined": p11_pipe[name], "loop_yuv_sync": p11_sync[name]}
     by_path = lambda name: {"serving_bf16": serve16_launches.get(name, 0), "loop_bf16": loop16_launches[name],
                             "cli": cli_launches[name], **by_path10(name), **by_path11(name)}

@@ -7,6 +7,10 @@ and the flags, so an edited source is rebuilt and a stale one never loaded.
 `build()` starts one `nvcc` per source, all at once, and waits for all of
 them. Libraries are loaded with `ctypes`; every C entry point returns
 `cudaGetLastError()` after its launch and `check()` raises on a non-zero code.
+The kernels link the shared CUDA runtime (`-cudart shared`), so that their
+launches go through the `libcudart` PyTorch has loaded: the one whose API
+calls the profiler sees and ties to the span around them. `cudart_report()`
+names the runtime the process maps and the one each loaded library resolves.
 
 The host libraries that the loop needs (the PPF matcher and the depth
 rasterizer) are the repository's C++ sources `native/<name>.cpp`, compiled by
@@ -29,7 +33,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-cudart", "shared")
 # the flags of native/Makefile
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-fopenmp", "-shared")
 
@@ -45,6 +49,14 @@ def _nvcc() -> str:
 
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc_flags() -> tuple:
+    """NVCC_FLAGS, and a run path to the toolkit's runtime directory: the
+    loader finds libcudart there only where the process has not mapped one
+    of the same soname already (PyTorch's, which the kernels then share)."""
+    lib64 = Path(_nvcc()).resolve().parents[1] / "lib64"
+    return (*NVCC_FLAGS, "-Xlinker", f"-rpath={lib64}")
 
 
 def _target(src: Path, flags: tuple = NVCC_FLAGS) -> Path:
@@ -66,7 +78,7 @@ def build(names: list[str] | None = None) -> dict[str, str]:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *_nvcc_flags(), "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((src, out, tmp, proc))
     logs, failed = {}, []
@@ -99,6 +111,44 @@ def _bind(path: Path, signatures: dict) -> ctypes.CDLL:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
+
+
+class _DlInfo(ctypes.Structure):
+    _fields_ = [("dli_fname", ctypes.c_char_p), ("dli_fbase", ctypes.c_void_p),
+                ("dli_sname", ctypes.c_char_p), ("dli_saddr", ctypes.c_void_p)]
+
+
+def mapped_cudart() -> list[str]:
+    """The files named libcudart* that this process has mapped (Linux
+    /proc/self/maps), real paths, sorted."""
+    with open("/proc/self/maps") as f:
+        paths = {ln.split(None, 5)[5].strip() for ln in f if len(ln.split(None, 5)) == 6}
+    return sorted({os.path.realpath(p) for p in paths if os.path.basename(p).startswith("libcudart")})
+
+
+def resolved_cudart(lib: ctypes.CDLL) -> str | None:
+    """The real path of the file that defines `cudaLaunchKernel` as `lib`
+    resolves it (dlsym on its handle, then dladdr): the shared runtime's
+    file, or the library itself where it carries a static runtime; None
+    where it resolves no such symbol."""
+    try:
+        addr = ctypes.cast(lib.cudaLaunchKernel, ctypes.c_void_p).value
+    except AttributeError:
+        return None
+    info = _DlInfo()
+    if not ctypes.CDLL(None).dladdr(ctypes.c_void_p(addr), ctypes.byref(info)) or not info.dli_fname:
+        return None
+    return os.path.realpath(info.dli_fname.decode())
+
+
+def cudart_report() -> dict:
+    """Which CUDA runtime the process maps (`mapped`) and which one each
+    loaded kernel library resolves (`kernels`, by source name); `shared` is
+    True when there is one mapped runtime and every library resolves it."""
+    mapped = mapped_cudart()
+    kernels = {name: resolved_cudart(lib) for name, lib in _loaded.items() if not name.startswith("native/")}
+    return {"mapped": mapped, "kernels": kernels,
+            "shared": len(mapped) == 1 and bool(kernels) and all(p == mapped[0] for p in kernels.values())}
 
 
 def build_native(name: str) -> Path:

@@ -17,13 +17,15 @@ utils/__init__.py:186-218). Here:
   * `device_timer(fn, ...)`: the median seconds per call, CUDA events on the
     card, the host clock on the CPU; the result names which.
   * `device_summary(prof)`: the device's busy time and idle share over the
-    traced window, and the device time under named spans.
+    traced window, the device time under named spans, and for each kernel
+    its device records and how many of them lie inside its span.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import re
 import tempfile
 import time
 from typing import NamedTuple
@@ -69,7 +71,12 @@ def trace(log_dir: str, device: str | torch.device | None = None):
     card (`resolve_device`): CPU and CUDA activity; `device="cpu"` traces
     CPU activity only. On the card a profile with no device time raises
     RuntimeError and writes nothing: CUPTI did not trace the card, and
-    `device_timer`'s CUDA events are the way to time it."""
+    `device_timer`'s CUDA events are the way to time it.
+
+    The profiler loses the device records of a session's first launches
+    once a process has opened many sessions (on an H100: none up to 12, one
+    from about 18 on, two from about 36): a trace that must hold every
+    launch runs early in its process."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device(device)
@@ -91,18 +98,33 @@ def trace(log_dir: str, device: str | torch.device | None = None):
     prof.trace_path = path
 
 
-def device_summary(prof, names=()) -> dict:
+def _named(symbol: str, name: str) -> bool:
+    """Whether a device record's (demangled) name is the kernel `symbol`."""
+    return re.search(rf"(?<![A-Za-z0-9_]){re.escape(symbol)}(?![A-Za-z0-9_])", name) is not None
+
+
+def device_summary(prof, names=(), kernels: dict | None = None) -> dict:
     """What a trace says of the card: the traced window (first to last event,
     ms), the device's busy time (the union of its kernels' and copies'
     intervals, ms), the idle share of the window, the number of device
     events, and for each of `names` the device time under spans of that
-    name (`key_averages`' device total: kernels the profiler tied to the
-    span's launches, ms) and the kernels whose own name holds it (their
-    number and device time, ms). The two can differ: the profiler does not
-    always tie a ctypes launch to the span around it (ROADMAP.md §3)."""
+    name (`key_averages`' device total, ms) and the kernels whose own name
+    holds it (their number and device time, ms; with `kernels`, those of
+    the span's kernel).
+
+    `kernels` maps span names to the symbol of the kernel launched inside
+    them ({"dw_corr3x3": "dw_corr3x3_kernel", ...}); for each, the summary
+    also counts the device records of that kernel (`kernel_records`) and
+    those of them whose device interval lies inside a span of that name
+    (`records_in_span`: the device range, a GPU user annotation, that the
+    profiler draws around the kernels launched inside the span)."""
+    from torch.autograd import DeviceType
+
+    kernels = dict(kernels or {})
+    names = tuple(dict.fromkeys((*names, *kernels)))
     events = list(prof.events())
-    kernels = _device_kernels(prof)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    records = _device_kernels(prof)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in records)
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
@@ -117,12 +139,22 @@ def device_summary(prof, names=()) -> dict:
             return 0.0
         return float(getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0.0))) / 1e3
 
-    return {"window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1.0 - busy_us / window_us if spans and window_us > 0 else None,
-            "device_events": len(spans), "spans_device_ms": {n: device_ms(n) for n in names},
-            "kernels_device_ms": {n: sum(e.time_range.end - e.time_range.start for e in kernels if n in e.name) / 1e3
-                                  for n in names},
-            "kernels_by_name": {n: sum(n in e.name for e in kernels) for n in names}}
+    mine = {n: [e for e in records if (_named(kernels[n], e.name) if n in kernels else n in e.name)] for n in names}
+    out = {"window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1.0 - busy_us / window_us if spans and window_us > 0 else None,
+           "device_events": len(spans), "spans_device_ms": {n: device_ms(n) for n in names},
+           "kernels_device_ms": {n: sum(e.time_range.end - e.time_range.start for e in mine[n]) / 1e3
+                                 for n in names},
+           "kernels_by_name": {n: len(mine[n]) for n in names}}
+    if kernels:
+        ranges = {n: [(e.time_range.start, e.time_range.end) for e in events
+                      if e.device_type == DeviceType.CUDA and getattr(e, "is_user_annotation", False) and e.name == n]
+                  for n in kernels}
+        eps = 1e-3  # us: the annotation's bounds are its kernels' own timestamps
+        out.update(kernel_records={n: len(mine[n]) for n in kernels},
+                   records_in_span={n: sum(any(s - eps <= e.time_range.start and e.time_range.end <= t + eps
+                                               for s, t in ranges[n]) for e in mine[n]) for n in kernels})
+    return out
 
 
 class DeviceTime(NamedTuple):

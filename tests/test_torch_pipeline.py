@@ -313,13 +313,18 @@ def test_turns_report_runs_whose_hypothesis_counts_differ():
     sync = [row(132), row(8), row(0)]
     pipe = [row(119), row(8, 0.25), row(4)]
     d = chip_smoke.run_spread(pipe, sync)
-    assert d == pytest.approx({"pred_score": 0.25, "hypo_scores": 0.25, "pred_pose": 0.0, "hypo_counts_differ": 2})
+    assert d == pytest.approx({"pred_score": 0.25, "hypo_scores": 0.25, "pred_pose": 0.0, "hypo_counts_differ": 2,
+                               "rows_misaligned": 0})
     assert chip_smoke.run_spread(sync, sync)["hypo_counts_differ"] == 0
     runs = [{"mode": m, "rows": r, "wall_s": 1.0, "stats": {"counts": {}, "rpcs": {}}, "hit_rate": None,
-             "fetches_per_frame": 2.0, "launches": {}}
+             "fetches_per_frame": 2.0, "launches": {}, "steps": 0, "redispatches": 0, "peak_gib": 1.0,
+             "fingerprints": {"finetunes": [], "ppf": [(1, "crop", x["n_hypos"]) for x in r]}}
             for m, r in (("sync", sync), ("pipelined", pipe), ("pipelined", pipe), ("sync", sync))]
+    for r in sync + pipe:
+        r.update(dtoid_bbox=np.zeros((1, 4)), dtoid_score=np.ones(1), dtoid_pred_mask=np.zeros((4, 4)))
     out = chip_smoke.turns_summary(runs)
     assert not out["schedules_equal"]
+    assert out["first_divergence"][1]["index"] == 0 and out["divergent_stage"][1]["stage"] == "host PPF"
     assert out["schedule_diffs"] == [{}, {"n_hypos": 2}, {"n_hypos": 2}, {}]
     assert out["spread"]["pipelined_vs_sync"][0]["hypo_counts_differ"] == 2
     json.dumps(out)

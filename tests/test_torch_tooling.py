@@ -416,3 +416,30 @@ def test_small_helpers_match_jax():
         np.testing.assert_array_equal(visib.estimate_visib_mask(d_test, d_model, 0.015, mode),
                                       estimate_visib_mask(d_test, d_model, 0.015, mode))
 
+
+
+def test_device_summary_counts_each_kernel_record_and_its_span():
+    """The records of each span's kernel, and those inside a span of its name
+    (within the span's device range): a record outside every span counts
+    among the first and not the second, so a lost tie shows."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    def ev(name, dev, start, end, ann=False):
+        return NS(name=name, device_type=dev, time_range=NS(start=start, end=end), is_user_annotation=ann)
+
+    k1 = "void (anonymous namespace)::dw_corr3x3_kernel<F32x4, 8, 2, false>(float const*, int)"
+    events = [ev("dw_corr3x3", DeviceType.CPU, 0, 5, ann=True),
+              ev("dw_corr3x3", DeviceType.CUDA, 10, 12, ann=True),       # the span's device range
+              ev(k1, DeviceType.CUDA, 10, 12),                            # within it
+              ev(k1, DeviceType.CUDA, 20, 21),                            # in no span
+              ev("void dk_kernel<F32x4>(uint4 const*)", DeviceType.CUDA, 30, 31),
+              ev("sa_mlp_max", DeviceType.CPU, 40, 41, ann=True),
+              ev("void sa_mlp_max_bf16_kernel<P1>(bf16 const*)", DeviceType.CUDA, 50, 52)]
+    prof = NS(events=lambda: events, key_averages=lambda: [])
+    s = profiling.device_summary(prof, kernels={"dw_corr3x3": "dw_corr3x3_kernel", "sa_mlp_max": "sa_mlp_max_kernel"})
+    assert s["kernel_records"] == {"dw_corr3x3": 2, "sa_mlp_max": 0}
+    assert s["records_in_span"] == {"dw_corr3x3": 1, "sa_mlp_max": 0}
+    assert s["device_events"] == 4 and s["device_busy_ms"] == pytest.approx(0.006)
+    assert s["kernels_device_ms"]["dw_corr3x3"] == pytest.approx(0.003)

@@ -54,7 +54,7 @@ def build_counted() -> dict[str, tuple[ctypes.CDLL, str]]:
     jobs = {}
     for name, define in (("sa_mlp_max_bf16", "SA_PHASES"), ("dw_corr3x3_bwd", "DK_PHASES")):
         out = out_dir / f"{name}.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, f"-D{define}", "-o", str(out), str(build.CSRC_DIR / f"{name}.cu")]
+        cmd = [build._nvcc(), *build._nvcc_flags(), f"-D{define}", "-o", str(out), str(build.CSRC_DIR / f"{name}.cu")]
         jobs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (out, proc) in jobs.items():
