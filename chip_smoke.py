@@ -14,7 +14,10 @@ Phases, each of which exits non-zero on failure:
      function) the library call; sa_mlp_max's bound is the TF32
      tensor-core one, with its 3-pass floor and the FP32-pipe bound beside;
      the same for the bf16 instances 1b (dw-corr) and 2b (sa_mlp_max, bound
-     by dense BF16 tensor cores), against their plain bf16 versions;
+     by dense BF16 tensor cores), against their plain bf16 versions; kernel
+     1 and 1b also at the finetune step's forward (batch 8), and 1b bit for
+     bit against bf16(kernel 1 on the widened operands) at every main-path
+     shape (forward and dx) and at its edges under each of its kernels;
   3. serve frames at full width through the port's entry points: DtoidModel
      (480x640, DenseNet-121 12/24/16, T=10 templates) forward_test_time, then
      FakeHypoGen, then ZephyrModel(num_points=512) score_hypotheses on 100
@@ -47,7 +50,8 @@ Phases, each of which exits non-zero on failure:
   7. run one finetune step at full width (batch 2) on the card and through
      the plain path on the CPU from the same weights and compare the loss,
      the gradients leaf by leaf, the parameters after the step and the
-     BatchNorm running statistics; 7b. one bf16_finetune step against the
+     BatchNorm running statistics; 7c. the same with seg_loss_half (seg
+     logits at 240x320 against the 2x2-mean mask); 7b. one bf16_finetune step against the
      card's own float32 step from the same weights (batch 8): the loss, the
      gradients leaf by leaf, float32 master state, and the loss falling
      over 3 bf16 steps; the host-clock split of a float32 and of a bf16
@@ -533,6 +537,16 @@ def dw_corr_cases(torch, device):
     ]
 
 
+def dw_step_cases(torch, device):
+    """Kernel 1 at the finetune step's forward (batch 8, x and taps per
+    sample): the correlation head and the image-encoder stem (1b's dx runs
+    at the same shapes)."""
+    g = torch.Generator(device=device).manual_seed(23)
+    r = lambda *shape: torch.randn(*shape, device=device, generator=g)
+    return [("step correlation head, batch 8", r(8, 29, 39, 640), r(8, 3, 3, 640)),
+            ("step image-encoder stem, batch 8", r(8, 240, 320, 64), r(8, 3, 3, 64))]
+
+
 def demo_dw_corr_cases(torch, device):
     """Kernel 1 at the demo's detection shapes (240x320, T = 6): the
     correlation head and the image-encoder stem."""
@@ -569,6 +583,94 @@ def dw_corr_edge_cases(torch, device, bf16=False):
         ("W 322, k stride 0 over B", r(2, 3, 322, 64), r(1, 3, 3, 64).expand(2, 3, 3, 64)),
     ]
     return [(label, as_bf16(x), as_bf16(k)) for label, x, k in cases] if bf16 else cases
+
+
+def widened(t):
+    """t in float32; a stride-0 broadcast over the batch stays a broadcast."""
+    if t.shape[0] > 1 and t.stride(0) == 0:
+        return t[:1].float().expand(t.shape)
+    return t.float()
+
+
+def dw16_cases(torch, device):
+    """Kernel 1b at every shape of the main paths, (label, x, k, cross) in
+    bf16: serving's head (one image feature, x stride 0 over T = 10) and
+    stem, the finetune step's forward at batch 8 (its dx runs 1b at the same
+    shapes), the farm's three calls (2 x 10, the stem of 2 frames with the
+    taps broadcast, 3 x 7: T odd, a partial template block), and
+    configuration 1's head at T = 160."""
+    g = torch.Generator(device=device).manual_seed(21)
+    r = lambda *shape: torch.randn(*shape, device=device, generator=g).bfloat16()
+    feat = r(1, 29, 39, 640)
+    return [
+        ("head, x stride 0 over T = 10", feat.expand(N_TEMPLATES, 29, 39, 640), r(N_TEMPLATES, 3, 3, 640), False),
+        ("stem", r(1, 240, 320, 64), r(1, 3, 3, 64), False),
+        ("step head forward, batch 8", r(8, 29, 39, 640), r(8, 3, 3, 640), False),
+        ("step stem forward, batch 8", r(8, 240, 320, 64), r(8, 3, 3, 64), False),
+        (f"farm head F x T = {FARM_FRAMES} x {N_TEMPLATES}", r(FARM_FRAMES, 29, 39, 640),
+         r(N_TEMPLATES, 3, 3, 640), True),
+        (f"farm stem F = {FARM_FRAMES}, taps stride 0", r(FARM_FRAMES, 240, 320, 64),
+         r(1, 3, 3, 64).expand(FARM_FRAMES, 3, 3, 64), False),
+        ("farm F x T = 3 x 7", r(3, 29, 39, 640), r(7, 3, 3, 640), True),
+        (f"head, x stride 0 over T = {T_PRETRAINED}", feat.expand(T_PRETRAINED, 29, 39, 640),
+         r(T_PRETRAINED, 3, 3, 640), False),
+    ]
+
+
+def dw16_edge_cases(torch, device):
+    """1b's edges, (label, x, k, cross) in bf16: phase 2's (ragged W 39, 7,
+    1 and 322, C = 8 and 16, taps broadcast), 13 templates on one frame (x
+    stride 0, W 21 ragged, C 16), 2 x 5 frames (C 8) and 1 x 3 (H 1), which
+    DW16_EDGE_SHAPES cut into template blocks with a partial last one."""
+    g = torch.Generator(device=device).manual_seed(22)
+    r = lambda *shape: torch.randn(*shape, device=device, generator=g).bfloat16()
+    cases = [(label, x, k, False) for label, x, k in dw_corr_edge_cases(torch, device, bf16=True)]
+    return cases + [
+        ("T = 13 odd, x stride 0, W 21, C 16", r(1, 40, 21, 16).expand(13, 40, 21, 16), r(13, 3, 3, 16), False),
+        ("F x T = 2 x 5, C 8", r(2, 30, 12, 8), r(5, 3, 3, 8), True),
+        ("F x T = 1 x 3, H 1", r(1, 1, 45, 64), r(3, 3, 3, 64), True),
+    ]
+
+
+# 1b's shapes that the edges run under besides its choice: (kernel, a, b, c),
+# kernel 1 the tile (slice vectors, rows, templates a block), 2 rows
+# (templates, runs a block, rows a thread), 3 rows with 2 templates a thread
+# (template pairs, runs, rows); 0 for the choice's. They cut the edges'
+# templates into blocks with a partial last one (13 = 3 x 4 + 1, 5 = 3 + 2,
+# 3 = 2 + 1; odd T: a thread's lone template), take several rows with a
+# partial last group, the narrowest slice (2 vectors: C 8) on wider C, and
+# every rows-a-thread
+DW16_EDGE_SHAPES = ((0, 0, 0, 0), (1, 0, 1, 4), (1, 0, 3, 3), (1, 2, 2, 2), (2, 1, 4, 2), (2, 2, 2, 4),
+                    (2, 4, 1, 8), (2, 1, 1, 16), (3, 1, 2, 4), (3, 2, 1, 16))
+
+
+def check_dw16_bitwise(torch, conv, cases, shapes=((0, 0, 0, 0),)):
+    """Kernel 1b against bf16(kernel 1 on the widened operands), bit for bit:
+    1b runs kernel 1's float32 chain and rounds once. Each case under each
+    (kernel, a, b, c) of `shapes` (dw_corr3x3_bf16_plan; 0 for the choice's;
+    a shape that does not fit the case, e.g. templates where x is not
+    shared, is the choice's), and each case that is not `cross` also as dx
+    (the taps read turned) against kernel 1 on the turned taps. Fails naming
+    the case and the count of elements that differ. Returns {label: 1b's
+    choice} of the cases."""
+    plans = {}
+    for label, x, k, cross in cases:
+        want = conv.dw_corr3x3_cuda(widened(x), widened(k), cross=cross).bfloat16().view(torch.int16)
+        for shape in shapes:
+            got = conv._launch_dw_corr3x3(x, k, "dw_corr3x3_cuda", cross, shape=shape).view(torch.int16)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"dw_corr3x3 bf16 ({label}, shape {shape}): {int((got != want).sum())} of {got.numel()} "
+                     f"elements differ from bf16(kernel 1 on the widened operands)")
+        plans[label] = conv.dw_corr3x3_bf16_plan(x, k, cross)
+        if not cross:
+            want = conv.dw_corr3x3_cuda(widened(x), widened(k).flip(1, 2), cross=False).bfloat16().view(torch.int16)
+            got = conv._launch_dw_corr3x3(x, k, "dw_corr3x3_dx_cuda", flip=True).view(torch.int16)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"dw_corr3x3 bf16 dx ({label}): {int((got != want).sum())} of {got.numel()} elements differ "
+                     f"from bf16(kernel 1 on the widened operands, taps turned)")
+    return plans
 
 
 def dw_check(torch, bf16):
@@ -2951,18 +3053,22 @@ def dtoid_family_cli(torch, conv, sa, scenes, results):
     return launches
 
 
-def dw_corr_t160(torch, F, conv):
-    """Kernel 1 at configuration 1's template count (--use_pretrained_dtoid:
-    n_local_test 160): the correlation head, x (160, 29, 39, 640) with
-    stride 0 over T and a 463 MB float32 output, against its plain version
-    (DW_TOL), timed beside its byte bound and cuDNN."""
+def dw_corr_t160(torch, F, conv, bf16=False):
+    """Kernel 1 (1b with bf16) at configuration 1's template count
+    (--use_pretrained_dtoid: n_local_test 160): the correlation head, x
+    (160, 29, 39, 640) with stride 0 over T and a 463 MB float32 (232 MB
+    bf16) output, against its plain version (DW_TOL; one bf16 step), timed
+    beside its byte bound and cuDNN."""
     g = torch.Generator(device="cuda").manual_seed(15)
     feat = torch.randn(1, 29, 39, 640, device="cuda", generator=g)
     k = torch.randn(T_PRETRAINED, 3, 3, 640, device="cuda", generator=g)
+    x = feat.expand(T_PRETRAINED, 29, 39, 640)
+    if bf16:
+        x, k = as_bf16(x), k.bfloat16()
     with torch.inference_mode():
-        row = measure_dw_corr(torch, F, conv, [(f"correlation head T={T_PRETRAINED}",
-                                                feat.expand(T_PRETRAINED, 29, 39, 640), k)], dw_check(torch, False))[0]
-    row["output_mb"] = T_PRETRAINED * 29 * 39 * 640 * 4 / 1e6
+        row = measure_dw_corr(torch, F, conv, [(f"correlation head T={T_PRETRAINED}", x, k)],
+                              dw_check(torch, bf16))[0]
+    row["output_mb"] = T_PRETRAINED * 29 * 39 * 640 * x.element_size() / 1e6
     return row
 
 
@@ -2993,6 +3099,7 @@ def phase13(torch, F, conv, sa):
             results, RENDER_BATCH)
         dtoid_cli = dtoid_family_cli(torch, conv, sa, scenes, results)
     t160 = dw_corr_t160(torch, F, conv)
+    t160_16 = dw_corr_t160(torch, F, conv, bf16=True)
     print(f"phase 13 world: {RENDER_SCENES} scenes 480x640 x {RENDER_OBJECTS} objects, {RENDER_VIEWS} 128x128 "
           f"template renders an object, written in {world_s:.1f} s (utils/hdf5.py); read back equal: "
           f"{json.dumps(io)}")
@@ -3003,11 +3110,13 @@ def phase13(torch, F, conv, sa):
           f"scenes): {json.dumps(render)}")
     print(f"train CLI dataset=dtoid: KeyError 'limg' at the first batch, as in the JAX package; launches "
           f"{json.dumps(dtoid_cli)}")
-    print(f"dw_corr3x3 {t160['shape']}: err {t160['max_abs_err']:.3g}, kernel {t160['ms']:.4f} ms, plain "
-          f"{t160['plain_ms']:.4f} ms, cuDNN {t160['library_ms']:.4f} ms, bound {t160['bound_ms']:.4f} ms "
-          f"({t160['bound_by']}), output {t160['output_mb']:.1f} MB")
+    for label, r in (("dw_corr3x3", t160), ("dw_corr3x3 bf16", t160_16)):
+        print(f"{label} {r['shape']}: err {r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), output {r['output_mb']:.1f} MB")
     print(f"phase 13 in {time.perf_counter() - t_phase:.1f} s")
-    return {"render_dtoid": dtoid["launches"], "train_render": render["launches"], "train_dtoid": dtoid_cli}, t160
+    return ({"render_dtoid": dtoid["launches"], "train_render": render["launches"], "train_dtoid": dtoid_cli},
+            t160, t160_16)
 
 
 FARM_FRAMES = 2          # phase 14b: frames a round, one detect of both
@@ -3468,7 +3577,8 @@ def phase15(torch, conv, sa, cli_summary, cli_summary_keys):
     card against CPU; (b) ab_templates at T = 10 and 160, kernel 1 held at 2
     launches a detect; (c) ab_scorer at M = 128, four-tap and packed, f32
     and bf16, kernel 2 / 2b held at 2 a call; (d) ab_finetune at batch 8,
-    bf16 and f32, dx and kernel 3 held at 2 a step; (e) ab_rank_blend at its
+    JAX's four rows (bf16 and f32 x seg_half), dx and kernel 3 held at 2 a
+    step; (e) ab_rank_blend at its
     width and a reduced depth; (f) is trace_kernels, which main runs before
     phase 3 (the profiler loses a session's first records once a process
     has opened many sessions); (g)
@@ -3542,6 +3652,9 @@ def phase15(torch, conv, sa, cli_summary, cli_summary_keys):
     ft_lines, _ = capture_json(ab_finetune.main, ["--iters", "4"])
     torch.cuda.synchronize()
     launches["ab_finetune"] = read()
+    if [(ln["bf16"], ln["seg_half"]) for ln in ft_lines] != [(True, False), (True, True), (False, False),
+                                                              (False, True)]:
+        fail(f"15d ab_finetune: rows {ft_lines}, expected JAX's four (bf16 x seg_half)")
     if any((ln["dw_corr3x3_dx_launches"], ln["dw_corr3x3_dk_launches"]) != (2, 2) for ln in ft_lines):
         fail(f"15d ab_finetune: dx / kernel 3 launches a step {ft_lines}, expected 2 each")
     print(f"phase 15d ab_finetune ({time.perf_counter() - t0:.1f} s): {json.dumps(ft_lines)}")
@@ -3570,7 +3683,9 @@ def phase15(torch, conv, sa, cli_summary, cli_summary_keys):
 # phase 16: the main path at the canonical configurations
 LOOP72_FRAMES = 36        # x 2 objects = 72 targets: BASELINE config 3 (bench.py:299-302,374-390)
 LOOP72_INTERVAL = 32      # its finetune interval: 2 events in 72 targets
-TURNS16 = PIPE_TURNS * 2  # 4 synchronous and 4 pipelined runs, in turns
+# 2 synchronous and 2 pipelined runs, in turns (4 and 4 in PR 14; cut to keep the script well inside its
+# time limit on slower hosts: an H100 machine's host ran the script in 931 s and in 1225 s, PR 15)
+TURNS16 = PIPE_TURNS
 LMO_FRAMES = 18           # 16c: x 2 objects = 36 targets on a world named lmo (72 cut to keep phase 16 in 300 s)
 LMO_VIEWS = T_PRETRAINED  # its template grid: configuration 1's 160 views an object
 LMO_ARGV = ["--dataset_name", "lmo", "--always_dtoid_mask", "--finetune_interval", "32", "--finetune_epochs", "1",
@@ -3907,10 +4022,21 @@ def main() -> int:
         sa_rows = measure_sa(torch, sa, zephyr, prep, 128) + measure_sa(torch, sa, zephyr, prep, 256)
         dw16_rows = measure_dw_corr(torch, F, conv, [(label, as_bf16(x), as_bf16(k)) for label, x, k in dw_cases],
                                     dw_check(torch, True))
+        step_cases = dw_step_cases(torch, device)
+        step_rows = measure_dw_corr(torch, F, conv, step_cases, dw_check(torch, False))
+        step16_rows = measure_dw_corr(torch, F, conv, [(label, as_bf16(x), as_bf16(k)) for label, x, k in step_cases],
+                                      dw_check(torch, True))
+        # 1b bit for bit against bf16(kernel 1 on the widened operands): every
+        # main-path shape with its choice (and as dx), the edges under DW16_EDGE_SHAPES
+        dw16_choices = check_dw16_bitwise(torch, conv, dw16_cases(torch, device))
+        check_dw16_bitwise(torch, conv, dw16_edge_cases(torch, device), DW16_EDGE_SHAPES)
         sa16_rows = (measure_sa(torch, sa, zephyr, prep, 128, bf16=True)
                      + measure_sa(torch, sa, zephyr, prep, 256, bf16=True))
-    for label, rows in (("dw_corr3x3", dw_rows), ("sa_mlp_max", sa_rows), ("dw_corr3x3 bf16", dw16_rows),
-                        ("sa_mlp_max bf16", sa16_rows)):
+    print(f"dw_corr3x3 bf16 bit for bit equal to bf16(kernel 1 on the widened operands), forward and dx, at "
+          f"every main-path shape and at the edges under {DW16_EDGE_SHAPES}; 1b's choices: "
+          f"{json.dumps(dw16_choices)}")
+    for label, rows in (("dw_corr3x3", dw_rows + step_rows), ("sa_mlp_max", sa_rows),
+                        ("dw_corr3x3 bf16", dw16_rows + step16_rows), ("sa_mlp_max bf16", sa16_rows)):
         for r in rows:
             extra = (f"; 3-pass floor {r['three_pass_floor_ms']:.4f} ms, FP32-pipe bound "
                      f"{r['fp32_pipe_bound_ms']:.4f} ms; weight packing {r['pack_ms']:.4f} ms "
@@ -4129,6 +4255,21 @@ def main() -> int:
     print(f"finetune step GPU vs CPU plain path, batch 2 at 480x640 "
           f"({time.perf_counter() - t0:.1f} s): {json.dumps(step_cmp)}")
 
+    # -- 7c. the same with half-resolution seg supervision (model.seg_loss_half)
+    t0 = time.perf_counter()
+    cfg_half = cfg.merged({"model": {"seg_loss_half": True}})
+    half_gpu = DtoidModel(cfg_half, seed=3, device=device)
+    half_gpu.load_state_dict(dtoid_step_cpu.state_dict())
+    half_cpu = DtoidModel(cfg_half, seed=3, device="cpu")
+    half_cpu.load_state_dict(dtoid_step_cpu.state_dict())
+    read = zero_launches(conv, sa)
+    half_cmp = compare_step(torch, half_gpu, half_cpu, finetune_batch(np.random.default_rng(6), 2))
+    half_cmp["launches"] = {k: v for k, v in read().items() if v}
+    if (half_cmp["launches"].get("dw_corr3x3_dx"), half_cmp["launches"].get("dw_corr3x3_dk")) != (2, 2):
+        fail(f"7c seg_loss_half step launched {half_cmp['launches']}, expected 2 of dx and of kernel 3")
+    print(f"finetune step with seg_loss_half GPU vs CPU plain path, batch 2 at 480x640, seg logits 240x320 "
+          f"({time.perf_counter() - t0:.1f} s): {json.dumps(half_cmp)}")
+
     # -- 7b. one bf16 step against the card's float32 step, same weights --------
     t0 = time.perf_counter()
     m32 = DtoidModel(cfg, seed=3, device=device)
@@ -4223,7 +4364,7 @@ def main() -> int:
 
     stamp("phase 13")
     # -- 13. the render family at full width, kernel 1 at T=160 ----------------
-    p13, t160 = phase13(torch, F, conv, sa)
+    p13, t160, t160_16 = phase13(torch, F, conv, sa)
 
     stamp("phase 14")
     # -- 14. scale-out on the one card: the farm, the streams, the mesh ----------
@@ -4267,7 +4408,7 @@ def main() -> int:
     kernels = [
         dict(summary("dw_corr3x3", dw_src, dw_replaces, loop_launches["dw_corr3x3"], dw_rows, dw_edge_err, hbm),
              dtype="float32", launches_by_path=by_path32("dw_corr3x3"), demo_shapes=demo_dw,
-             pretrained_templates=t160, frame_shapes=frames14),
+             pretrained_templates=t160, frame_shapes=frames14, step_shapes=step_rows),
         dict(summary("dw_corr3x3_bwd", bwd_src, bwd_replaces, loop_launches["dw_corr3x3_dk"], bwd_rows,
                      bwd_edge_err, hbm), dtype="float32", dx_launches=loop_launches["dw_corr3x3_dx"],
              launches_by_path=by_path32("dw_corr3x3_dk"), dx_launches_by_path=by_path32("dw_corr3x3_dx"),
@@ -4278,7 +4419,8 @@ def main() -> int:
              launches_by_path=by_path32("sa_mlp_max"), demo_shapes=demo_sa),
         dict(summary("dw_corr3x3_bf16", dw_src, dw_replaces, sum(by_path("dw_corr3x3_bf16").values()),
                      dw16_rows, dw16_edge_err, hbm), dtype="bfloat16", launches_by_path=by_path("dw_corr3x3_bf16"),
-             frame_shapes=frames14_bf16),
+             frame_shapes=frames14_bf16, pretrained_templates=t160_16, step_shapes=step16_rows,
+             bitwise_against_kernel1=True, choices=dw16_choices),
         dict(summary("dw_corr3x3_bwd_bf16", bwd_src, bwd_replaces, loop16_launches["dw_corr3x3_dk_bf16"],
                      bwd16_rows, bwd16_edge_err, hbm), dtype="bfloat16",
              dx_launches=loop16_launches["dw_corr3x3_dx_bf16"],

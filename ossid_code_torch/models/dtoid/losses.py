@@ -77,12 +77,18 @@ def detection_loss(classifications: torch.Tensor, regressions: torch.Tensor, anc
 def dtoid_losses(out: dict, batch: dict, anchors: torch.Tensor, lam_seg: float = 20.0,
                  lam_center: float = 20.0, lam_cls: float = 1.0, lam_reg: float = 1.0):
     """The four DTOID losses combined. batch: 'bbox_gt' (B, G, 5), 'heatmap'
-    (B, fh, fw, 1), 'mask' (B, H, W, 1). Returns (loss, metrics dict)."""
+    (B, fh, fw, 1), 'mask' (B, H, W, 1). Seg logits at half resolution
+    (model.seg_loss_half) are held to the exact 2x2 mean of the mask (soft
+    targets at edges). Returns (loss, metrics dict)."""
     loss_cls, loss_reg = detection_loss(out["classifications"], out["regressions"], anchors,
                                         batch["bbox_gt"])
     loss_center = (batch["heatmap"] - out["heat_map"]).abs().mean()
     seg_probs = torch.sigmoid(out["seg_logits"]).clamp(1e-7, 1.0 - 1e-7)
     mask = batch["mask"]
+    if mask.shape[1:3] != seg_probs.shape[1:3]:
+        b, h, w, c = mask.shape
+        sh, sw = seg_probs.shape[1:3]
+        mask = mask.reshape(b, sh, h // sh, sw, w // sw, c).mean((2, 4))
     loss_seg = -(mask * torch.log(seg_probs) + (1.0 - mask) * torch.log(1.0 - seg_probs)).mean()
     loss = lam_seg * loss_seg + lam_center * loss_center + lam_cls * loss_cls + lam_reg * loss_reg
     return loss, {

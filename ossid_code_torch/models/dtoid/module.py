@@ -9,9 +9,11 @@ builds the reference-schema dict. `train_step` / `train_step_u8` run one
 finetune step (forward in train mode, `dtoid_losses`, backward, the
 optax-rule optimizer of core/optim.py).
 
-The JAX package's two bf16 switches, read the same way (`cfg.model.get(...,
-False)`):
-  * `bf16_finetune`: the mixed-precision step (JAX `train_step_mp`). The
+The JAX package's three training and inference switches, read the same
+way: the cfg key (`cfg.model.get(..., False)`) or its environment variable
+set to "1" when the model is built, either one turns it on:
+  * `bf16_finetune` (`OSSID_BF16_FINETUNE`): the mixed-precision step (JAX
+    `train_step_mp`). The
     network runs on bf16 casts of the float32 parameters, on bf16 inputs,
     with the running statistics updated in float32 by flax's bf16 rule
     (models/batchnorm.py); the losses run on float32 upcasts of the outputs
@@ -25,15 +27,20 @@ False)`):
     upcasts the flat bf16 gradient into the float32 gradient views. The
     arithmetic is that of per-parameter casts: the same bf16 roundings of
     the same float32 values, float32 optimizer state.
-  * `bf16_infer`: detection in bf16 on a cast of the weights that is kept
-    on the device and refreshed when `weights_version` changes (JAX
-    `_infer_vars`); template features are computed and cached in float32
-    from the float32 weights and cast for each detect.
+  * `bf16_infer` (`OSSID_BF16_INFER`): detection in bf16 on a cast of the
+    weights that is kept on the device and refreshed when `weights_version`
+    changes (JAX `_infer_vars`); template features are computed and cached
+    in float32 from the float32 weights and cast for each detect.
+  * `seg_loss_half` (`OSSID_SEG_HALF`): every train step (float32, bf16,
+    `train_step_u8`) decodes the seg logits at half resolution and holds
+    them to the exact 2x2 mean of the mask (`dtoid_losses`); inference
+    decodes at full resolution.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import time
 from typing import Any
 
@@ -171,7 +178,7 @@ class _Bf16Step:
         with torch.no_grad():
             self.flat16.copy_(self.flat32)
 
-    def forward(self, *inputs):
+    def forward(self, *inputs, **kwargs):
         self.leaf = self.flat16.detach().requires_grad_(True)
         bn16, rest16 = self.leaf.split(self.parts)
         views = (_param_chunks(bn16.float(), self.bn_params, self.bn_sizes)
@@ -179,7 +186,7 @@ class _Bf16Step:
         for (module, name), view in zip(self.slots, views):
             module.__dict__[name] = view
         try:
-            out = self.net16(*inputs)
+            out = self.net16(*inputs, **kwargs)
             self._update_statistics()
         finally:
             self.sink.clear()
@@ -209,6 +216,11 @@ class _Bf16Step:
 STEP_SPANS = ("feed", "cast", "forward", "losses", "backward", "upcast", "optimizer")
 
 
+def _switch(m, key: str, env: str) -> bool:
+    """cfg.model[key] or the environment variable `env` set to "1"."""
+    return bool(m.get(key, False)) or os.environ.get(env) == "1"
+
+
 class DtoidModel:
     """Network weights + template cache; runs on `device` (None -> cuda)."""
 
@@ -222,8 +234,9 @@ class DtoidModel:
         self.nms_iou = float(m.nms_iou_thresh)
         self._pack_seg = str(m.get("seg_transfer", "packed")) == "packed"
 
-        self.bf16_finetune = bool(m.get("bf16_finetune", False))
-        self.bf16_infer = bool(m.get("bf16_infer", False))
+        self.bf16_finetune = _switch(m, "bf16_finetune", "OSSID_BF16_FINETUNE")
+        self.bf16_infer = _switch(m, "bf16_infer", "OSSID_BF16_INFER")
+        self.seg_half = _switch(m, "seg_loss_half", "OSSID_SEG_HALF")
         self.net = DtoidNetwork(self.img_size, tuple(m.get("densenet_blocks", (12, 24, 16))))
         self.net.reset_parameters(torch.Generator().manual_seed(seed))
         self.net.to(device=self.device, memory_format=torch.channels_last).eval()
@@ -270,7 +283,8 @@ class DtoidModel:
         'bbox_gt' (B, G, 5), 'heatmap' (B, fh, fw, 1), 'mask' (B, H, W, 1).
         With `bf16_finetune` (or `bf16=True`) the forward and backward run in
         bf16 (module doc); the parameters, statistics and optimizer state
-        stay float32. `optimizer` defaults to the finetune optimizer (an
+        stay float32. With `seg_loss_half` the seg logits are decoded at
+        half resolution against the 2x2-mean mask. `optimizer` defaults to the finetune optimizer (an
         offline trainer passes its own). The data-parallel trainer passes
         `loss_scale` (its shard's share of the global batch: the backward
         runs on loss * loss_scale) and `reduce_grads`, called on the
@@ -291,11 +305,11 @@ class DtoidModel:
                 step = self._bf16_step
                 step.cast()
                 marks.append(time.perf_counter())
-                out = step.forward(*(t.to(torch.bfloat16) for t in images))
+                out = step.forward(*(t.to(torch.bfloat16) for t in images), seg_half=self.seg_half)
                 out = {k: v.float() for k, v in out.items()}
             else:
                 marks.append(time.perf_counter())
-                out = self.net(*images)
+                out = self.net(*images, seg_half=self.seg_half)
             marks.append(time.perf_counter())
             loss, metrics = dtoid_losses(out, b, self.anchors, lam_seg=m.lam_seg,
                                          lam_center=m.lam_center, lam_cls=m.lam_cls,

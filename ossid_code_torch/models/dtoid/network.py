@@ -242,16 +242,20 @@ class CorrelationHead(nn.Module):
         heatmap = torch.sigmoid(self.corr_conv_heatmap(x2))
         return x2, heatmap
 
-    def decode_seg(self, x2: torch.Tensor) -> torch.Tensor:
-        """(B, 512, h, w) -> seg logits (B, 1, H, W)."""
+    def decode_seg(self, x2: torch.Tensor, half: bool = False) -> torch.Tensor:
+        """(B, 512, h, w) -> seg logits (B, 1, H, W), or (B, 1, H/2, W/2)
+        with `half`: the train step's half-resolution seg supervision (cfg
+        model.seg_loss_half), which leaves out most of the two
+        full-resolution stages' work; inference decodes at full resolution."""
 
         def up(s):
             return _nchw(upsample_nearest(_nhwc(s), 2))
 
+        out_hw = (self.img_size[0] // 2, self.img_size[1] // 2) if half else self.img_size
         s = up(self.ns1(F.elu(self.s1(x2))))
         s = up(self.ns2(F.elu(self.s2(s))))
         s = up(self.ns3(F.elu(self.s3(s))))
-        s = _nchw(resize_nearest(_nhwc(self.ns4(F.elu(self.s4(s)))), self.img_size))
+        s = _nchw(resize_nearest(_nhwc(self.ns4(F.elu(self.s4(s)))), out_hw))
         s = self.ns5(F.elu(self.s5(s)))
         return self.seg_final(s)
 
@@ -302,18 +306,19 @@ class DtoidNetwork(nn.Module):
             head.reset_output()
 
     def forward(self, image: torch.Tensor, limg: torch.Tensor, lmask: torch.Tensor,
-                gimg: torch.Tensor, gmask: torch.Tensor) -> dict:
+                gimg: torch.Tensor, gmask: torch.Tensor, seg_half: bool = False) -> dict:
         """The training forward. All images in [0, 1], NHWC: image (B, H, W, 3),
         limg (B, h, w, 3), lmask (B, h, w, 1), gimg / gmask likewise.
         Returns classifications (B, N, 2), regressions (B, N, 4), heat_map
-        (B, fh, fw, 1) and seg_logits (B, H, W, 1)."""
+        (B, fh, fw, 1) and seg_logits (B, H, W, 1), or (B, H/2, W/2, 1) with
+        `seg_half` (CorrelationHead.decode_seg)."""
         l4 = torch.cat([imagenet_normalize(limg), lmask], -1)
         g4 = torch.cat([imagenet_normalize(gimg), gmask], -1)
         gfeat = self.template_feature_extractor_global(g4)
         feat = _cl(self.image_feature_extractor.features(_cl(_nchw(imagenet_normalize(image))), gfeat))
         lfeat = self.template_feature_extractor.features(_cl(_nchw(l4)))
         xcors, heatmap = self.correlation_model.correlate(feat, lfeat)
-        seg_logits = self.correlation_model.decode_seg(xcors)
+        seg_logits = self.correlation_model.decode_seg(xcors, half=seg_half)
         return {
             "classifications": self.classification(xcors),
             "regressions": self.regression(xcors),

@@ -22,8 +22,9 @@ taps one by one (the same values: `bilinear_sample`, `bilinear_sample_packed`).
 
 `train_step` trains the scorer as the JAX package does: the network in
 training mode (in-graph grouping, flax-rule BatchNorm, dropout from a
-generator seeded per step), class-balanced sigmoid BCE plus `RANK_WEIGHT`
-times a listwise softmax term over the hypothesis set, and optax's plain
+generator seeded per step), class-balanced sigmoid BCE plus `rank_weight`
+(default `RANK_WEIGHT`, 1.0; 0 leaves it out) times a listwise softmax term
+over the hypothesis set, and optax's plain
 Adam (lr 1e-3) on every parameter but the calibrated alignment head.
 """
 
@@ -47,7 +48,8 @@ from ossid_code_torch.ops.icp_device import batched_icp, sample_valid_points
 # device ICP of the refined hypotheses (the JAX package's defaults)
 REFINE_MAX_DIST = 0.01
 REFINE_ITERS = 16
-# weight of the listwise ranking term in the scorer loss (the JAX package's default)
+# weight of the listwise ranking term in the scorer loss: ZephyrModel's
+# default (the JAX package's)
 RANK_WEIGHT = 1.0
 
 
@@ -98,32 +100,40 @@ def _blur5(img: torch.Tensor) -> torch.Tensor:
     return sum(float(_BLUR_K[i]) * x[:, i:i + w] for i in range(5))
 
 
-def scorer_loss(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def scorer_loss(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
+                rank_weight: float = RANK_WEIGHT) -> torch.Tensor:
     """Class-balanced sigmoid BCE (optax's `sigmoid_binary_cross_entropy`,
-    positives and negatives weighted equally) plus `RANK_WEIGHT` times the
+    positives and negatives weighted equally) plus `rank_weight` times the
     listwise term: softmax cross-entropy of the valid logits (invalid ones at
     -1e9) against a uniform target over the positives, shifted by its
-    log(npos) floor, counted only when the set holds both classes."""
+    log(npos) floor, counted only when the set holds both classes. Where
+    `rank_weight` is not above 0 the listwise term is not computed (BCE
+    alone), as in the JAX package."""
     losses = -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
     pos = (labels > 0.5) & valid
     neg = (labels <= 0.5) & valid
     zero = torch.zeros_like(losses)
     wpos = torch.where(pos, losses, zero).sum() / pos.sum().clamp(min=1)
     wneg = torch.where(neg, losses, zero).sum() / neg.sum().clamp(min=1)
+    if rank_weight <= 0.0:
+        return 0.5 * (wpos + wneg)
     masked = torch.where(valid, logits, torch.full_like(logits, -1e9))
     logz = torch.logsumexp(masked, 0)
     npos = pos.sum()
     tgt = pos.to(logits.dtype) / npos.clamp(min=1)
     rank = -(tgt * (masked - logz)).sum() - torch.log(npos.to(logits.dtype).clamp(min=1.0))
     has_both = (npos > 0) & (npos < valid.sum())
-    return 0.5 * (wpos + wneg) + RANK_WEIGHT * torch.where(has_both, rank, torch.zeros_like(rank))
+    return 0.5 * (wpos + wneg) + rank_weight * torch.where(has_both, rank, torch.zeros_like(rank))
 
 
 class ZephyrModel:
     def __init__(self, num_points: int = 512, inconst_ratio_th: float = 100.0, seed: int = 0,
                  need_uv: bool = True, refine_top: int = 0, rank_blend: float = 0.0, align_feats: bool = False,
-                 bf16: bool = False, packed_sample: bool = True, device: str | torch.device | None = None):
+                 bf16: bool = False, packed_sample: bool = True, device: str | torch.device | None = None,
+                 rank_weight: float = RANK_WEIGHT):
         self.device = resolve_device(device)
+        # weight of the listwise ranking term in train_step (0: class-balanced BCE alone)
+        self.rank_weight = float(rank_weight)
         # the scorer network in bf16 (the JAX package's OSSID_BF16_SCORER)
         self.bf16 = bool(bf16)
         # one gather of packed taps a bilinear sample (the JAX package's OSSID_PACKED_SAMPLE)
@@ -166,7 +176,7 @@ class ZephyrModel:
         valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         logits = self.net(point_x, train=True, generator=gen)
-        loss = scorer_loss(logits, labels, valid)
+        loss = scorer_loss(logits, labels, valid, self.rank_weight)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()

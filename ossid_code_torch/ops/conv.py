@@ -10,8 +10,12 @@ again on the output gradient with the taps turned by 180 degrees (dx) and
 the reduction kernel `csrc/dw_corr3x3_bwd.cu` (dk: 16-byte vectors of 4
 float32 or 8 bf16 channels, one launch whose bands meet in a thread-block
 cluster, no scratch in device memory; `dw_corr3x3_dk_plan` sizes it). The
-wrappers raise on what their kernels do not take. There is no other switch
-and no fallback.
+bf16 forward (1b) is bit for bit bf16(kernel 1 on the widened operands); its
+library chooses between two kernels per call (a row walk, with 2 templates a
+thread where x is shared over few samples, and a shared-memory tile where x
+is shared over 32 or more, 16 with T odd; `dw_corr3x3_bf16_plan` says which
+and how) and reads dx's taps turned in place. The wrappers raise on
+what their kernels do not take. There is no other switch and no fallback.
 
 `cross=True` (the serving farm's head) correlates F frames of x with T
 tap sets in one launch of kernel 1: sample f * T + t is frame f against
@@ -107,7 +111,10 @@ def _inner_contiguous(t: torch.Tensor) -> bool:
 
 _FWD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p],
              ctypes.c_int)
-_SIGNATURES = {"dw_corr3x3_f32": _FWD_ARGS, "dw_corr3x3_bf16": _FWD_ARGS}
+_SIGNATURES = {"dw_corr3x3_f32": _FWD_ARGS, "dw_corr3x3_bf16": _FWD_ARGS, "dw_corr3x3_bf16_flipped": _FWD_ARGS,
+               "dw_corr3x3_bf16_planned": (_FWD_ARGS[0][:-1] + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int),
+               "dw_corr3x3_bf16_plan": ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+                                        + [ctypes.POINTER(ctypes.c_int)], ctypes.c_int)}
 _DK_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
             + [ctypes.c_void_p], ctypes.c_int)
 _BWD_SIGNATURES = {"dw_corr3x3_dk_f32": _DK_ARGS, "dw_corr3x3_dk_bf16": _DK_ARGS,
@@ -145,26 +152,68 @@ def _count(fn, dtype: torch.dtype, shape: torch.Size) -> None:
     fn.flops += 2 * 9 * shape.numel()
 
 
-def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str, cross: bool = False,
-                       span: str = "dw_corr3x3") -> torch.Tensor:
-    """Kernel 1 (1b) over B = F * T samples, sample i the pair (frame i // T,
-    template i % T), each operand with a frame and a template stride: a
-    per-sample batch is T = 1 with the batch strides (the library runs the
-    instance that shares x's rows where x's stride is 0); `cross` is F
-    frames of x against T tap sets."""
-    f, h, w, c = x.shape
+def _call_shape(x: torch.Tensor, kernel: torch.Tensor, cross: bool) -> tuple:
+    """(B, T, (x frame, x template, taps frame, taps template strides)) of
+    kernel 1's C entry points for depthwise_corr's operands: a per-sample
+    batch is T = 1 with the batch strides; `cross` is F frames of x against
+    T tap sets."""
     t = kernel.shape[0] if cross else 1
-    dtype = _check_operands(what, x, kernel, (t if cross else f, 3, 3, c))
     xs, ks = _batch_stride(x), _batch_stride(kernel)
-    # (frame, template) strides of x and of the taps
-    strides = (xs, 0, 0, ks) if cross else (xs, 0, ks, 0)
-    b = f * t
+    return x.shape[0] * t, t, ((xs, 0, 0, ks) if cross else (xs, 0, ks, 0))
+
+
+def _launch_dw_corr3x3(x: torch.Tensor, kernel: torch.Tensor, what: str, cross: bool = False,
+                       span: str = "dw_corr3x3", flip: bool = False, shape: tuple | None = None) -> torch.Tensor:
+    """Kernel 1 (1b) over B = F * T samples, sample i the pair (frame i // T,
+    template i % T), each operand with a frame and a template stride (the
+    float32 library runs the instance that shares x's rows where x's stride
+    is 0; 1b chooses its kernel and shape, `dw_corr3x3_bf16_plan`). `flip`
+    (bf16 only): the taps read turned by 180 degrees, as dx takes them.
+    `shape` (bf16 only; for tools that time other shapes): 1b's (kernel,
+    a, b, c) as `dw_corr3x3_bf16_plan` names them, 0 for the choice's."""
+    f, h, w, c = x.shape
+    dtype = _check_operands(what, x, kernel, (kernel.shape[0] if cross else f, 3, 3, c))
+    if (flip or shape is not None) and dtype != torch.bfloat16:
+        raise ValueError(f"{what}: only kernel 1b reads turned taps or takes a shape")
+    b, t, strides = _call_shape(x, kernel, cross)
     out = torch.empty((b, h, w, c), device=x.device, dtype=dtype)
-    fn = getattr(library("dw_corr3x3", _SIGNATURES), f"dw_corr3x3_{_SUFFIX[dtype]}")
+    lib = library("dw_corr3x3", _SIGNATURES)
+    args = (x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, t, h, w, c, *strides)
     with annotate(span):
-        err = fn(x.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, t, h, w, c, *strides, stream_ptr(x.device))
+        if shape is not None:
+            err = lib.dw_corr3x3_bf16_planned(*args, *shape, stream_ptr(x.device))
+        elif flip:
+            err = lib.dw_corr3x3_bf16_flipped(*args, stream_ptr(x.device))
+        else:
+            err = getattr(lib, f"dw_corr3x3_{_SUFFIX[dtype]}")(*args, stream_ptr(x.device))
     check(err, what)
     return out
+
+
+_BF16_PLAN_KEYS = ("kernel", "a", "b", "c", "smem_bytes", "blocks", "threads", "blocks_per_sm", "registers")
+_BF16_KERNELS = {1: "tile", 2: "rows", 3: "rows2"}
+_BF16_SHAPE_KEYS = {"tile": ("slice_vectors", "rows", "templates"), "rows": ("templates", "runs", "rows"),
+                    "rows2": ("template_pairs", "runs", "rows")}
+
+
+def dw_corr3x3_bf16_plan(x: torch.Tensor, kernel: torch.Tensor, cross: bool = False, flip: bool = False,
+                         shape: tuple = (0, 0, 0, 0)) -> dict:
+    """The kernel and shape 1b takes for `dw_corr3x3_cuda(x, kernel, cross)`
+    (`flip`: for dx; `shape`: (kernel 1 tile / 2 rows, a, b, c) fixed where
+    > 0): "tile" with its slice of 4-channel vectors, output rows and
+    templates a block, or "rows" with its templates and runs a block and
+    output rows a thread; shared memory a block, blocks in the grid, threads
+    a block, blocks an SM holds at once, and the kernel's registers a
+    thread. Needs the card."""
+    _, h, w, c = x.shape
+    b, t, strides = _call_shape(x, kernel, cross)
+    out = (ctypes.c_int * len(_BF16_PLAN_KEYS))()
+    err = library("dw_corr3x3", _SIGNATURES).dw_corr3x3_bf16_plan(b, t, h, w, c, strides[0], strides[1], *shape,
+                                                                   int(flip), out)
+    check(err, "dw_corr3x3_bf16_plan")
+    got = dict(zip(_BF16_PLAN_KEYS, out))
+    name = _BF16_KERNELS[got.pop("kernel")]
+    return {"kernel": name, **dict(zip(_BF16_SHAPE_KEYS[name], (got.pop(k) for k in "abc"))), **got}
 
 
 def dw_corr3x3_cuda(x: torch.Tensor, kernel: torch.Tensor, cross: bool = False) -> torch.Tensor:
@@ -187,9 +236,11 @@ def dw_corr3x3_cuda(x: torch.Tensor, kernel: torch.Tensor, cross: bool = False) 
 
 def dw_corr3x3_dx_cuda(dout: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """dx of kernel 1 (1b): kernel 1 (1b) on dout (B, H, W, C), contiguous,
-    with the taps of kernel (B, 3, 3, C) turned by 180 degrees."""
-    flipped = kernel.flip(1, 2).contiguous()
-    out = _launch_dw_corr3x3(dout, flipped, "dw_corr3x3_dx_cuda", span="dw_corr3x3_dx")
+    with the taps of kernel (B, 3, 3, C) turned by 180 degrees: a turned
+    copy for kernel 1; 1b reads them turned in place."""
+    bf16 = kernel.dtype == torch.bfloat16
+    taps = kernel if bf16 else kernel.flip(1, 2).contiguous()
+    out = _launch_dw_corr3x3(dout, taps, "dw_corr3x3_dx_cuda", span="dw_corr3x3_dx", flip=bf16)
     _count(dw_corr3x3_dx_cuda, out.dtype, out.shape)
     return out
 

@@ -1,14 +1,12 @@
 """A/B of the finetune step at the production geometry (the port of
 ossid_code_tpu/scripts/ab_finetune.py): the train step at 480x640, batch 8,
-bf16 (`model.bf16_finetune`) and float32, timed by
-`scripts/roofline.py::amortized_time` (CUDA events on the card).
-
-The JAX script also times half-resolution segmentation supervision
-(`model.seg_loss_half`), a measured negative that the port does not carry
-(ROADMAP.md §1, not ported on purpose); its rows are left out and every line
-says `"seg_half": false`. Each line also counts the step's launches of kernel
-1's dx and of kernel 3 (1b's dx and 3b in bf16): 2 each a step on the card
-(the correlation head and the stem), 0 on the CPU.
+bf16 (`model.bf16_finetune`) and float32, each with full- and
+half-resolution segmentation supervision (`model.seg_loss_half`: the seg
+logits decoded at half resolution against the 2x2-mean mask), timed by
+`scripts/roofline.py::amortized_time` (CUDA events on the card): the JAX
+script's four rows, in its order. Each line also counts the step's launches
+of kernel 1's dx and of kernel 3 (1b's dx and 3b in bf16): 2 each a step on
+the card (the correlation head and the stem), 0 on the CPU.
 
 Usage: python -m ossid_code_torch.scripts.ab_finetune [--iters 8] [--device cpu]
 Runs on the card unless --device cpu. Prints one JSON line per config.
@@ -50,19 +48,20 @@ def main(argv=None):
     device_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     rng = np.random.default_rng(0)
     lines = []
-    for bf16 in (True, False):
+    for bf16, seg_half in ((True, False), (True, True), (False, False), (False, True)):
         cfg = default_config()
         cfg.model.img_h, cfg.model.img_w = args.img_h, args.img_w
         cfg.model.heatmap_h, cfg.model.heatmap_w = args.img_h // 16 - 1, args.img_w // 16 - 1
         cfg.model.densenet_blocks = tuple(args.densenet_blocks)
         cfg.model.bf16_finetune = bf16
+        cfg.model.seg_loss_half = seg_half
         model = DtoidModel(cfg, seed=0, device=dev)
         fn, ft_args = finetune_program(model, rng, args.batch)
         secs = amortized_time(fn, ft_args, args.iters)
         launches = launches_of(fn, *ft_args)
         sfx = "_bf16" if bf16 else ""
         line = {
-            "metric": "finetune_step_ms", "bf16": bf16, "seg_half": False,
+            "metric": "finetune_step_ms", "bf16": bf16, "seg_half": seg_half,
             "batch": args.batch, "value": secs * 1e3, "unit": "ms",
             "dw_corr3x3_dx_launches": launches.get(f"dw_corr3x3_dx{sfx}", 0),
             "dw_corr3x3_dk_launches": launches.get(f"dw_corr3x3_dk{sfx}", 0),

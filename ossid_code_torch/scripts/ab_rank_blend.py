@@ -22,8 +22,9 @@ device. Prints one JSON line per strategy plus a summary, as the JAX script.
 
 Usage: python -m ossid_code_torch.scripts.ab_rank_blend [--targets 72] [--device cpu]
 Runs on the card unless --device cpu. Beyond the JAX script's arguments:
-`--device`. `--rank_weight` takes only the port's `RANK_WEIGHT` (1.0, JAX's
-default): the port's scorer loss weighs its listwise term by that constant.
+`--device`. `--rank_weight` (default 1.0) is the scorer's
+`ZephyrModel(rank_weight=)`, the weight of its listwise loss term (0: BCE
+alone), as in the JAX script.
 """
 
 from __future__ import annotations
@@ -133,15 +134,12 @@ def main(argv=None):
     from ossid_code_torch.eval.pose_metrics import add_err, object_diameter
     from ossid_code_torch.hypo.ppf import PPFModelMeters
     from ossid_code_torch.loop.online_learning import model_cloud_from_ply
-    from ossid_code_torch.models.zephyr.module import RANK_WEIGHT, ZephyrModel
+    from ossid_code_torch.models.zephyr.module import ZephyrModel
     from ossid_code_torch.render.mesh import load_ply
     from ossid_code_torch.train.zephyr_offline import ZephyrOfflineTrainer
     from ossid_code_torch.utils.geometry import depth2cloud
 
     dev = resolve_device(args.device)
-    if args.rank_weight != RANK_WEIGHT:
-        raise ValueError(f"--rank_weight {args.rank_weight}: the port's scorer loss weighs its listwise term by "
-                         f"RANK_WEIGHT = {RANK_WEIGHT} (models/zephyr/module.py)")
     root = args.root or tempfile.mkdtemp(prefix="ab_rank_blend_")
     h, w = args.img_h, args.img_w
     log(f"building hard world under {root} ...")
@@ -160,7 +158,8 @@ def main(argv=None):
         for oid in bop.obj_ids
     }
     zmodel = ZephyrModel(num_points=256, inconst_ratio_th=100.0, seed=0,
-                         need_uv=False, align_feats=bool(args.align_feats), device=dev)
+                         need_uv=False, align_feats=bool(args.align_feats),
+                         rank_weight=args.rank_weight, device=dev)
     ztrainer = ZephyrOfflineTrainer(zmodel, bop, clouds, hypo_gens=hypo_gens,
                                     n_hypos=64, seed=0)
     log(f"training scorer ({args.zephyr_epochs} epochs, demo recipe) ...")

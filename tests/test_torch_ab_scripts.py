@@ -106,10 +106,12 @@ def test_sampling_paths_match_jax_score(monkeypatch, packed):
 def test_ab_finetune_runs_on_cpu(capsys):
     lines = ab_finetune.main(["--iters", "1", "--batch", "2", "--densenet_blocks", "2", "2", "2", *SMALL])
     assert _json_lines(capsys.readouterr().out) == json.loads(json.dumps(lines))
-    assert [ln["bf16"] for ln in lines] == [True, False]
+    # JAX's four rows in its order: bf16 x seg_half (ossid_code_tpu/scripts/ab_finetune.py:58-72)
+    assert [(ln["bf16"], ln["seg_half"]) for ln in lines] == [(True, False), (True, True), (False, False),
+                                                               (False, True)]
     for ln in lines:
         assert FINETUNE_KEYS <= set(ln)
-        assert ln["metric"] == "finetune_step_ms" and ln["seg_half"] is False and ln["batch"] == 2
+        assert ln["metric"] == "finetune_step_ms" and ln["batch"] == 2
         assert ln["value"] > 0 and ln["device"] == "cpu"
         assert ln["dw_corr3x3_dx_launches"] == ln["dw_corr3x3_dk_launches"] == 0
 
@@ -150,11 +152,23 @@ def test_ab_rank_blend_matches_jax(native_ppf, capsys):
         assert 0.0 <= v <= 1.0, k
 
 
-def test_ab_rank_blend_takes_only_the_ports_rank_weight():
-    """The port's scorer weighs its listwise loss term by RANK_WEIGHT; another
-    --rank_weight raises before any work."""
-    with pytest.raises(ValueError, match="RANK_WEIGHT"):
-        ab_rank_blend.main(["--rank_weight", "0.5", "--device", "cpu"])
+def test_ab_rank_blend_takes_only_the_ports_rank_weight(monkeypatch):
+    """--rank_weight reaches the scorer as ZephyrModel(rank_weight=), as in
+    the JAX script (ossid_code_tpu/scripts/ab_rank_blend.py:54,95): a run
+    at 0.5 ends and builds its scorer with that weight
+    (tests/test_torch_zephyr_train.py holds the weighted loss to JAX's)."""
+    from ossid_code_torch.models.zephyr import module as zmod
+
+    built = []
+    init = zmod.ZephyrModel.__init__
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        built.append(self.rank_weight)
+
+    monkeypatch.setattr(zmod.ZephyrModel, "__init__", recording_init)
+    assert ab_rank_blend.main([*RANK_BLEND_ARGV, "--rank_weight", "0.5", "--device", "cpu"]) == 0
+    assert built == [0.5]
 
 
 def test_alignment_stats_match_jax():

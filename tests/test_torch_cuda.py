@@ -391,6 +391,62 @@ def test_dw_corr3x3_bf16_matches_plain(cuda, shape, x_broadcast, k_broadcast):
     _bf16_agree(got, want, steps=1.0)
 
 
+def _widened(t):
+    """t in float32; a stride-0 broadcast over the batch stays a broadcast."""
+    return t[:1].float().expand(t.shape) if t.shape[0] > 1 and t.stride(0) == 0 else t.float()
+
+
+# 1b's kernels and shapes besides its choice, (kernel, a, b, c): the tile (1:
+# slice vectors, rows, templates a block), the row walk (2: templates, runs a
+# block, rows a thread) and the row walk with 2 templates a thread (3:
+# template pairs, runs, rows); 0 for the choice's
+_DW16_SHAPES = [(0, 0, 0, 0), (1, 0, 1, 4), (1, 0, 3, 3), (1, 2, 2, 2), (2, 1, 4, 2), (2, 2, 2, 4),
+                (2, 4, 1, 8), (2, 1, 1, 16), (3, 1, 2, 4), (3, 2, 1, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,t,h,w,c,cross,k_broadcast", [
+    (1, 10, 29, 39, 640, False, False),   # serving's head: x stride 0 over T = 10, W ragged
+    (1, 160, 29, 39, 640, False, False),  # configuration 1's head, T = 160
+    (8, 1, 29, 39, 640, False, False),    # the step's head forward (and dx), batch 8
+    (8, 1, 240, 320, 64, False, False),   # the step's stem forward (and dx), batch 8
+    (1, 1, 240, 320, 64, False, False),   # serving's stem
+    (2, 1, 240, 320, 64, False, True),    # the farm's stem: taps stride 0
+    (3, 7, 29, 39, 640, True, False),     # the farm's 3 x 7: T odd, a partial template block
+    (1, 13, 40, 21, 16, False, False),    # T = 13 over one x, C = 16, W 21 ragged
+    (2, 5, 30, 12, 8, True, False),       # C = 8 (one 16-byte vector), 2 x 5
+    (1, 3, 1, 45, 64, True, False),       # H = 1
+])
+def test_dw_corr3x3_bf16_is_kernel1_rounded_once(cuda, f, t, h, w, c, cross, k_broadcast):
+    """Kernel 1b bit for bit equal to bf16(kernel 1 on the widened
+    operands): 1b runs kernel 1's float32 chain and rounds once. Under its
+    choice and under each of _DW16_SHAPES (a shape that does not fit the
+    call is the choice's), and, for a per-sample call, as dx (the taps read
+    turned by 180 degrees) against kernel 1 on the turned taps."""
+    g = torch.Generator(device="cuda").manual_seed(f * 1000 + t * 10 + c)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=g).bfloat16()
+    if cross:
+        x, k = r(f, h, w, c), r(t, 3, 3, c)
+    elif t > 1:  # one x over T templates: a per-sample call with x stride 0
+        x, k = r(1, h, w, c).expand(t, h, w, c), r(t, 3, 3, c)
+    else:
+        x = r(f, h, w, c)
+        k = r(1, 3, 3, c).expand(f, 3, 3, c) if k_broadcast else r(f, 3, 3, c)
+    with torch.inference_mode():
+        want = tconv.dw_corr3x3_cuda(_widened(x), _widened(k), cross=cross).bfloat16().view(torch.int16)
+        for shape in _DW16_SHAPES:
+            got = tconv._launch_dw_corr3x3(x, k, "test", cross, shape=shape).view(torch.int16)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (shape, int((got != want).sum()))
+        if not cross:
+            want = tconv.dw_corr3x3_cuda(_widened(x), _widened(k).flip(1, 2)).bfloat16().view(torch.int16)
+            got = tconv.dw_corr3x3_dx_cuda(x, k).view(torch.int16)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), int((got != want).sum())
+    plan = tconv.dw_corr3x3_bf16_plan(x, k, cross)
+    assert plan["kernel"] in ("tile", "rows", "rows2") and plan["blocks_per_sm"] >= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,x_broadcast,k_broadcast", [
     ((8, 29, 39, 640), False, False),    # finetune: correlation head

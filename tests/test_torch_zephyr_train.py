@@ -81,14 +81,17 @@ class _MaskDropout(torch.nn.Module):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_loss_and_grad(net, rank_weight):
+def _jax_loss_and_grad(net):
     """JAX ZephyrModel's train loss (module.py:233-276) and its gradient,
     jitted once, with the dropout outputs captured: f(params, batch_stats,
-    px, labels, valid, rng) -> ((loss, [dropout outputs]), grads)."""
+    px, labels, valid, rng, rank_weight) -> ((loss, [dropout outputs]),
+    grads). rank_weight is traced, so one program serves every weight; its
+    listwise term is added times the weight where JAX's adds it only for a
+    weight above 0, which at weight 0 adds exactly 0 (the term is finite)."""
     import flax.linen as nn
     import optax
 
-    def loss_fn(p, batch_stats, px, labels, valid, rng):
+    def loss_fn(p, batch_stats, px, labels, valid, rng, rank_weight):
         logits, mutated = net.apply(
             {"params": p, "batch_stats": batch_stats}, px, train=True,
             mutable=["batch_stats", "intermediates"], rngs={"dropout": rng},
@@ -119,37 +122,45 @@ def jax_model():
     return jz, (jz.params, jz.batch_stats, jz.opt_state)
 
 
-def _pair(jax_model):
+def _pair(jax_model, rank_weight=1.0):
     """The JAX scorer reset to its initial state, and a port scorer on the
-    same weights."""
+    same weights with `rank_weight`."""
     jz, (params, stats, opt_state) = jax_model
     jz.params, jz.batch_stats, jz.opt_state = params, stats, opt_state
-    tz = TZephyrModel(num_points=N, seed=0, align_feats=True, device="cpu")
+    tz = TZephyrModel(num_points=N, seed=0, align_feats=True, device="cpu", rank_weight=rank_weight)
     tz.load_state_dict(pointnet2_from_jax(_np_tree(params), _np_tree(stats)))
     return jz, tz
 
 
 def _step_both(jz, tz, px, labels, valid, seed):
     """One step on each side with JAX's dropout masks; returns (JAX loss,
-    port loss, JAX gradients, JAX loss of the replicated loss function)."""
-    (loss_ref, drops), grads = _jax_loss_and_grad(jz.net, jz.rank_weight)(
+    port loss, JAX gradients, JAX loss of the replicated loss function).
+    The replicated loss and the gradients are at the port scorer's
+    rank_weight; JAX's train_step, at its own (1.0), runs only where the
+    two weights are one (else its loss is None)."""
+    (loss_ref, drops), grads = _jax_loss_and_grad(jz.net)(
         jz.params, jz.batch_stats, jnp.asarray(px), jnp.asarray(labels), jnp.asarray(valid),
-        jax.random.PRNGKey(seed))
+        jax.random.PRNGKey(seed), jnp.float32(tz.rank_weight))
     for idx, out in zip((1, 3), drops):
         tz.net.FC_layer[idx] = _MaskDropout(np.asarray(out) != 0)
-    lj = jz.train_step(px, labels, valid, seed=seed)
+    lj = jz.train_step(px, labels, valid, seed=seed) if tz.rank_weight == jz.rank_weight else None
     lt = tz.train_step(px, labels, valid, seed=seed)
     return lj, lt, grads, float(loss_ref)
 
 
-def test_first_train_step_matches_jax(jax_model):
-    """Loss and gradients leaf by leaf against jax.grad, dropout masks shared.
-    The alignment head gets no gradient on either side."""
-    jz, tz = _pair(jax_model)
+@pytest.mark.parametrize("rank_weight", [0.0, 0.5, 1.0])
+def test_first_train_step_matches_jax(jax_model, rank_weight):
+    """Loss and gradients leaf by leaf against jax.grad of JAX's train loss
+    (module.py:233-276) at `rank_weight` (0: class-balanced BCE alone),
+    dropout masks shared; at JAX's default 1.0 the replicated loss is JAX
+    ZephyrModel.train_step's own. The alignment head gets no gradient on
+    either side."""
+    jz, tz = _pair(jax_model, rank_weight)
     px, labels, valid = _features(np.random.default_rng(0))
     lj, lt, grads, lref = _step_both(jz, tz, px, labels, valid, 3)
-    assert abs(lref - lj) <= 1e-6 * abs(lj)  # the replicated loss function is JAX's
-    assert abs(lt - lj) <= LOSS_TOL * abs(lj), (lt, lj)
+    if lj is not None:
+        assert abs(lref - lj) <= 1e-6 * abs(lj)  # the replicated loss function is JAX's
+    assert abs(lt - lref) <= LOSS_TOL * abs(lref), (lt, lref)
     g = _np_tree(grads)
     assert not np.any(g["align_head"]["kernel"]) and tz.net.align_head.weight.grad is None
     want = pointnet2_from_jax(g, _np_tree(jz.batch_stats))

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where kernel 2b (csrc/sa_mlp_max_bf16.cu) and kernels 3 / 3b
-(csrc/dw_corr3x3_bwd.cu, dk) spend their cycles, by phase.
+"""Where kernel 2b (csrc/sa_mlp_max_bf16.cu), kernels 3 / 3b
+(csrc/dw_corr3x3_bwd.cu, dk) and kernel 1b (csrc/dw_corr3x3.cu) spend their
+cycles, by phase.
 
     python3 tools/kernel_phases.py      (needs one NVIDIA GPU; about a minute)
 
-Builds both sources with their phase counters (-DSA_PHASES, -DDK_PHASES:
-clock64 reads between a warpgroup's or a block's phases, summed on the
-device) into ossid_code_torch/_build/phases/, one nvcc each, started
-together, and prints ptxas's registers and spills. Then it launches each
-counted build once through its C entry point, with the arguments the port's
-wrapper passes, at the main-path shapes:
+Builds the three sources with their phase counters (-DSA_PHASES,
+-DDK_PHASES, -DDW16_PHASES: clock64 reads between a warpgroup's, a block's
+or a warp's phases, summed on the device) into
+ossid_code_torch/_build/phases/, one nvcc each, started together, and
+prints ptxas's registers and spills. Then it launches each counted build
+once through its C entry point, with the arguments the port's wrapper
+passes, at the main-path shapes:
 
 - 2b at SA1 (512 centres, 11 -> 64 -> 64 -> 128) and SA2 (128 centres,
   131 -> 128 -> 128 -> 256), M = 128 and 256 hypotheses, k = 64, random
@@ -18,7 +20,13 @@ wrapper passes, at the main-path shapes:
 - dk at the finetune's head and stem shapes (chip_smoke.dw_bwd_cases), in
   float32 and bf16, with the plan ops/conv.py::dw_corr3x3_dk_plan gives the
   card: a block's cycles in each phase, averaged over blocks, and the
-  launch's span on the global timer.
+  launch's span on the global timer;
+- 1b at every main-path shape (chip_smoke.dw16_cases), under the choice it
+  makes (ops/conv.py::dw_corr3x3_bf16_plan): a warp's cycles in its
+  prologue (the tile's copies and barrier, the row walk's taps) and in the
+  rest, the warps, and the launch's span and its warps' start spread on the
+  global timer, beside the uncounted kernel's time (chip_smoke.cuda_ms):
+  what the span leaves of that time is the launch's own cost.
 
 Each result is held against its plain version first. The counters cost
 time, so nothing here is a kernel time (chip_smoke.py measures those). The
@@ -44,6 +52,7 @@ from ossid_code_torch.ops import conv, sa_fused as sa  # noqa: E402
 
 SA_PHASES = ("wait", "fragments+issue", "layer1", "layer2", "layer3 MMA", "max", "stores")
 DK_PHASES = ("prologue", "ring waits", "copies and sums", "block reduction", "cluster reduction")
+DW16_PHASES = ("prologue", "walk")
 _COUNTS = ctypes.POINTER(ctypes.c_ulonglong)
 
 
@@ -52,7 +61,8 @@ def build_counted() -> dict[str, tuple[ctypes.CDLL, str]]:
     out_dir = build.BUILD_DIR / "phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, define in (("sa_mlp_max_bf16", "SA_PHASES"), ("dw_corr3x3_bwd", "DK_PHASES")):
+    for name, define in (("sa_mlp_max_bf16", "SA_PHASES"), ("dw_corr3x3_bwd", "DK_PHASES"),
+                         ("dw_corr3x3", "DW16_PHASES")):
         out = out_dir / f"{name}.so"
         cmd = [build._nvcc(), *build._nvcc_flags(), f"-D{define}", "-o", str(out), str(build.CSRC_DIR / f"{name}.cu")]
         jobs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -144,6 +154,30 @@ def dk_phases(lib: ctypes.CDLL) -> None:
                               "start_spread_us": (counts[7] - counts[6]) / 1e3}))
 
 
+def dw16_phases(lib: ctypes.CDLL) -> None:
+    lib.dw_corr3x3_bf16.argtypes, lib.dw_corr3x3_bf16.restype = conv._FWD_ARGS
+    lib.dw_corr3x3_bf16_phases.argtypes = [_COUNTS]
+    counts = (ctypes.c_ulonglong * 6)()
+    stream = build.stream_ptr(torch.device("cuda"))
+    for label, x, k, cross in cs.dw16_cases(torch, torch.device("cuda")):
+        b, t, strides = conv._call_shape(x, k, cross)
+        out = torch.empty((b, *x.shape[1:]), device="cuda", dtype=torch.bfloat16)
+        lib.dw_corr3x3_bf16_phases(counts)  # reset the counters
+        build.check(lib.dw_corr3x3_bf16(x.data_ptr(), k.data_ptr(), out.data_ptr(), b, t, *x.shape[1:], *strides,
+                                        stream), "dw_corr3x3_bf16")
+        torch.cuda.synchronize()
+        lib.dw_corr3x3_bf16_phases(counts)
+        want = conv.dw_corr3x3_cuda(cs.widened(x), cs.widened(k), cross=cross).bfloat16()
+        if not torch.equal(out.view(torch.int16), want.view(torch.int16)):
+            cs.fail(f"1b ({label}), counted build: differs from bf16(kernel 1 on the widened operands)")
+        warps = max(counts[2], 1)
+        print(json.dumps({"kernel": "1b", "case": label, "choice": conv.dw_corr3x3_bf16_plan(x, k, cross),
+                          "warps": counts[2],
+                          "phase_cycles_per_warp": {n: counts[i] / warps for i, n in enumerate(DW16_PHASES)},
+                          "span_us": (counts[5] - counts[3]) / 1e3, "start_spread_us": (counts[4] - counts[3]) / 1e3,
+                          "uncounted_us": 1e3 * cs.cuda_ms(torch, lambda: conv.dw_corr3x3_cuda(x, k, cross=cross))}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: needs an NVIDIA GPU", file=sys.stderr)
@@ -157,6 +191,7 @@ def main() -> int:
     with torch.inference_mode():
         sa_phases(libs["sa_mlp_max_bf16"][0])
         dk_phases(libs["dw_corr3x3_bwd"][0])
+        dw16_phases(libs["dw_corr3x3"][0])
     return 0
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Kernel 1 (head and stem) and kernel 2 (SA1 and SA2 at M = 128) of two
-trees, timed in turns on one card.
+"""Kernels 1 and 1b (the dw-corr forward in float32 and bf16, and 1b as the
+step's dx) and kernel 2 (SA1 and SA2 at M = 128) of two trees, timed in
+turns on one card.
 
     python3 tools/kernel_turns.py OLD_TREE NEW_TREE [--pairs N]   (needs one NVIDIA GPU)
 
@@ -8,13 +9,21 @@ Each tree is a checkout of the repo, e.g. a `git archive` unpacked under
 _cmp/. For N pairs, in the order old, new, new, old, old, new, ..., a fresh
 Python process in the tree's root imports that tree's own chip_smoke.py and
 ossid_code_torch (building its kernels into its own _build/ the first time)
-and times the kernels with chip_smoke.measure_dw_corr and measure_sa at the
-serving shapes (CUDA events, the median of 10 runs of 20 launches, each
-result held against the plain version first), with TF32 off. Each run also
-names the libcudart files the process maps and the tree's nvcc flags (PR
-14 compared the static runtime with `-cudart shared` this way). Prints one
-JSON line a run, then every reading of each tree by shape. The card's name
-and power limit come first.
+and times, with CUDA events (chip_smoke.cuda_ms: the median of 10 runs of 20
+launches) and TF32 off: kernel 1 at serving's head and stem and at
+configuration 1's head (T = 160); 1b at every main-path shape (serving's
+head and stem, the step's forward and dx at batch 8, the farm's 2 x 10,
+stem of 2 frames and 3 x 7, the head at T = 160); kernel 2 with
+chip_smoke.measure_sa. The shapes are built here from seeds, through the
+wrapper both trees have (ops/conv.py::dw_corr3x3_cuda, dw_corr3x3_dx_cuda),
+so the two trees time the same inputs. Each kernel-1 result is held against
+the plain version first (chip_smoke.DW_TOL), and each 1b result is compared
+bit for bit with bf16(kernel 1 on the widened operands) (`bitwise`: the
+count of elements that differ, 0 for each shape in a sound tree). Each run
+also names the libcudart files the process maps and the tree's nvcc flags
+(PR 14 compared the static runtime with `-cudart shared` this way). Prints
+one JSON line a run, then every reading of each tree by shape. The card's
+name and power limit come first.
 """
 
 from __future__ import annotations
@@ -37,16 +46,46 @@ build.build(["dw_corr3x3", "sa_mlp_max"])
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
-scene = cs.make_scene(np.random.default_rng(0))
-zephyr = ZephyrModel(num_points=cs.NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False, device=dev)
-prep = zephyr.prepare_object(scene["obj_id"], scene["model_points"], scene["model_colors"], scene["model_normals"])
+g = torch.Generator(device="cuda").manual_seed(31)
+r = lambda *s: torch.randn(*s, device="cuda", generator=g)
+feat = r(1, 29, 39, 640)
+cases = {  # label: (x, k, cross), float32; 1b takes their bf16 roundings
+    "head T=10": (feat.expand(10, 29, 39, 640), r(10, 3, 3, 640), False),
+    "stem": (r(1, 240, 320, 64), r(1, 3, 3, 64), False),
+    "head T=160": (feat.expand(160, 29, 39, 640), r(160, 3, 3, 640), False),
+    "step head b=8": (r(8, 29, 39, 640), r(8, 3, 3, 640), False),
+    "step stem b=8": (r(8, 240, 320, 64), r(8, 3, 3, 64), False),
+    "farm 2x10": (r(2, 29, 39, 640), r(10, 3, 3, 640), True),
+    "farm stem F=2": (r(2, 240, 320, 64), r(1, 3, 3, 64).expand(2, 3, 3, 64), False),
+    "farm 3x7": (r(3, 29, 39, 640), r(7, 3, 3, 640), True),
+}
+bf = lambda t: t[:1].bfloat16().expand(t.shape) if t.shape[0] > 1 and t.stride(0) == 0 else t.bfloat16()
+wide = lambda t: t[:1].float().expand(t.shape) if t.shape[0] > 1 and t.stride(0) == 0 else t.float()
+ms, bitwise = {}, {}
 with torch.inference_mode():
-    rows = (cs.measure_dw_corr(torch, F, conv, cs.dw_corr_cases(torch, dev), cs.dw_check(torch, False))
-            + cs.measure_sa(torch, sa, zephyr, prep, 128))
+    for label in ("head T=10", "stem", "head T=160"):
+        x, k, cross = cases[label]
+        cs.check_close(torch, label, conv.dw_corr3x3_cuda(x, k, cross=cross),
+                       conv.depthwise_corr_plain(x, k, 1, cross=cross), cs.DW_TOL)
+        ms["f32 " + label] = cs.cuda_ms(torch, lambda: conv.dw_corr3x3_cuda(x, k, cross=cross))
+    calls = [(label, *cases[label], conv.dw_corr3x3_cuda) for label in cases]
+    calls += [("dx " + label[5:], *cases[label], conv.dw_corr3x3_dx_cuda) for label in ("step head b=8", "step stem b=8")]
+    for label, x, k, cross, fn in calls:
+        x16, k16 = bf(x), bf(k)
+        call = (lambda: fn(x16, k16)) if fn is conv.dw_corr3x3_dx_cuda else (lambda: fn(x16, k16, cross=cross))
+        kw = k16.flip(1, 2) if fn is conv.dw_corr3x3_dx_cuda else k16
+        want = conv.dw_corr3x3_cuda(wide(x16), wide(kw), cross=cross).bfloat16().view(torch.int16)
+        got = call().view(torch.int16)
+        torch.cuda.synchronize()
+        bitwise["bf16 " + label] = int((got != want).sum())
+        ms["bf16 " + label] = cs.cuda_ms(torch, call)
+    scene = cs.make_scene(np.random.default_rng(0))
+    zephyr = ZephyrModel(num_points=cs.NUM_POINTS, inconst_ratio_th=100.0, seed=0, need_uv=False, device=dev)
+    prep = zephyr.prepare_object(scene["obj_id"], scene["model_points"], scene["model_colors"], scene["model_normals"])
+    ms.update({r["shape"]: r["ms"] for r in cs.measure_sa(torch, sa, zephyr, prep, 128)})
 with open("/proc/self/maps") as f:
     mapped = sorted({ln.split()[-1] for ln in f if "libcudart" in ln})
-print(json.dumps({"ms": {r["shape"]: r["ms"] for r in rows}, "libcudart": mapped,
-                  "nvcc_flags": list(build.NVCC_FLAGS)}))
+print(json.dumps({"ms": ms, "bitwise": bitwise, "libcudart": mapped, "nvcc_flags": list(build.NVCC_FLAGS)}))
 """
 
 
