@@ -130,17 +130,45 @@ def _rank_blend_rows(text: str) -> dict:
     return rows
 
 
-def test_ab_rank_blend_matches_jax(native_ppf, capsys):
-    from ossid_code_tpu.scripts import ab_rank_blend as jax_script
+_RANK_BLEND: dict = {}
 
-    assert jax_script.main(RANK_BLEND_ARGV) == 0
-    cap = capsys.readouterr()
-    want = _rank_blend_rows(cap.out + cap.err)
-    assert ab_rank_blend.main([*RANK_BLEND_ARGV, "--device", "cpu"]) == 0
-    cap = capsys.readouterr()
-    got = _rank_blend_rows(cap.out + cap.err)
-    summary = [d for d in _json_lines(cap.out) if "summary" in d][0]
-    assert summary["n_frames"] >= 2
+
+def _rank_blend_runs(capsys):
+    """Both packages' ab_rank_blend on RANK_BLEND_ARGV at --rank_weight 0.5,
+    run once a module: {'want': JAX's rows, 'got': the port's, 'summary':
+    the port's summary line, 'built': the rank weight of each scorer the
+    port's script built}. With --zephyr_epochs 0 no scorer trains, so the
+    weight changes no row."""
+    if not _RANK_BLEND:
+        from ossid_code_tpu.scripts import ab_rank_blend as jax_script
+
+        from ossid_code_torch.models.zephyr import module as zmod
+
+        argv = [*RANK_BLEND_ARGV, "--rank_weight", "0.5"]
+        capsys.readouterr()
+        assert jax_script.main(argv) == 0
+        cap = capsys.readouterr()
+        want = _rank_blend_rows(cap.out + cap.err)
+        built = []
+        init = zmod.ZephyrModel.__init__
+
+        def recording_init(self, *a, **kw):
+            init(self, *a, **kw)
+            built.append(self.rank_weight)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(zmod.ZephyrModel, "__init__", recording_init)
+            assert ab_rank_blend.main([*argv, "--device", "cpu"]) == 0
+        cap = capsys.readouterr()
+        _RANK_BLEND.update(want=want, got=_rank_blend_rows(cap.out + cap.err),
+                           summary=[d for d in _json_lines(cap.out) if "summary" in d][0], built=built)
+    return _RANK_BLEND
+
+
+def test_ab_rank_blend_matches_jax(native_ppf, capsys):
+    runs = _rank_blend_runs(capsys)
+    want, got = runs["want"], runs["got"]
+    assert runs["summary"]["n_frames"] >= 2
 
     assert set(got) == set(want)
     cells = [k for k in want if k.startswith("stat_d")]
@@ -152,23 +180,12 @@ def test_ab_rank_blend_matches_jax(native_ppf, capsys):
         assert 0.0 <= v <= 1.0, k
 
 
-def test_ab_rank_blend_takes_only_the_ports_rank_weight(monkeypatch):
+def test_ab_rank_blend_takes_only_the_ports_rank_weight(native_ppf, capsys):
     """--rank_weight reaches the scorer as ZephyrModel(rank_weight=), as in
-    the JAX script (ossid_code_tpu/scripts/ab_rank_blend.py:54,95): a run
-    at 0.5 ends and builds its scorer with that weight
+    the JAX script (ossid_code_tpu/scripts/ab_rank_blend.py:54,95): the run
+    at 0.5 of _rank_blend_runs ends and builds its scorer with that weight
     (tests/test_torch_zephyr_train.py holds the weighted loss to JAX's)."""
-    from ossid_code_torch.models.zephyr import module as zmod
-
-    built = []
-    init = zmod.ZephyrModel.__init__
-
-    def recording_init(self, *a, **kw):
-        init(self, *a, **kw)
-        built.append(self.rank_weight)
-
-    monkeypatch.setattr(zmod.ZephyrModel, "__init__", recording_init)
-    assert ab_rank_blend.main([*RANK_BLEND_ARGV, "--rank_weight", "0.5", "--device", "cpu"]) == 0
-    assert built == [0.5]
+    assert _rank_blend_runs(capsys)["built"] == [0.5]
 
 
 def test_alignment_stats_match_jax():

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import STEP_GRAD_NOISE, ZERO_GRAD_TOL
 from ossid_code_torch.ops import conv as tconv
 from ossid_code_torch.ops import sa_fused as tsa
 
@@ -903,11 +904,11 @@ def test_pipelined_loop_on_card(cuda, tmp_path):
     assert all(cross[k] <= spread[k] for k in cross), (cross, spread)
 
 
-def _legacy_pair(name):
-    """A legacy model at a small size on the card and on the CPU from the
-    same weights, and a batch: the few-shot model at width 16 on 64x80
-    queries (its zero seg_final perturbed), the matcher at dim 64, one
-    layer, 32 keypoints."""
+def _legacy_pair(name, devices=("cuda", "cpu")):
+    """A legacy model at a small size on the card and on the CPU (or on
+    `devices`) from the same weights, and a batch: the few-shot model at
+    width 16 on 64x80 queries (its zero seg_final perturbed), the matcher at
+    dim 64, one layer, 32 keypoints."""
     from ossid_code_torch.core.config import default_config
     from ossid_code_torch.models.fewshot_seg import FewshotSegModel
     from ossid_code_torch.models.matcher import SiftMatcher
@@ -916,7 +917,7 @@ def _legacy_pair(name):
     if name == "fewshot_seg":
         cfg = default_config().merged({"model": {"img_h": 64, "img_w": 80, "width": 16},
                                        "dataset": {"template_size": 32}})
-        pair = [FewshotSegModel(cfg, device=d) for d in ("cuda", "cpu")]
+        pair = [FewshotSegModel(cfg, device=d) for d in devices]
         with torch.no_grad():
             pair[0].net.seg_final.weight.normal_(0, 0.3)
             pair[0].net.seg_final.bias.zero_()
@@ -926,7 +927,7 @@ def _legacy_pair(name):
                  "smask": (rng.uniform(size=(2, 1, 32, 32, 1)) > 0.5).astype(np.float32)}
     else:
         cfg = default_config().merged({"model": {"dim": 64, "n_layers": 1}, "dataset": {"n_kpts": 32}})
-        pair = [SiftMatcher(cfg, device=d) for d in ("cuda", "cpu")]
+        pair = [SiftMatcher(cfg, device=d) for d in devices]
         M = np.zeros((2, 33, 33), np.float32)
         for i in range(2):
             M[i, np.arange(20), rng.permutation(32)[:20]] = 1.0
@@ -940,6 +941,91 @@ def _legacy_pair(name):
     return pair, batch
 
 
+# A leaf whose exact gradient is zero (a bias that a training-mode BatchNorm's
+# batch mean removes) holds only rounding on each device, so it is held by its
+# size: at most ZERO_GRAD_TOL of that device's largest gradient (chip_smoke.py's
+# rule). Every other leaf above STEP_GRAD_NOISE of the largest is held by
+# relative L2.
+# The leaves that rule names in each legacy model (biases_before_batchnorm
+# finds them from a forward; the test checks the two agree).
+LEGACY_ZERO_LEAVES = {
+    "fewshot_seg": [f"{trunk}.conv{i}{b}.bias" for trunk in ("query_trunk", "support_trunk")
+                    for i in range(3) for b in ("", "b")] + ["d1.bias", "d2.bias", "d3.bias"],
+    "matcher": [],
+}
+LEGACY_GRAD_TOL = {"fewshot_seg": 0.1, "matcher": 0.03}
+# a forward in training mode, the one the train step runs
+LEGACY_TRAIN_FORWARD = {"fewshot_seg": lambda m, feed: m.forward(feed, train=True),
+                        "matcher": lambda m, feed: m.forward(feed)}
+
+
+def biases_before_batchnorm(net, forward):
+    """The names of the conv biases of `net` whose output goes straight into
+    a BatchNorm in training mode, traced through one call of `forward` by
+    tensor identity: the batch mean takes such a bias out again, so its
+    exact gradient is zero. The call's updates of the running statistics
+    are undone."""
+    made, fed = {}, set()
+    state, training = {k: v.clone() for k, v in net.state_dict().items()}, net.training
+    names = {m: n for n, m in net.named_modules()}
+
+    def conv_out(mod, args, out):
+        made[id(out)] = (mod, out)  # the tensor is kept, so its id is not reused
+
+    def bn_in(mod, args):
+        if mod.training and id(args[0]) in made:
+            fed.add(names[made[id(args[0])][0]])
+
+    convs = (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Conv3d)
+    hooks = [m.register_forward_hook(conv_out) for m in net.modules() if isinstance(m, convs) and m.bias is not None]
+    hooks += [m.register_forward_pre_hook(bn_in) for m in net.modules()
+              if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    try:
+        with torch.no_grad():
+            forward()
+    finally:
+        for h in hooks:
+            h.remove()
+        net.load_state_dict(state)
+        net.train(training)
+    return sorted(f"{n}.bias" for n in fed)
+
+
+def legacy_grad_faults(got, want, zero_leaves, tol):
+    """The leaves of two gradient dicts (name -> tensor) that disagree: a leaf
+    in `zero_leaves` above ZERO_GRAD_TOL of its own dict's largest gradient in
+    either dict, any other leaf above STEP_GRAD_NOISE of the largest beyond
+    `tol` relative L2. Returns [(name, reading)]."""
+    scales = [max(float(g.abs().max()) for g in d.values()) for d in (got, want)]
+    faults = []
+    for n, w in want.items():
+        if n in zero_leaves:
+            size = max(float(d[n].abs().max()) / s for d, s in zip((got, want), scales))
+            if size > ZERO_GRAD_TOL:
+                faults.append((n, size))
+        elif float(w.abs().max()) >= STEP_GRAD_NOISE * scales[1]:
+            rel = float((got[n] - w).norm() / w.norm())
+            if rel > tol:
+                faults.append((n, rel))
+    return faults
+
+
+def plant_grad_faults(got, zero_leaves, held_leaf, tol):
+    """Two copies of `got`, each with one planted fault: the first zero leaf
+    scaled up to 10 ZERO_GRAD_TOL of the largest gradient (none if there is no
+    zero leaf), and `held_leaf` scaled by 1 + 2 tol."""
+    scale = max(float(g.abs().max()) for g in got.values())
+    planted = []
+    if zero_leaves:
+        z = zero_leaves[0]
+        g = got[z]
+        size = float(g.abs().max())
+        big = g * (10 * ZERO_GRAD_TOL * scale / size) if size > 0 else torch.full_like(g, 10 * ZERO_GRAD_TOL * scale)
+        planted.append((z, {**got, z: big}))
+    planted.append((held_leaf, {**got, held_leaf: got[held_leaf] * (1 + 2 * tol)}))
+    return planted
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fewshot_seg", "matcher"])
 def test_legacy_models_match_cpu(cuda, name):
@@ -948,9 +1034,14 @@ def test_legacy_models_match_cpu(cuda, name):
     matcher's log assignment within its CPU test's 2e-5), one train step's
     loss within 1e-4 relative and its gradients leaf by leaf within 0.1
     relative L2 (0.03 for the matcher, its CPU test's) above the 1e-6
-    noise rule; no kernel of the port launched."""
+    noise rule, but the conv biases before a training-mode BatchNorm
+    (LEGACY_ZERO_LEAVES), each held by its size on each device; a planted
+    fault on a zero leaf and on a held leaf fails that check; no kernel of
+    the port launched."""
     (gpu, cpu), batch = _legacy_pair(name)
     before = tconv.dw_corr3x3_cuda.launches + tsa.sa_mlp_max_cuda.launches
+    zero = LEGACY_ZERO_LEAVES[name]
+    assert biases_before_batchnorm(cpu.net, lambda: LEGACY_TRAIN_FORWARD[name](cpu, cpu._feed(batch))) == sorted(zero)
     with torch.no_grad():
         out = [m.forward(m._feed(batch)).cpu().numpy() for m in (gpu, cpu)]
     err = np.abs(out[0] - out[1]).max()
@@ -958,11 +1049,11 @@ def test_legacy_models_match_cpu(cuda, name):
     losses = [float(m.train_step(batch)["loss"]) for m in (gpu, cpu)]
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]), losses
     grads = [{n: p.grad.double().cpu() for n, p in m.net.named_parameters()} for m in (gpu, cpu)]
-    scale = max(float(g.abs().max()) for g in grads[1].values())
-    for n, want in grads[1].items():
-        if float(want.abs().max()) >= 1e-6 * scale:
-            rel = float((grads[0][n] - want).norm() / want.norm())
-            assert rel <= (0.03 if name == "matcher" else 0.1), (n, rel)
+    tol = LEGACY_GRAD_TOL[name]
+    assert legacy_grad_faults(grads[0], grads[1], zero, tol) == []
+    held = "d1.weight" if name == "fewshot_seg" else "final_obs.weight"
+    for leaf, planted in plant_grad_faults(grads[0], zero, held, tol):
+        assert [n for n, _ in legacy_grad_faults(planted, grads[1], zero, tol)] == [leaf]
     assert tconv.dw_corr3x3_cuda.launches + tsa.sa_mlp_max_cuda.launches == before
 
 

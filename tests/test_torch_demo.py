@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_loop import _configure, _run_jax, _run_port, jax_native_libraries, make_args  # noqa: F401
+from test_torch_loop import _configure, _run_jax, _run_port, fresh_model, jax_native_libraries, make_args  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -88,7 +88,7 @@ def test_dtoid_model_rows_match_jax(world):
     rows = []
     for cfg_fn, loaders, model_fn, run in (
             (default_config, get_dataloaders, lambda c: DtoidModel(c, seed=0), test_dtoid_model),
-            (t_default_config, t_get_dataloaders, lambda c: TDtoidModel(c, seed=0, device="cpu"), t_test_dtoid_model)):
+            (t_default_config, t_get_dataloaders, lambda c: fresh_model(TDtoidModel, c, seed=0, device="cpu"), t_test_dtoid_model)):
         cfg = _configure(cfg_fn(), world)
         _, _, test_loader = loaders(cfg)
         test_loader.dataset.sortTargets()

@@ -12,9 +12,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from scipy.spatial.transform import Rotation
 
 from ossid_code_torch.eval import bop_ar as tar
+
+torch.set_num_threads(2)
 
 TOL = 1e-6
 

@@ -8,8 +8,11 @@ import os
 import h5py
 import numpy as np
 import pytest
+import torch
 
 from ossid_code_torch.utils import hdf5
+
+torch.set_num_threads(2)
 
 DTYPES = ["uint8", "int16", "uint16", "int32", "float32", "float64"]
 SHAPES = {"scalar": (), "1d": (37,), "3d": (19, 23, 3)}

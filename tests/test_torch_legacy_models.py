@@ -156,6 +156,41 @@ def test_fewshot_first_step_matches_jax(fewshot):
     _hold_step(_leaves(got_p), _leaves(want_p), _leaves(want_g), lr)
 
 
+def test_zero_gradient_leaves_are_held_by_size():
+    """The gradient rule of tests/test_torch_cuda.py::
+    test_legacy_models_match_cpu, on the CPU: the conv biases that a
+    training forward traces into a BatchNorm are the few-shot model's
+    LEGACY_ZERO_LEAVES and none of the matcher's (the trace leaves the
+    running statistics as they were); a float32 step's gradients
+    pass the rule against a float64 evaluation of the same step, and each
+    planted fault (a zero leaf scaled to 10 times its limit, a held leaf by
+    1.2) fails it, alone."""
+    import copy
+
+    from ossid_code_torch.models.fewshot_seg import seg_bce
+    from test_torch_cuda import (
+        LEGACY_GRAD_TOL, LEGACY_TRAIN_FORWARD, LEGACY_ZERO_LEAVES, _legacy_pair, biases_before_batchnorm,
+        legacy_grad_faults, plant_grad_faults,
+    )
+
+    for name in ("matcher", "fewshot_seg"):
+        (m, _), batch = _legacy_pair(name, devices=("cpu", "cpu"))
+        zero = LEGACY_ZERO_LEAVES[name]
+        state = {k: v.clone() for k, v in m.net.state_dict().items()}
+        assert biases_before_batchnorm(m.net, lambda: LEGACY_TRAIN_FORWARD[name](m, m._feed(batch))) == sorted(zero)
+        assert all(torch.equal(v, state[k]) for k, v in m.net.state_dict().items())  # the trace changed nothing
+    net64 = copy.deepcopy(m.net).double().train()
+    feed = {k: v.double() for k, v in m._feed(batch).items()}
+    seg_bce(net64(feed["img"], feed["simg"], feed["smask"]), feed["mask"]).backward()
+    m.train_step(batch)
+    g32 = {n: p.grad.double() for n, p in m.net.named_parameters()}
+    g64 = {n: p.grad for n, p in net64.named_parameters()}
+    tol = LEGACY_GRAD_TOL[name]
+    assert legacy_grad_faults(g32, g64, zero, tol) == []
+    for leaf, planted in plant_grad_faults(g32, zero, "d1.weight", tol):
+        assert [n for n, _ in legacy_grad_faults(planted, g64, zero, tol)] == [leaf]
+
+
 # ------------------------------------------------------------------- matcher
 @pytest.fixture(scope="module")
 def matcher():

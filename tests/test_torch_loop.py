@@ -1,17 +1,20 @@
-"""The port's online loop against the JAX loop's synchronous path, on the CPU.
+"""The loop tests' world and runners, and the port's online loop against the
+JAX loop's pieces, on the CPU.
 
 One world, written by the JAX package's synthetic writer: 4 frames of
-128x160 with 2 objects (8 targets), 4 templates per object. Both loops
-start from the same DTOID and scorer weights and run the bench's gating
-profile (always_dtoid_mask, use_oracle_gt, device ICP of the top 4
-hypotheses, a 96-px depth crop) with DenseNet (2, 2, 2), a 128-point scorer,
-16 fake hypotheses per frame and a finetune every 4 buffered targets at
-batch 2. Both loops run with pipeline_scoring=False, the JAX loop with
-inline fetches and one frame per fetch; tests/test_torch_pipeline.py holds
-the pipelined loops to each other on the same world.
+128x160 with 2 objects (8 targets), 4 templates per object. The loops start
+from the same DTOID and scorer weights and run the bench's gating profile
+(always_dtoid_mask, use_oracle_gt, device ICP of the top 4 hypotheses, a
+96-px depth crop) with DenseNet (2, 2, 2), a 128-point scorer, 16 fake
+hypotheses per frame and a finetune every 4 buffered targets at batch 2.
+tests/test_torch_pipeline.py holds the port's synchronous loop to the JAX
+loop's synchronous path (pipeline_scoring=False, the JAX loop with inline
+fetches and one frame per fetch), the pipelined loops to each other and
+the pipelined loops of both packages on this world.
 """
 
 import argparse
+import copy
 import os
 import pickle
 import subprocess
@@ -29,6 +32,23 @@ REFINE_TOP = 4
 ROW_KEYS = ("obj_id", "pred_pose", "pred_score", "pred_err", "pred_add01d", "pred_mask_visib",
             "pred_iou_visib", "dtoid_bbox", "dtoid_score", "time_dtoid", "time_finetune",
             "use_dtoid_mask", "finetune")
+
+
+_PROTOTYPES: dict = {}
+
+
+def fresh_model(cls, *args, **kw):
+    """`cls(*args, **kw)` as a deep copy of one instance built per process
+    from the same arguments (a config compares by its contents) and the same
+    OSSID_* environment: the copy holds what a new build holds (the seeded
+    weights, no optimizer moments, empty caches) without the seconds that
+    building and initialising the port's networks take on the CPU. The
+    instance built is never handed out."""
+    key = (cls, repr([a.to_dict() if hasattr(a, "to_dict") else a for a in args]), repr(sorted(kw.items())),
+           repr(sorted((k, v) for k, v in os.environ.items() if k.startswith("OSSID_"))))
+    if key not in _PROTOTYPES:
+        _PROTOTYPES[key] = cls(*args, **kw)
+    return copy.deepcopy(_PROTOTYPES[key])
 
 
 def make_args(**kw):
@@ -134,10 +154,10 @@ def _run_port(root, args, weights, refine_top=REFINE_TOP, **loop_kw):
     train_ds.clearTargets()
     zr = {(r["obj_id"], r["scene_id"], r["im_id"]): dict(r) for r in zr_list}
     train_ds.zephyr_results = dict(zr)
-    model = DtoidModel(cfg, seed=0, device="cpu")
+    model = fresh_model(DtoidModel, cfg, seed=0, device="cpu")
     model.load_state_dict(dtoid_from_jax(weights[0]["params"], weights[0]["batch_stats"]))
     model.reset_optimizer()
-    zmodel = ZephyrModel(num_points=128, inconst_ratio_th=100.0, seed=0, need_uv=False,
+    zmodel = fresh_model(ZephyrModel, num_points=128, inconst_ratio_th=100.0, seed=0, need_uv=False,
                          refine_top=refine_top, device="cpu")
     zmodel.load_state_dict(pointnet2_from_jax(weights[1]["params"], weights[1]["batch_stats"]))
     gens = {oid: FakeHypoGen(n_hypos=16, seed=oid) for oid in bop.obj_ids}
@@ -146,31 +166,9 @@ def _run_port(root, args, weights, refine_top=REFINE_TOP, **loop_kw):
     return loop.run(progress=False), loop
 
 
-def test_loop_matches_jax_sync_path(world, monkeypatch):
-    """Same gate decisions, finetune schedule and row keys, and per row the
-    same pp_err and, for the hypotheses that ICP does not refine, the same
-    scores (2e-3 relative, 5e-4 absolute: float32 through PointNet++). Where
-    such a hypothesis wins in both loops, the pose agrees to 1e-4. The fake
-    hypotheses sit at the centroid of the detection region, mostly on the
-    background plane, where point-to-point ICP slides freely along the plane:
-    a refined pose amplifies float32 rounding, so refined rows are held to
-    finite proper rotations here and ICP itself is compared with JAX's on
-    well-posed input in tests/test_torch_icp.py."""
-    monkeypatch.setenv("OSSID_SPEC_FETCH", "inline")
-    monkeypatch.setenv("OSSID_FETCH_BUNDLE", "1")
-    args = make_args()
-    want, weights, _ = _run_jax(world, args)
-    got, loop = _run_port(world, args, weights, pipeline_scoring=False)
-    assert_rows_match_jax(got, want, loop)
-    loop.save_results(os.path.join(world, "results.pkl"), got)
-    with open(os.path.join(world, "results.pkl"), "rb") as f:
-        saved = pickle.load(f)
-    assert set(saved) == {"test_results", "main_args", "finetune_logs", "final_state_dict"}
-    assert len(saved["finetune_logs"]) == 2 and saved["main_args"]["finetune_interval"] == 4
-
-
 def assert_rows_match_jax(got, want, loop):
-    """test_loop_matches_jax_sync_path's criteria on two loops' rows."""
+    """tests/test_torch_pipeline.py::test_loop_matches_jax_sync_path's
+    criteria on two loops' rows."""
     assert len(got) == len(want) == 2 * N_FRAMES
     assert [r["finetune"] for r in got] == [r["finetune"] for r in want]
     assert sum(r["finetune"] for r in got) == 2
@@ -224,7 +222,7 @@ def test_region_mask_and_depth_crop_match(segmask):
     assert TLoop._depth_crop_window(me, got, depth.shape) == JLoop._depth_crop_window(me, want, depth.shape)
 
 
-def test_loop_refuses_unported_flags(world):
+def test_loop_refuses_unported_flags():
     """The port's table of unported options is gone: every option of the
     JAX loop is taken. yuv_transfer (tests/test_torch_pipeline.py runs it),
     use_maskrcnn (tests/test_torch_maskrcnn_train.py), save_each, raw_dtoid,

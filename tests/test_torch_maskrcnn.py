@@ -1,7 +1,7 @@
 """The port's class-conditional detector (ossid_code_torch/models/maskrcnn.py)
 and its data against the JAX package's, and the port's demo with it, on the
 CPU (its training and the online loop with it:
-tests/test_torch_maskrcnn_train.py; the CLI: tests/test_torch_maskrcnn_cli.py).
+tests/test_torch_maskrcnn_train.py, with the CLI).
 
 One JAX MaskRCNN for the module: 128x160 frames, 3 classes and the full
 DenseNet-121 trunk (the JAX network fixes its blocks at 12/24/16). Its

@@ -1,14 +1,24 @@
 """Training the port's class-conditional detector (ossid_code_torch/models/
-maskrcnn.py) and the online loop with it, against the JAX package's, on
-the CPU.
+maskrcnn.py), the online loop with it and the online-learning CLI with
+`--use_maskrcnn`, against the JAX package's, on the CPU.
 
 One JAX MaskRCNN for the module, as tests/test_torch_maskrcnn.py builds it
 (128x160, 3 classes, full DenseNet-121, perturbed output convs); its train
-step is compiled once and serves both tests. Limits: the first step's loss
-terms and BatchNorm statistics 1e-4 of the largest magnitude, gradients 0.03
-relative L2 leaf by leaf (ROADMAP.md §3 item 5), the stem's first BatchNorm
-scale its own (chip_smoke.py's MASKRCNN_STEM_SCALE_TOL); the loop as its
-test states.
+step is compiled once and serves both training tests, and its initial
+weights, perturbed from another seed, are the CLI's detector. Limits: the
+first step's loss terms and BatchNorm statistics 1e-4 of the largest
+magnitude, gradients 0.03 relative L2 leaf by leaf (ROADMAP.md §3 item 5),
+the stem's first BatchNorm scale its own (chip_smoke.py's
+MASKRCNN_STEM_SCALE_TOL); the loop and the CLI as their tests state.
+
+The CLI runs on the loop's world (tests/test_torch_cli.py's layout: 2
+objects x 2 frames of 128x160, its template grid, precomputed scorer
+results) from the detector's JAX pickle and the CLI's 512-point scorer
+saved by JAX as a torch file. No finetune event falls in its 4 targets: the
+finetune with this detector is test_loop_with_maskrcnn_matches_jax's.
+Floats are held to tests/test_torch_cli.py's limits: scores 2e-3 relative
+and 5e-4 absolute, rotations 1e-4, translations 0.1 mm, the top detection
+box 2e-2 px.
 """
 
 import argparse
@@ -21,6 +31,7 @@ import pytest
 import torch
 
 from chip_smoke import MASKRCNN_STEM_SCALE, MASKRCNN_STEM_SCALE_TOL, maskrcnn_gradients
+from test_torch_cli import SUMMARY, _point_roots
 from test_torch_maskrcnn import C, H, W, _cfgs, _close_rel, _np_tree, _port, make_models
 
 from ossid_code_torch.models.dtoid.jax_import import maskrcnn_to_jax
@@ -239,3 +250,75 @@ def test_loop_with_maskrcnn_matches_jax(models, loop_world, monkeypatch):
     np.testing.assert_allclose(logs[0][0], logs[1][0], rtol=1e-4)
     for got_ev, want_ev in zip(logs[0][1:], logs[1][1:]):
         np.testing.assert_allclose(got_ev, want_ev, rtol=3e-3)
+
+
+@pytest.fixture(scope="module")
+def cli_weights(models, loop_world):
+    """The CLI's files: the loop world's YAML of the detector's sizes, its
+    scorer file (the CLI builds a 512-point scorer; the weights do not
+    depend on the point count), and the detector as a JAX pickle: the
+    module's JAX model's initial weights with the output convs perturbed
+    from their own seed."""
+    from ossid_code_tpu.core.checkpoint import save_checkpoint
+
+    _, init, _, stats = models
+    root, files = loop_world
+    params = jax.tree_util.tree_map(np.copy, init)
+    rng = np.random.default_rng(11)
+    for node, std in ((params["classification"]["output"], 0.3),
+                      (params["regression"]["output"], 0.01), (params["seg_final"], 0.05)):
+        node["kernel"] = rng.normal(0, std, node["kernel"].shape).astype(np.float32)
+    path = os.path.join(root, "maskrcnn_cli.ckpt")
+    save_checkpoint(path, {"params": params, "batch_stats": stats})
+    return {"conf": files["conf"], "maskrcnn": path, "scorer": files["scorer"]}
+
+
+def test_cli_with_maskrcnn_matches_jax(loop_world, cli_weights, tmp_path, monkeypatch, capsys):
+    """Both CLIs with --use_maskrcnn, the detector's JAX pickle as
+    --dtoid_weights_path and its sizes from --conf_path: the same printed
+    summary (AR, IoUs, mAP), the results pickle's rows and the BOP CSV."""
+    import ossid_code_tpu.scripts.online_learning as J
+
+    import ossid_code_torch.scripts.online_learning as T
+    from ossid_code_torch.eval.bop_csv import read_results_bop
+    from ossid_code_torch.models.maskrcnn import MaskRCNNNetwork
+
+    world, weights = loop_world[0], cli_weights
+    monkeypatch.setenv("OSSID_SPEC_FETCH", "inline")
+    argv = ["--dataset_name", "synth", "--exp_name", "cli", "--conf_path", weights["conf"], "--use_maskrcnn",
+            "--hypo_backend", "fake", "--n_fake_hypos", "8", "--finetune_interval", "100", "--n_local_test", "4",
+            "--always_dtoid_mask", "--use_oracle_gt", "--dtoid_weights_path", weights["maskrcnn"],
+            "--zephyr_ckpt_path", weights["scorer"]]
+    runs = []
+    for tag, mod, dev in (("jax", J, []), ("port", T, ["--device", "cpu"])):
+        roots = _point_roots(monkeypatch, str(tmp_path), bop_root=world, tag=tag)
+        capsys.readouterr()
+        mod.main(mod.build_parser().parse_args(argv + dev))
+        printed = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith(SUMMARY)]
+        with open(os.path.join(roots["OSSID_RESULT_ROOT"], "results_cli.pkl"), "rb") as f:
+            saved = pickle.load(f)
+        csv = read_results_bop(os.path.join(roots["BOP_RESULTS_FOLDER"], "online-cli_synth-test.csv"))
+        runs.append((printed, saved, csv))
+    (jsum, want, jcsv), (tsum, got, tcsv) = runs
+    assert tsum == jsum and len(tsum) == len(SUMMARY), (tsum, jsum)
+    assert {k: v for k, v in got["main_args"].items() if k != "device"} == want["main_args"]
+    assert got["main_args"]["use_maskrcnn"] is True
+    assert got["finetune_logs"] == want["finetune_logs"] == []
+    assert set(got["final_state_dict"]) == set(MaskRCNNNetwork(C, (H, W)).state_dict())
+    rows, jrows = got["test_results"], want["test_results"]
+    assert len(rows) == len(jrows) == 2 * LOOP_FRAMES
+    for key in ("obj_id", "im_id", "dtoid_confident", "zephyr_confident", "use_dtoid_mask", "n_hypos"):
+        assert [r[key] for r in rows] == [r[key] for r in jrows], key
+    for g, w in zip(rows, jrows):
+        np.testing.assert_allclose(g["hypo_scores"], w["hypo_scores"], rtol=2e-3, atol=5e-4)
+        np.testing.assert_allclose(g["pred_score"], w["pred_score"], rtol=2e-3, atol=5e-4)
+        np.testing.assert_allclose(g["dtoid_bbox"][0], w["dtoid_bbox"][0], rtol=0, atol=2e-2)
+        assert abs(g["dtoid_iou"] - w["dtoid_iou"]) < 1e-3
+        if np.argmax(g["hypo_scores"]) == np.argmax(w["hypo_scores"]):
+            np.testing.assert_allclose(g["pred_pose"], w["pred_pose"], rtol=0, atol=1e-4)
+    assert len(tcsv) == len(jcsv) == len(rows)
+    for g, w in zip(tcsv, jcsv):
+        assert (g["obj_id"], g["scene_id"], g["im_id"]) == (w["obj_id"], w["scene_id"], w["im_id"])
+        np.testing.assert_allclose(g["score"], w["score"], rtol=2e-3, atol=5e-4)
+        np.testing.assert_allclose(g["pose"][:3, :3], w["pose"][:3, :3], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(g["pose"][:3, 3], w["pose"][:3, 3], rtol=0, atol=0.1)  # mm

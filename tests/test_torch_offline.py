@@ -19,6 +19,7 @@ from ossid_code_torch.models.dtoid.jax_import import dtoid_from_jax, dtoid_to_ja
 from ossid_code_torch.models.dtoid.module import DtoidModel as TDtoidModel
 from ossid_code_torch.train.offline import OfflineTrainer as TOfflineTrainer
 from ossid_code_torch.train.offline import make_multistep_schedule
+from test_torch_loop import fresh_model
 
 torch.set_num_threads(2)
 
@@ -96,7 +97,7 @@ def test_offline_trainer_steps_match_jax(models):
 
     jcfg, tcfg, params, stats, jd = models
     jd.load_state_dict({"params": params, "batch_stats": stats})
-    td = TDtoidModel(tcfg, seed=1, device="cpu")
+    td = fresh_model(TDtoidModel, tcfg, seed=1, device="cpu")
     td.load_state_dict(dtoid_from_jax(params, stats))
     jt, tt = OfflineTrainer(jd, jcfg, n_devices=1), TOfflineTrainer(td, tcfg, n_devices=1)
     rng = np.random.default_rng(4)
@@ -177,7 +178,7 @@ def test_checkpoint_round_trips(models, tmp_path):
     from ossid_code_torch.models.zephyr.module import ZephyrModel as TZephyrModel
 
     _, tcfg, params, stats, _ = models
-    td = TDtoidModel(tcfg, seed=1, device="cpu")
+    td = fresh_model(TDtoidModel, tcfg, seed=1, device="cpu")
     td.load_state_dict(dtoid_from_jax(params, stats))
     # port -> port
     save_checkpoint(str(tmp_path / "dtoid.ckpt"), td.state_dict(), extra={"epoch": 3})
@@ -228,7 +229,7 @@ def test_restore_trainer_state_resumes_identically(models, tmp_path):
     batches = [_batch(rng), _batch(rng)]
 
     def fresh(ckpt_dir=None):
-        td = TDtoidModel(tcfg, seed=1, device="cpu")
+        td = fresh_model(TDtoidModel, tcfg, seed=1, device="cpu")
         td.load_state_dict(dtoid_from_jax(params, stats))
         return TOfflineTrainer(td, tcfg, n_devices=1, ckpt_dir=ckpt_dir)
 

@@ -19,12 +19,15 @@ import os
 import h5py
 import numpy as np
 import pytest
+import torch
 
 from ossid_code_tpu.data import hdf5_render as J
 from ossid_code_tpu.data import synthetic as jsyn
 
 from ossid_code_torch.data import hdf5_render as T
 from ossid_code_torch.data import synthetic as tsyn
+
+torch.set_num_threads(2)
 
 H, W = 128, 160
 N_OBJECTS, N_SCENES, N_VIEWS = 6, 4, 6

@@ -28,6 +28,18 @@ torch.set_num_threads(2)
 
 
 # ------------------------------------------------------------------ timing
+# Both packages read the clock as `time.perf_counter()`; the tests replace it
+# with a clock that advances STEP on each read, so every timed block lasts
+# exactly STEP and the sums are exact (STEP is a power of two).
+STEP = 2.0 ** -10
+
+
+@pytest.fixture
+def stepped_clock(monkeypatch):
+    reads = iter(range(1, 1 << 20))
+    monkeypatch.setattr(time, "perf_counter", lambda: next(reads) * STEP)
+
+
 def _drive(mod):
     """One sequence of timed blocks through a package's Timer and
     StageTimes: (agg_list, explicitly exited stage times, `with` stage
@@ -35,37 +47,35 @@ def _drive(mod):
     agg = []
     for heading in ("a", "b", "a"):
         with mod.Timer(heading=heading, agg_list=agg):
-            time.sleep(0.001)
+            pass
     explicit = mod.StageTimes()
     for name in ("x", "y", "x"):
         t = explicit.timer(name)
         t.__enter__()
-        time.sleep(0.001)
         t.__exit__(None, None, None)
     with_stages = mod.StageTimes()
     for name in ("x", "y", "x"):
         with with_stages.timer(name):
-            time.sleep(0.001)
+            pass
     return agg, explicit, with_stages
 
 
-def test_timer_and_stage_times_match_jax(capsys):
+def test_timer_and_stage_times_match_jax(stepped_clock, capsys):
     from ossid_code_tpu.utils import timing as jtiming
 
     jagg, jexp, jwith = _drive(jtiming)
     tagg, texp, twith = _drive(timing)
-    assert [h for h, _ in tagg] == [h for h, _ in jagg] == ["a", "b", "a"]
-    assert all(isinstance(s, float) and s > 0 for _, s in tagg)
+    assert tagg == jagg == [("a", STEP), ("b", STEP), ("a", STEP)]
     # re-entry sums: x twice, y once, in both packages
-    assert list(texp.times) == list(jexp.times) == ["x", "y"]
-    assert texp.get("x") > texp.get("y") > 0 and texp.get("z", 7) == jexp.get("z", 7) == 7
+    assert list(texp.times.items()) == list(jexp.times.items()) == [("x", 2 * STEP), ("y", STEP)]
+    assert texp.get("z", 7) == jexp.get("z", 7) == 7
     # a `with` block: JAX's instance-level __exit__ is never called by the
     # statement (a fault of the reference); the port records the same sums
     assert jwith.times == {}
-    assert list(twith.times) == ["x", "y"] and twith.get("x") > twith.get("y") > 0
-    with timing.Timer(heading="v", verbose=True):
+    assert list(twith.times.items()) == [("x", 2 * STEP), ("y", STEP)]
+    with timing.Timer(heading="v", verbose=True) as t:
         pass
-    assert capsys.readouterr().out.startswith("v ")
+    assert t.interval == STEP and capsys.readouterr().out == f"v {STEP:.4f}s\n"
 
 
 # --------------------------------------------------------------- profiling

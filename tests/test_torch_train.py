@@ -21,6 +21,7 @@ from ossid_code_torch.models.dtoid.losses import detection_loss as t_detection_l
 from ossid_code_torch.models.dtoid.losses import dtoid_losses as t_dtoid_losses
 from ossid_code_torch.models.dtoid.module import DtoidModel as TDtoidModel
 from ossid_code_torch.ops.conv import depthwise_corr as t_depthwise_corr
+from test_torch_loop import fresh_model
 
 torch.set_num_threads(2)
 
@@ -151,8 +152,9 @@ def test_depthwise_corr_gradients_match_jax(k_broadcast):
 
 @pytest.fixture(scope="module")
 def models():
-    """A JAX DtoidModel and the port's, with the same weights (output convs
-    and BatchNorm statistics perturbed off their init)."""
+    """The configurations, the weights both packages start from (output convs
+    and BatchNorm statistics perturbed off the JAX model's init) and that
+    JAX DtoidModel (its network and anchors define the JAX loss)."""
     from ossid_code_tpu.core.config import default_config
     from ossid_code_tpu.models.dtoid.module import DtoidModel
 
@@ -171,7 +173,7 @@ def models():
         node["kernel"] = rng.normal(0, 0.05, node["kernel"].shape).astype(np.float32)
     stats = jax.tree_util.tree_map(
         lambda a: (a + rng.uniform(0.5, 1.5, a.shape)).astype(np.float32), _np_tree(jd.batch_stats))
-    return jcfg, tcfg, params, stats
+    return jcfg, tcfg, params, stats, jd
 
 
 def test_first_step_gradients_match_jax(models):
@@ -185,12 +187,10 @@ def test_first_step_gradients_match_jax(models):
     the parameters after Adam's step, this reads a gradient that is off by a
     constant factor."""
     from ossid_code_tpu.models.dtoid.losses import dtoid_losses
-    from ossid_code_tpu.models.dtoid.module import DtoidModel
 
-    jcfg, tcfg, params, stats = models
+    jcfg, tcfg, params, stats, jd = models
     m = jcfg.model
-    jd = DtoidModel(jcfg, seed=1)
-    td = TDtoidModel(tcfg, seed=1, device="cpu")
+    td = fresh_model(TDtoidModel, tcfg, seed=1, device="cpu")
     td.load_state_dict(dtoid_from_jax(params, stats))
     batch = _batch(np.random.default_rng(4))
 
@@ -238,13 +238,13 @@ def test_train_steps_match_jax(models):
     gradients themselves."""
     from ossid_code_tpu.models.dtoid.module import DtoidModel
 
-    jcfg, tcfg, params, stats = models
+    jcfg, tcfg, params, stats, _ = models
     jcfg, tcfg = jcfg.merged({"model": {"learning_rate": 1e-5}}), tcfg.merged({"model": {"learning_rate": 1e-5}})
     lr = tcfg.model.learning_rate
     jd = DtoidModel(jcfg, seed=1)
     jd.load_state_dict({"params": params, "batch_stats": stats})
     jd.reset_optimizer()
-    td = TDtoidModel(tcfg, seed=1, device="cpu")
+    td = fresh_model(TDtoidModel, tcfg, seed=1, device="cpu")
     td.load_state_dict(dtoid_from_jax(params, stats))
     td.reset_optimizer()
 
@@ -284,7 +284,7 @@ def test_train_steps_match_jax(models):
 def test_train_step_u8_matches_train_step(models):
     """The compact feed (uint8 frames and templates, bit-packed mask) gives
     the same step as the float feed it encodes."""
-    _, tcfg, params, stats = models
+    _, tcfg, params, stats, _ = models
     rng = np.random.default_rng(5)
     img_u8 = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
     mask = rng.uniform(0, 1, (B, H, W)) > 0.6
@@ -303,7 +303,7 @@ def test_train_step_u8_matches_train_step(models):
            "bbox_gt": ann, "heatmap": heat}
     out = []
     for step, feed in (("train_step_u8", u8), ("train_step", f32)):
-        td = TDtoidModel(tcfg, seed=1, device="cpu")
+        td = fresh_model(TDtoidModel, tcfg, seed=1, device="cpu")
         td.load_state_dict(dtoid_from_jax(params, stats))
         metrics = getattr(td, step)(feed)
         out.append((float(metrics["loss"]), td.state_dict()))
