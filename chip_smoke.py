@@ -55,7 +55,7 @@ Phases, each of which exits non-zero on failure:
      card's own float32 step from the same weights (batch 8): the loss, the
      gradients leaf by leaf, float32 master state, and the loss falling
      over 3 bf16 steps; the host-clock split of a float32 and of a bf16
-     step by span (DtoidModel.step_spans) beside their times, and the two
+     step by part (the `step.*` spans of utils/rpc_stats.STATS) beside their times, and the two
      steps timed in turns on the same weights;
   8. the end-to-end demo (ossid_code_torch/scripts/demo_e2e.py) with the JAX
      bench's reduced quality protocol (--hard --n_objects 2 --frames 24
@@ -1178,8 +1178,11 @@ def finetune_batch(rng, b):
 def time_train_step(torch, dtoid, rng, steps: int = 3):
     """Host-clock ms of one train_step_u8 at batch FINETUNE_BATCH, the
     replay feed the loop uses, after one warm-up step, synchronised; and the
-    host-clock ms of each of the step's spans (DtoidModel.step_spans: the
-    host's time to issue each part, without waiting for the device)."""
+    host-clock ms of each part of the step (its `step.*` spans in
+    utils/rpc_stats.STATS, on for the timed steps: the host's time to issue
+    each part, without waiting for the device)."""
+    from ossid_code_torch.utils.rpc_stats import STATS
+
     b = FINETUNE_BATCH
     batch = finetune_batch(rng, b)
     feed = {"img_u8": torch.from_numpy((batch["img"] * 255).astype(np.uint8)).cuda(),
@@ -1189,14 +1192,21 @@ def time_train_step(torch, dtoid, rng, steps: int = 3):
             "bbox_gt": batch["bbox_gt"], "heatmap": batch["heatmap"]}
     dtoid.train_step_u8(feed)
     torch.cuda.synchronize()
-    dtoid.step_spans = {}
+    STATS.reset()
+    STATS.spans_on = True
     t0 = time.perf_counter()
-    for _ in range(steps):
-        dtoid.train_step_u8(feed)
-    torch.cuda.synchronize()
+    try:
+        for _ in range(steps):
+            dtoid.train_step_u8(feed)
+        torch.cuda.synchronize()
+    finally:
+        STATS.spans_on = False
     ms = (time.perf_counter() - t0) * 1e3 / steps
-    spans = {k: v * 1e3 / steps for k, v in dtoid.step_spans.items()}
-    dtoid.step_spans = None
+    spans = {}
+    for name, _, start, end, _ in STATS.snapshot()["spans"]:
+        part = name.removeprefix("step.")
+        spans[part] = spans.get(part, 0.0) + (end - start) / 1e6 / steps
+    STATS.reset()
     return ms, spans
 
 
@@ -1353,6 +1363,9 @@ def drive_loop(torch, conv, sa, dtoid, zephyr, cfg, bop, zr_list, gens):
 
 def loop_summary(rows, wall_s, loop, launches, peak_gib, step_ms) -> dict:
     n_steps = sum(len(ep) for logs in loop.finetune_logs for ep in logs)
+    # on the card a row's time_finetune is its event's device time, from
+    # before the first step to after the last, idle gaps while the host
+    # issues the steps included: train_step_ms_in_loop is that over the steps
     events = [r["time_finetune"] for r in rows if r["finetune"]]
     return {
         "frames": len(rows), "wall_s": wall_s, "frames_per_s": len(rows) / wall_s,

@@ -134,7 +134,7 @@ class MultiStreamLoop(OnlineLearningLoop):
                 self._one_stream_frame(iteration, obj_id, scene_id, im_id, out,
                                        per_stream.setdefault(scene_id, []), progress,
                                        t_det.interval / len(members))
-        self.finetune_logs = [log.resolve() for log in self.finetune_logs]
+        self._resolve_finetunes()
         return per_stream
 
     def _one_stream_frame(self, iteration, obj_id, scene_id, im_id, out, results, progress,

@@ -44,6 +44,20 @@ OSSID_FRAME_SHARE (1). `utils/rpc_stats.STATS` counts the fetches and the
 speculation's outcomes. `pipeline_scoring=False` runs each frame to its end
 before the next one starts, with no speculation and no side threads.
 
+While spans are on (utils/rpc_stats.py), each stage is a span in STATS
+tagged with its target's ids: on the main thread an `iteration` (the
+dispatch half) around `frame.wait`, `detect.build` / `.dispatch` / `.wait` /
+`.decode`, `mask`, `hypotheses`, `score.dispatch`, `pp_err.dispatch` and
+the completions it runs; a `complete` around `complete.wait` / `.decode`,
+`icp`, `label`, `gate`, `finetune` (tagged with the event's index, around
+each step's `finetune.feed` and `finetune.step`) and `row`; the latency
+spans `queue` (loader to iteration) and `deferred` (dispatch half to
+completion); `resolve.wait` at the run's end; `io.prefetch` on the IO
+thread, `fetch.wait` and `fetch.decode` on the fetch thread (on while the
+caller of `run` has them on: `STATS.across_threads`). On the card a
+finetune row's `time_finetune` is the event's device time (CUDA events
+read at the run's end), on the CPU the host's.
+
 With the class-conditional detector (`models/maskrcnn.py`, `--use_maskrcnn`)
 in DTOID's place, detection is its `forward_test_time` for the target's
 class (it has no speculative dispatch), and the finetune trains it from the
@@ -238,6 +252,8 @@ class OnlineLearningLoop:
         eff_bundle = self._fetch_bundle if self._spec_fetch_thread else 1
         self._pipeline_depth = max(1, int(os.environ.get("OSSID_PIPELINE_DEPTH", str(eff_bundle))))
         self.finetune_logs: list = []
+        # (finetune row, CUDA events around its steps) until the run's end
+        self._finetune_clocks: list = []
         # frames stay on the device for the finetune of a detector that
         # trains from them (DtoidModel.train_step_u8); the class-conditional
         # detector trains from the host loader
@@ -255,10 +271,12 @@ class OnlineLearningLoop:
         self._fetch_futs.append(fut)
         return fut
 
-    def _timed_get(self, kind: str, copy: HostCopy):
-        """Wait for a started transfer; one fetch of `kind` in STATS."""
+    def _timed_get(self, kind: str, copy: HostCopy, span: str, ids=None):
+        """Wait for a started transfer; one fetch of `kind` in STATS, and a
+        `span` (a `.wait`) in its span log."""
         t0 = time.perf_counter()
-        out = copy.wait()
+        with STATS.span(span, ids):
+            out = copy.wait()
         STATS.rpc(kind, time.perf_counter() - t0)
         return out
 
@@ -268,9 +286,10 @@ class OnlineLearningLoop:
         deferred frames' completions, and decode the detections (unpackbits,
         IoU) here. Consumers read their part through _PartFut views: (0, j)
         the j-th detection, (1, j) the j-th completion."""
-        fetched_outs, pend_fetched = self._timed_get(kind, copy)
-        dets = tuple(self.model.fetch_detections(o, db, fetched=f)
-                     for (o, db), f in zip(items, fetched_outs))
+        fetched_outs, pend_fetched = self._timed_get(kind, copy, "fetch.wait")
+        with STATS.span("fetch.decode"):
+            dets = tuple(self.model.fetch_detections(o, db, fetched=f)
+                         for (o, db), f in zip(items, fetched_outs))
         return dets, pend_fetched
 
     def _frame_cache_get(self, fk) -> dict:
@@ -419,7 +438,8 @@ class OnlineLearningLoop:
         frame's uploads that _build_det_batch would otherwise make inline,
         shared through the frame cache. The values are those of the inline
         path."""
-        bop_data = self.bop_dataset.getDataByIds(obj_id, scene_id, im_id)
+        t0, ids = STATS.now(), (obj_id, scene_id, im_id)
+        bop_data = self.bop_dataset.getDataByIds(*ids)
         fk = (scene_id, im_id)
         extras = self._frame_cache_get(fk)
         new = {}
@@ -434,21 +454,23 @@ class OnlineLearningLoop:
         if new:
             self._frame_cache_put(fk, new)
             extras.update(new)
-        self._extras[(obj_id, scene_id, im_id)] = extras
+        self._extras[ids] = extras
+        STATS.add_span("io.prefetch", t0, ids=ids)
         return bop_data
 
     def _frame_data(self, ids):
         """The frame's BopDataset record: its prefetch's result when one was
         queued (an IO-thread error is raised here), else read now."""
         fut = self._prefetched.pop(ids, None)
-        return fut.result() if fut is not None else self.bop_dataset.getDataByIds(*ids)
+        with STATS.span("frame.wait", ids):
+            return fut.result() if fut is not None else self.bop_dataset.getDataByIds(*ids)
 
     def _build_det_batch(self, batch, bop_data) -> dict:
         """Detection input for one loader batch. When the processed image has
         the raw resolution, the raw uint8 frame goes to the card once and is
         shared by detection, scoring and the replay buffer; the depth in
         millimetres goes with it unless scoring takes a crop."""
-        ids = _ids(batch)
+        t0, ids = STATS.now(), _ids(batch)
         fk = ids[1:]
         ex = self._extras.pop(ids, None)
         if ex is None:
@@ -474,7 +496,7 @@ class OnlineLearningLoop:
             if depth_dev is None:
                 depth_dev = to_device(depth_u16.astype(np.int32), self.model.device)
                 self._frame_cache_put(fk, {"depth_dev": depth_dev})
-        return {
+        det_batch = {
             "img": img_shared_dev if img_shared_dev is not None else batch["img"][0],
             "obj_id": ids[0],
             "limg": batch["limg"][0],
@@ -484,6 +506,8 @@ class OnlineLearningLoop:
             "_depth_dev": depth_dev,
             "_depth_u16": depth_u16,
         }
+        STATS.add_span("detect.build", t0, ids=ids)
+        return det_batch
 
     @staticmethod
     def _completion_dev(ctx) -> tuple:
@@ -517,10 +541,13 @@ class OnlineLearningLoop:
         return len(self.train_dataset) + n_pending + 1 < self.next_finetune_number
 
     def run(self, progress: bool = True) -> list:
-        try:
-            return self._run(progress)
-        finally:
-            self.close()
+        # a profiler session on this thread turns spans on for the IO and
+        # fetch threads' work too
+        with STATS.across_threads():
+            try:
+                return self._run(progress)
+            finally:
+                self.close()
 
     def _detect(self, batch, ids, bop_data, times, specs, pending, lookahead):
         """This frame's detection on the host, and with pipelining the
@@ -533,11 +560,13 @@ class OnlineLearningLoop:
         t0 = time.perf_counter()
         if not self.pipeline_scoring:
             det_batch = self._build_det_batch(batch, bop_data)
-            out_dev = self.model.detect_async(det_batch)
+            with STATS.span("detect.dispatch", ids):
+                out_dev = self.model.detect_async(det_batch)
             times["time_det_miss"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            out = self.model.fetch_detections(out_dev, det_batch,
-                                              fetched=self._timed_get("det_fetch", HostCopy(out_dev)))
+            fetched = self._timed_get("det_fetch", HostCopy(out_dev), "detect.wait", ids)
+            with STATS.span("detect.decode", ids):
+                out = self.model.fetch_detections(out_dev, det_batch, fetched=fetched)
             times["time_det_fetch"] = time.perf_counter() - t0
             return out, det_batch
 
@@ -554,7 +583,8 @@ class OnlineLearningLoop:
                 out_dev = h
             elif isinstance(h, _PartFut):
                 tw = time.perf_counter()
-                out = h.result()
+                with STATS.span("detect.wait", ids):
+                    out = h.result()
                 # the main thread's block on the speculative fetch
                 STATS.rpc("spec_wait", time.perf_counter() - tw)
             else:
@@ -564,7 +594,8 @@ class OnlineLearningLoop:
             # the uploads do not depend on the weights: a stale entry's
             # det_batch is dispatched again under the new weights
             det_batch = entry["det_batch"] if entry is not None else self._build_det_batch(batch, bop_data)
-            out_dev = self.model.detect_async(det_batch)
+            with STATS.span("detect.dispatch", ids):
+                out_dev = self.model.detect_async(det_batch)
         times["time_det_miss"] = time.perf_counter() - t0
 
         # dispatch the upcoming frames' detections before fetching this
@@ -579,7 +610,8 @@ class OnlineLearningLoop:
                 # its frame will count a hit: the launch count needs this
                 STATS.count("spec_redispatch")
             n_det_batch = e["det_batch"] if e is not None else self._build_det_batch(la, self._frame_data(la_ids))
-            n_out = self.model.detect_async(n_det_batch)
+            with STATS.span("detect.dispatch", la_ids):
+                n_out = self.model.detect_async(n_det_batch)
             if not self._spec_fetch_thread:
                 # inline mode: the copy starts now, behind the detection
                 n_out = HostCopy(n_out)
@@ -613,10 +645,12 @@ class OnlineLearningLoop:
             # frames' completions
             pend = [(c, d) for c in pending if (d := self._pending_completion_dev(c)) is not None]
             fetched_det, pend_fetched = self._timed_get(
-                "det+complete" if pend else "det_fetch", HostCopy((out_dev, tuple(d for _, d in pend))))
+                "det+complete" if pend else "det_fetch", HostCopy((out_dev, tuple(d for _, d in pend))),
+                "detect.wait", ids)
             for (c, _), f in zip(pend, pend_fetched):
                 c["prefetched"] = f
-            out = self.model.fetch_detections(out_dev, det_batch, fetched=fetched_det)
+            with STATS.span("detect.decode", ids):
+                out = self.model.fetch_detections(out_dev, det_batch, fetched=fetched_det)
         times["time_det_fetch"] = time.perf_counter() - t0
         return out, det_batch
 
@@ -634,17 +668,29 @@ class OnlineLearningLoop:
                 self._complete_frame(pending.popleft(), test_results, progress)
 
         it = iter(self.test_loader)
-        batch = next(it, None)
+        # ids -> the span clock's time when the loop took the batch from the
+        # loader (the start of its `queue` span)
+        taken: dict = {}
+
+        def take():
+            b = next(it, None)
+            if b is not None:
+                taken[_ids(b)] = STATS.now()
+            return b
+
+        batch = take()
         # with pipelining, the next two loader batches: [0] for the
         # speculation, both for the IO thread's prefetch
         lookahead: deque = deque()
         iteration = -1
         while batch is not None:
             iteration += 1
-            t_iter0 = time.perf_counter()
+            ids = _ids(batch)
+            STATS.add_span("queue", taken.pop(ids, None), ids=ids)
+            t_iter0, t_iter0_ns = time.perf_counter(), STATS.now()
             if self.pipeline_scoring:
                 while len(lookahead) < 2:
-                    b = next(it, None)
+                    b = take()
                     if b is None:
                         break
                     lookahead.append(b)
@@ -653,7 +699,6 @@ class OnlineLearningLoop:
                     if la_ids not in self._prefetched and la_ids not in specs:
                         self._prefetched[la_ids] = self._io_submit(
                             self._prefetch_frame, *la_ids, *la["img"].shape[1:3])
-            ids = _ids(batch)
             obj_id, scene_id, im_id = ids
 
             with Timer() as t_data:
@@ -710,7 +755,8 @@ class OnlineLearningLoop:
                     # waited for on the fetch thread
                     d = self._pending_completion_dev(ctx)
                     if d is not None:
-                        ctx["prefetch_fut"] = self._fetch_submit(self._timed_get, "complete_thread", HostCopy(d))
+                        ctx["prefetch_fut"] = self._fetch_submit(self._timed_get, "complete_thread",
+                                                                 HostCopy(d), "fetch.wait")
             else:
                 # no hypotheses (the precomputed result stands in, else an
                 # unconfident identity: ref online_learning.py:367-378), or a
@@ -722,14 +768,28 @@ class OnlineLearningLoop:
             # dispatch half of the iteration (a deferred completion lands in
             # a later iteration's wall)
             times["time_iter"] = time.perf_counter() - t_iter0
-            batch = lookahead.popleft() if lookahead else next(it, None)
+            STATS.add_span("iteration", t_iter0_ns, ids=ids)
+            if pending and pending[-1] is ctx:
+                ctx["t_dispatched"] = STATS.now()
+            batch = lookahead.popleft() if lookahead else take()
         complete_pending()
-        # a bundle whose every part went stale is read by no frame
-        for fut in self._fetch_futs:
-            fut.result()
-        # the finetune losses, fetched once each now that their steps ran
-        self.finetune_logs = [l.resolve() for l in self.finetune_logs]
+        with STATS.span("resolve.wait"):
+            # a bundle whose every part went stale is read by no frame
+            for fut in self._fetch_futs:
+                fut.result()
+            self._resolve_finetunes()
         return test_results
+
+    def _resolve_finetunes(self) -> None:
+        """The finetune losses, fetched once each now that their steps ran,
+        and on the card each finetune row's `time_finetune`: the device time
+        between the events recorded before its first step and after its
+        last."""
+        self.finetune_logs = [l.resolve() for l in self.finetune_logs]
+        for row, start, end in self._finetune_clocks:
+            end.synchronize()
+            row["time_finetune"] = start.elapsed_time(end) / 1e3
+        self._finetune_clocks = []
 
     def _pose_estimate(self, ctx, bop_data, det_batch, out) -> bool:
         """Region mask -> hypotheses -> scoring with device ICP dispatched,
@@ -737,6 +797,7 @@ class OnlineLearningLoop:
         ctx['pp_handle']). False when hypothesis generation found nothing."""
         args, times, obj_id = self.args, ctx["times"], ctx["obj_id"]
         depth, cam_K = ctx["depth"], ctx["cam_K"]
+        t0, ids = STATS.now(), (obj_id, ctx["scene_id"], ctx["im_id"])
         with Timer() as t_mask:
             dist_mask = self._dtoid_mask(out, depth)
         times["time_mask"] = t_mask.interval
@@ -748,11 +809,13 @@ class OnlineLearningLoop:
             crop = det_batch["_depth_u16"][y0:y0 + sh, x0:x0 + sw]
             depth_mm = to_device(crop.astype(np.int32), self.model.device)
             depth_origin = np.asarray([y0, x0], np.int32)
+        STATS.add_span("mask", t0, ids=ids)
         frame = det_batch["_img_shared_dev"]
         img = frame[0] if frame is not None else bop_data["img"]
         # SIFT reads the raw image: the shared frame is it unless rebuilt from YUV
-        poses = self._generate_hypotheses(obj_id, bop_data["img"] if self._yuv else img, depth,
-                                          dist_mask, cam_K, bop_data["scene_meta"], times)
+        with STATS.span("hypotheses", ids):
+            poses = self._generate_hypotheses(obj_id, bop_data["img"] if self._yuv else img, depth,
+                                              dist_mask, cam_K, bop_data["scene_meta"], times)
         if len(poses) == 0:
             return False
         pts, cols, nrms = self.model_clouds[obj_id]
@@ -760,11 +823,11 @@ class OnlineLearningLoop:
                 "model_colors": cols, "model_normals": nrms, "pose_hypos": poses}
         if depth_origin is not None:
             data["depth_origin"] = depth_origin
-        with Timer() as t:
+        with STATS.span("score.dispatch", ids), Timer() as t:
             ctx["zhandle"] = self._zephyr_for(obj_id).score_hypotheses_async(data, obj_id=obj_id)
         times["time_zephyr"] = t.interval
         ctx["n_hypos"] = len(poses)
-        with Timer() as t_pp:
+        with STATS.span("pp_err.dispatch", ids), Timer() as t_pp:
             pts_dev, pts_q_dev = self._pp_pts(obj_id)
             ctx["pp_handle"] = pp_err_batch_async(poses, ctx["mat_gt"], pts_dev,
                                                   symmetric=ctx["err_func"] is adi_err, pts_q_dev=pts_q_dev)
@@ -776,9 +839,11 @@ class OnlineLearningLoop:
         score fetch, host ICP, pseudo-label render, self-supervision gate,
         finetune and the result row. Runs at once or deferred (see
         _can_defer_completion)."""
-        t_complete0 = time.perf_counter()
+        ids = (ctx["obj_id"], ctx["scene_id"], ctx["im_id"])
+        STATS.add_span("deferred", ctx.pop("t_dispatched", None), ids=ids)
+        t_complete0, t_complete0_ns = time.perf_counter(), STATS.now()
         args = self.args
-        obj_id, scene_id, im_id = ctx["obj_id"], ctx["scene_id"], ctx["im_id"]
+        obj_id, scene_id, im_id = ids
         depth, mat_gt, cam_K = ctx["depth"], ctx["mat_gt"], ctx["cam_K"]
         times, iteration = ctx["times"], ctx["iteration"]
         zh, hypo_scores = ctx["zhandle"], None
@@ -798,19 +863,22 @@ class OnlineLearningLoop:
                 fut = ctx.pop("prefetch_fut", None)
                 if fut is not None:
                     tw = time.perf_counter()
-                    pre = fut.result()
+                    with STATS.span("complete.wait", ids):
+                        pre = fut.result()
                     STATS.rpc("complete_wait", time.perf_counter() - tw)
                 else:
                     pre = ctx.pop("prefetched", None)
                 if pre is None:
-                    pre = self._timed_get("complete", HostCopy(self._completion_dev(ctx)))
+                    pre = self._timed_get("complete", HostCopy(self._completion_dev(ctx)), "complete.wait", ids)
                 fz, fref, fpp = pre
-                zout = self._zephyr_for(obj_id).fetch_scores(zh, fetched=fz, refined_fetched=fref)
+                with STATS.span("complete.decode", ids):
+                    zout = self._zephyr_for(obj_id).fetch_scores(zh, fetched=fz, refined_fetched=fref)
             times["time_zephyr"] += t.interval
-            ctx["pp_err"] = pp_err_fetch(ctx["pp_handle"], fetched=fpp)
+            with STATS.span("complete.decode", ids):
+                ctx["pp_err"] = pp_err_fetch(ctx["pp_handle"], fetched=fpp)
             pred_pose, pred_score, hypo_scores = zout["pred_pose"], zout["pred_score"], zout["scores"]
             if self.use_icp:
-                with Timer() as t:
+                with STATS.span("icp", ids), Timer() as t:
                     # crop box from the model points projected on the host
                     # under the picked pose (the device uv map's row for it)
                     pts = ctx["model_points"]
@@ -825,7 +893,7 @@ class OnlineLearningLoop:
                                    mat_gt[:3, 3], ctx["model_points"])
 
         # ---- pseudo-label mask ----------------------------------------
-        with Timer() as t_label:
+        with STATS.span("label", ids), Timer() as t_label:
             pred_depth = self._render_pred(obj_id, cam_K, pred_pose, depth.shape)
             pred_mask = pred_depth > 0
             gt_mask = np.asarray(ctx["mask_gt"]) > 0
@@ -836,32 +904,43 @@ class OnlineLearningLoop:
         # ---- self-supervision gate + finetune -------------------------
         z_th = getattr(args, "zephyr_confident_threshold", ZEPHYR_CONFIDENT_THRESHOLD)
         zephyr_confident = True if args.use_oracle_gt else pred_score > z_th
-        finetune = False
+        finetune, clock = False, None
         if not args.no_finetune and zephyr_confident:
-            self.train_dataset.addTarget(obj_id, scene_id, im_id)
-            label_mask = gt_mask_visib if args.use_oracle_gt else pred_mask_visib
-            self.train_dataset.updateZephyrMask(obj_id, scene_id, im_id, label_mask, pred_score)
-            if self.replay is not None:
-                self.replay.add((obj_id, scene_id, im_id), ctx["img_dev"], label_mask, mat_gt)
+            with STATS.span("gate", ids):
+                self.train_dataset.addTarget(obj_id, scene_id, im_id)
+                label_mask = gt_mask_visib if args.use_oracle_gt else pred_mask_visib
+                self.train_dataset.updateZephyrMask(obj_id, scene_id, im_id, label_mask, pred_score)
+                if self.replay is not None:
+                    self.replay.add(ids, ctx["img_dev"], label_mask, mat_gt)
             if len(self.train_dataset) == self.next_finetune_number:
                 finetune = True
+                t_event, event = STATS.now(), len(self.finetune_logs)
                 if args.finetune_reset:
                     self.model.load_state_dict(self.initial_state_dict)
                     self.model.reset_optimizer()
+                if self.model.device.type == "cuda":
+                    # on the card the event is timed on the device, read at
+                    # the run's end (_resolve_finetunes): no wait here
+                    clock = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                    clock[0].record()
                 with Timer() as t:
                     logs = finetune_dtoid(self.model, self.train_dataset,
                                           epochs=args.finetune_epochs,
-                                          batch_size=args.finetune_batch_size, replay=self.replay)
+                                          batch_size=args.finetune_batch_size, replay=self.replay, event=event)
+                if clock is not None:
+                    clock[1].record()
                 times["time_finetune"] = t.interval
                 self.finetune_logs.append(logs)
                 if args.save_each:
                     self._save_each_ckpt(iteration)
+                STATS.add_span("finetune", t_event, ids=event)
                 if args.non_cum:
                     self.train_dataset.clearTargets()
                     self.next_finetune_number = args.finetune_interval
                 else:
                     self.next_finetune_number += args.finetune_interval
 
+        t_row = STATS.now()
         iou = np.logical_and(pred_mask, gt_mask).sum() / max(np.logical_or(pred_mask, gt_mask).sum(), 1)
         iou_visib = np.logical_and(pred_mask_visib, gt_mask_visib).sum() / max(
             np.logical_or(pred_mask_visib, gt_mask_visib).sum(), 1)
@@ -889,8 +968,12 @@ class OnlineLearningLoop:
             "time_dtoid": ctx["time_dtoid"],
             **times,
         }
+        if clock is not None:
+            self._finetune_clocks.append((result, *clock))
         result["time_complete"] = time.perf_counter() - t_complete0
         test_results.append(result)
+        STATS.add_span("row", t_row, ids=ids)
+        STATS.add_span("complete", t_complete0_ns, ids=ids)
         if progress and iteration % 10 == 0:
             print(f"[{iteration + 1}/{len(self.test_loader)}] obj {obj_id} "
                   f"score {pred_score:.2f} add01d {result['pred_add01d']:.0f} "
@@ -967,7 +1050,7 @@ class DeferredLogs:
         return self._resolved
 
 
-def _finetune_replay(model, train_dataset, replay, epochs: int, batch_size: int):
+def _finetune_replay(model, train_dataset, replay, epochs: int, batch_size: int, event=None):
     """Device-feed finetune pass: frames come from the detection-time uploads
     held by the replay buffer (uint8 + bit-packed pseudo-masks); only
     templates, heat maps and boxes ship from the host. Returns None when the
@@ -998,20 +1081,22 @@ def _finetune_replay(model, train_dataset, replay, epochs: int, batch_size: int)
         order = rng.permutation(len(keys))
         epoch_losses = []
         for i0 in range(0, len(order), batch_size):
-            sel = order[i0:i0 + batch_size]
-            if len(sel) < batch_size:  # pad by repetition to the batch size
-                sel = np.resize(sel, batch_size)
-            bkeys = [keys[j] for j in sel]
-            frames = [replay.frame(k) if replay.frame(k) is not None else host_frames[k]
-                      for k in bkeys]
-            feed = {"img_u8": torch.cat(frames, 0),
-                    "mask_bits": np.concatenate([replay.bits(k) for k in bkeys], axis=0)}
-            anns = [train_dataset.replay_annotations(
-                        k[0], replay.mat_gt(k), train_dataset.zephyr_results[k]["pred_mask_visib"])
-                    for k in bkeys]
-            for f in ("limg_u8", "lmask_u8", "gimg_u8", "gmask_u8", "bbox_gt", "heatmap"):
-                feed[f] = np.stack([a[f] for a in anns])
-            epoch_losses.append(model.train_step_u8(feed)["loss"])
+            with STATS.span("finetune.feed", event):
+                sel = order[i0:i0 + batch_size]
+                if len(sel) < batch_size:  # pad by repetition to the batch size
+                    sel = np.resize(sel, batch_size)
+                bkeys = [keys[j] for j in sel]
+                frames = [replay.frame(k) if replay.frame(k) is not None else host_frames[k]
+                          for k in bkeys]
+                feed = {"img_u8": torch.cat(frames, 0),
+                        "mask_bits": np.concatenate([replay.bits(k) for k in bkeys], axis=0)}
+                anns = [train_dataset.replay_annotations(
+                            k[0], replay.mat_gt(k), train_dataset.zephyr_results[k]["pred_mask_visib"])
+                        for k in bkeys]
+                for f in ("limg_u8", "lmask_u8", "gimg_u8", "gmask_u8", "bbox_gt", "heatmap"):
+                    feed[f] = np.stack([a[f] for a in anns])
+            with STATS.span("finetune.step", event):
+                epoch_losses.append(model.train_step_u8(feed)["loss"])
         loss_per_epoch.append(epoch_losses)
     model.clear_cache()  # template features are stale after weight updates
     replay.n_replay_events += 1
@@ -1019,14 +1104,16 @@ def _finetune_replay(model, train_dataset, replay, epochs: int, batch_size: int)
 
 
 def finetune_dtoid(model, train_dataset, epochs: int = 1, batch_size: int = 8,
-                   replay=None) -> DeferredLogs:
+                   replay=None, event=None) -> DeferredLogs:
     """Online finetuning pass (ref online_learning.py:650-679): one train
     step per batch of the pseudo-labelled buffer, padded to `batch_size`;
     from the replay buffer when it covers the buffer, else from the host
     loader. Returns the per-step losses as a DeferredLogs: the steps are
-    enqueued, and `.resolve()` fetches the losses in one copy."""
+    enqueued, and `.resolve()` fetches the losses in one copy. `event` (the
+    loop's index of this finetune) tags each step's `finetune.feed` and
+    `finetune.step` spans."""
     if replay is not None:
-        logs = _finetune_replay(model, train_dataset, replay, epochs, batch_size)
+        logs = _finetune_replay(model, train_dataset, replay, epochs, batch_size, event)
         if logs is not None:
             return logs
     loader = NumpyLoader(train_dataset, batch_size=batch_size, shuffle=True,
@@ -1034,7 +1121,12 @@ def finetune_dtoid(model, train_dataset, epochs: int = 1, batch_size: int = 8,
     loss_per_epoch = []
     for _ in range(epochs):
         epoch_losses = []
-        for batch in loader:
+        batches = iter(loader)
+        while True:
+            t_feed = STATS.now()
+            batch = next(batches, None)
+            if batch is None:
+                break
             b = len(batch["img"])
             if b < batch_size:  # pad by repetition to the batch size
                 idx = np.resize(np.arange(b), batch_size)
@@ -1045,7 +1137,9 @@ def finetune_dtoid(model, train_dataset, epochs: int = 1, batch_size: int = 8,
             else:
                 feed = {k: batch[k] for k in ("img", "limg", "lmask", "gimg", "gmask",
                                               "bbox_gt", "heatmap", "mask")}
-            epoch_losses.append(model.train_step(feed)["loss"])
+            STATS.add_span("finetune.feed", t_feed, ids=event)
+            with STATS.span("finetune.step", event):
+                epoch_losses.append(model.train_step(feed)["loss"])
         loss_per_epoch.append(epoch_losses)
     model.clear_cache()
     return DeferredLogs(loss_per_epoch)

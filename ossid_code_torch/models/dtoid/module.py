@@ -7,7 +7,8 @@ launches the whole serving path for one frame (CUDA launches return before
 the device finishes); `fetch_detections` copies the results to the host and
 builds the reference-schema dict. `train_step` / `train_step_u8` run one
 finetune step (forward in train mode, `dtoid_losses`, backward, the
-optax-rule optimizer of core/optim.py).
+optax-rule optimizer of core/optim.py); while spans are on, each part of
+the step is a span (STEP_PARTS) in utils/rpc_stats.STATS.
 
 The JAX package's three training and inference switches, read the same
 way: the cfg key (`cfg.model.get(..., False)`) or its environment variable
@@ -41,7 +42,6 @@ from __future__ import annotations
 
 import copy
 import os
-import time
 from typing import Any
 
 import numpy as np
@@ -53,6 +53,7 @@ from ossid_code_torch.models.batchnorm import BatchNorm2d, bf16_running_update
 from ossid_code_torch.models.dtoid.anchors import generate_anchor_grid
 from ossid_code_torch.models.dtoid.losses import dtoid_losses
 from ossid_code_torch.models.dtoid.network import DtoidNetwork, imagenet_normalize
+from ossid_code_torch.utils.rpc_stats import STATS
 
 
 # each parameter's chunk of the flat buffers starts at a multiple of this many
@@ -212,8 +213,10 @@ class _Bf16Step:
         self.leaf = None
 
 
-# host-clock spans of one train step, in order (DtoidModel.step_spans)
-STEP_SPANS = ("feed", "cast", "forward", "losses", "backward", "upcast", "optimizer")
+# the parts of one train step, in order: child spans of the loop's
+# `finetune.step` in the span log (utils/rpc_stats.py)
+STEP_PARTS = ("step.feed", "step.cast", "step.forward", "step.losses", "step.backward", "step.upcast",
+              "step.optimizer")
 
 
 def _switch(m, key: str, env: str) -> bool:
@@ -245,9 +248,6 @@ class DtoidModel:
         # buffer; before the optimizer takes the parameters
         self._bf16_step = _Bf16Step(self.net) if self.bf16_finetune else None
         self.optimizer = make_optimizer(self.net.parameters(), m.learning_rate, m.weight_decay)
-        # {span: host seconds} summed over train steps when set to a dict
-        # (STEP_SPANS); None records nothing
-        self.step_spans: dict | None = None
 
         # per-object template features, device-resident
         self.template_feature_cache: dict[Any, tuple] = {}
@@ -294,44 +294,44 @@ class DtoidModel:
         if bf16 and self._bf16_step is None:
             raise ValueError("a bf16 step needs DtoidModel built with model.bf16_finetune")
         opt = self.optimizer if optimizer is None else optimizer
-        marks = [time.perf_counter()]
+        marks = [STATS.now()]
         b = {k: t.to(torch.float32) for k, t in self._on_device(batch).items()}
         m = self.cfg.model
         images = [b[k] for k in ("img", "limg", "lmask", "gimg", "gmask")]
-        marks.append(time.perf_counter())
+        marks.append(STATS.now())
         self.net.train()
         try:
             if bf16:
                 step = self._bf16_step
                 step.cast()
-                marks.append(time.perf_counter())
+                marks.append(STATS.now())
                 out = step.forward(*(t.to(torch.bfloat16) for t in images), seg_half=self.seg_half)
                 out = {k: v.float() for k, v in out.items()}
             else:
-                marks.append(time.perf_counter())
+                marks.append(STATS.now())
                 out = self.net(*images, seg_half=self.seg_half)
-            marks.append(time.perf_counter())
+            marks.append(STATS.now())
             loss, metrics = dtoid_losses(out, b, self.anchors, lam_seg=m.lam_seg,
                                          lam_center=m.lam_center, lam_cls=m.lam_cls,
                                          lam_reg=m.lam_reg)
-            marks.append(time.perf_counter())
+            marks.append(STATS.now())
             if not bf16:
                 # the bf16 step's float32 gradients are views that stay set
                 opt.zero_grad(set_to_none=self._bf16_step is None)
             (loss if loss_scale == 1.0 else loss * loss_scale).backward()
-            marks.append(time.perf_counter())
+            marks.append(STATS.now())
             if bf16:
                 step.upcast_grads()
             if reduce_grads is not None:
                 reduce_grads(self.net.parameters())
-            marks.append(time.perf_counter())
+            marks.append(STATS.now())
             opt.step()
-            marks.append(time.perf_counter())
+            marks.append(STATS.now())
         finally:
             self.net.eval()
-        if self.step_spans is not None:
-            for name, t0, t1 in zip(STEP_SPANS, marks, marks[1:]):
-                self.step_spans[name] = self.step_spans.get(name, 0.0) + t1 - t0
+        if marks[0] is not None:
+            for name, t0, t1 in zip(STEP_PARTS, marks, marks[1:]):
+                STATS.add_span(name, t0, t1)
         self.weights_version += 1
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -18,7 +18,9 @@ utils/__init__.py:186-218). Here:
     card, the host clock on the CPU; the result names which.
   * `device_summary(prof)`: the device's busy time and idle share over the
     traced window, the device time under named spans, and for each kernel
-    its device records and how many of them lie inside its span.
+    its device records and how many of them lie inside its span; with the
+    program's span log (utils/rpc_stats.py), the device's idle time by the
+    host span that was running.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from torch.utils._pytree import tree_leaves
 
 from ossid_code_torch.device import resolve_device
+from ossid_code_torch.utils.rpc_stats import OUTER_SPANS, loop_thread_spans
 
 
 @contextlib.contextmanager
@@ -103,7 +106,7 @@ def _named(symbol: str, name: str) -> bool:
     return re.search(rf"(?<![A-Za-z0-9_]){re.escape(symbol)}(?![A-Za-z0-9_])", name) is not None
 
 
-def device_summary(prof, names=(), kernels: dict | None = None) -> dict:
+def device_summary(prof, names=(), kernels: dict | None = None, spans: list | None = None) -> dict:
     """What a trace says of the card: the traced window (first to last event,
     ms), the device's busy time (the union of its kernels' and copies'
     intervals, ms), the idle share of the window, the number of device
@@ -117,19 +120,28 @@ def device_summary(prof, names=(), kernels: dict | None = None) -> dict:
     also counts the device records of that kernel (`kernel_records`) and
     those of them whose device interval lies inside a span of that name
     (`records_in_span`: the device range, a GPU user annotation, that the
-    profiler draws around the kernels launched inside the span)."""
+    profiler draws around the kernels launched inside the span).
+
+    `spans` is the program's span log over the same window (`STATS.snapshot()
+    ["spans"]`, on the profiler's clock); the summary then splits the
+    device's idle time (the window less its busy time) among the innermost
+    spans of the loop's thread (`rpc_stats.loop_thread_spans`) that cover
+    it, by overlap (`idle_by_span`, ms; "(none)" where no span runs), and
+    gives the share of idle time under a span other than the loop's outer
+    ones (`rpc_stats.OUTER_SPANS`: `idle_in_stages_share`)."""
     from torch.autograd import DeviceType
 
     kernels = dict(kernels or {})
     names = tuple(dict.fromkeys((*names, *kernels)))
     events = list(prof.events())
     records = _device_kernels(prof)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in records)
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
+    busy = []  # the union of the records' intervals, in order
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in records):
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], e)
+        else:
+            busy.append([s, e])
+    busy_us = sum(e - s for s, e in busy)
     window_us = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) if events else 0.0
     averages = {a.key: a for a in prof.key_averages()}
 
@@ -141,11 +153,25 @@ def device_summary(prof, names=(), kernels: dict | None = None) -> dict:
 
     mine = {n: [e for e in records if (_named(kernels[n], e.name) if n in kernels else n in e.name)] for n in names}
     out = {"window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
-           "device_idle_share": 1.0 - busy_us / window_us if spans and window_us > 0 else None,
-           "device_events": len(spans), "spans_device_ms": {n: device_ms(n) for n in names},
+           "device_idle_share": 1.0 - busy_us / window_us if records and window_us > 0 else None,
+           "device_events": len(records), "spans_device_ms": {n: device_ms(n) for n in names},
            "kernels_device_ms": {n: sum(e.time_range.end - e.time_range.start for e in mine[n]) / 1e3
                                  for n in names},
            "kernels_by_name": {n: len(mine[n]) for n in names}}
+    if spans is not None and events:
+        start = min(e.time_range.start for e in events)
+        idle, cur = [], start
+        for s, e in busy:
+            if s > cur:
+                idle.append((cur, s))
+            cur = max(cur, e)
+        if cur < start + window_us:
+            idle.append((cur, start + window_us))
+        by_span = _idle_by_span(idle, spans, prof.profiler.kineto_results.trace_start_ns())
+        total = sum(by_span.values())
+        outer = sum(by_span.get(k, 0.0) for k in (*OUTER_SPANS, "(none)"))
+        out.update(idle_by_span={k: v / 1e3 for k, v in sorted(by_span.items(), key=lambda kv: -kv[1])},
+                   idle_in_stages_share=1.0 - outer / total if total > 0 else None)
     if kernels:
         ranges = {n: [(e.time_range.start, e.time_range.end) for e in events
                       if e.device_type == DeviceType.CUDA and getattr(e, "is_user_annotation", False) and e.name == n]
@@ -154,6 +180,28 @@ def device_summary(prof, names=(), kernels: dict | None = None) -> dict:
         out.update(kernel_records={n: len(mine[n]) for n in kernels},
                    records_in_span={n: sum(any(s - eps <= e.time_range.start and e.time_range.end <= t + eps
                                                for s, t in ranges[n]) for e in mine[n]) for n in kernels})
+    return out
+
+
+def _idle_by_span(idle: list, spans: list, t0_ns: int) -> dict:
+    """{span name: us} of the idle intervals `idle` (us from the trace's
+    start, in order) by the innermost span of the loop's thread over each
+    instant: of the spans open there, the one that started last (the
+    shorter of two that started together)."""
+    ivs = sorted(((s - t0_ns) / 1e3, (e - t0_ns) / 1e3, name) for name, _, s, e, _ in loop_thread_spans(spans))
+    bounds = sorted({x for s, e, _ in ivs for x in (s, e)} | {x for iv in idle for x in iv})
+    out: dict = {}
+    open_, i, j = [], 0, 0
+    for a, b in zip(bounds, bounds[1:]):
+        while i < len(ivs) and ivs[i][0] <= a:
+            open_.append(ivs[i])
+            i += 1
+        open_ = [iv for iv in open_ if iv[1] > a]
+        while j < len(idle) and idle[j][1] <= a:
+            j += 1
+        if j < len(idle) and idle[j][0] <= a:
+            name = max(open_, key=lambda iv: (iv[0], -iv[1]))[2] if open_ else "(none)"
+            out[name] = out.get(name, 0.0) + b - a
     return out
 
 

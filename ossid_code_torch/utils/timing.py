@@ -31,33 +31,3 @@ class Timer:
             self.agg_list.append((self.heading, self.interval))
         if self.verbose:
             print(f"{self.heading} {self.interval:.4f}s")
-
-
-class _StageTimer(Timer):
-    def __init__(self, stages: "StageTimes", name: str):
-        super().__init__(heading=name)
-        self._stages = stages
-
-    def __exit__(self, *args):
-        super().__exit__(*args)
-        times = self._stages.times
-        times[self.heading] = (times.get(self.heading) or 0.0) + self.interval
-
-
-class StageTimes:
-    """Accumulates named stage durations for one frame of the online loop: a
-    stage timed more than once holds the sum of its intervals.
-
-    JAX's class sets `__exit__` on the Timer instance, which a `with`
-    statement never calls (it looks the method up on the type), so there a
-    `with stages.timer(name):` block records nothing; the port's timer
-    subclass records it (ROADMAP.md §3, faults of the reference)."""
-
-    def __init__(self):
-        self.times: dict[str, float | None] = {}
-
-    def timer(self, name: str) -> Timer:
-        return _StageTimer(self, name)
-
-    def get(self, name: str, default=None):
-        return self.times.get(name, default)

@@ -23,12 +23,14 @@ the JAX models' seeded weights, and each of the port's loops runs once
     with the YUV transport at the default knobs.
 (c) The transport: the I420 pack bit for bit equal to JAX's and to
     cv2.cvtColor, the unpack within 1 of JAX's on every pixel.
+(d) The span log (utils/rpc_stats.py) each pipelined run of (a) records.
 Beside them: HostCopy and RunStats.
 """
 
 import json
 import os
 import pickle
+import time
 
 import numpy as np
 import pytest
@@ -170,7 +172,11 @@ def _run(root, args, weights, pipeline_scoring):
 
     loop._detect, loop._complete_frame, model.detect_async = spy_detect, spy_complete, spy_dispatch
     loop.n_dispatched = 0
-    return loop.run(progress=False), loop, order
+    t0 = time.time_ns()
+    rows = loop.run(progress=False)
+    # the run's start and end on the span clock
+    loop.run_ns = (t0, time.time_ns())
+    return rows, loop, order
 
 
 _RUNS: dict = {}
@@ -179,7 +185,9 @@ _RUNS: dict = {}
 def loop_run(world, weights, flags, knobs):
     """The port's loop on the world from `weights` under the flag set, with
     the environment knobs `knobs` (None: the synchronous loop, no knob set),
-    run once a module and kept: (rows, loop, order, STATS snapshot)."""
+    run once a module and kept: (rows, loop, order, STATS snapshot). The
+    pipelined runs record spans (`STATS.spans_on`), the synchronous ones do
+    not, so that their rows' equality holds that spans change no row."""
     from ossid_code_torch.utils.rpc_stats import STATS
 
     key = (world, flags, knobs)
@@ -191,9 +199,11 @@ def loop_run(world, weights, flags, knobs):
             for k, v in KNOBS.get(knobs, {}).items():
                 mp.setenv(k, v)
             STATS.reset()
+            STATS.spans_on = knobs is not None
             run = _run(world, make_args(**FLAGS[flags]), weights, pipeline_scoring=knobs is not None)
             _RUNS[key] = (*run, STATS.snapshot())
         finally:
+            STATS.spans_on = False
             mp.undo()
     return _RUNS[key]
 
@@ -280,6 +290,78 @@ def test_pipelined_loop_matches_jax_pipelined(world, jax_sync, jax_pipelined, po
     np.testing.assert_allclose(logs[0][0], logs[1][0], rtol=1e-4)
     for got_ev, want_ev in zip(logs[0][1:], logs[1][1:]):
         np.testing.assert_allclose(got_ev, want_ev, rtol=3e-3)
+
+
+# loop stages that record spans (the loop's module doc)
+STAGES = {"iteration", "frame.wait", "detect.build", "detect.dispatch", "detect.wait", "detect.decode", "mask",
+          "hypotheses", "score.dispatch", "pp_err.dispatch", "complete", "complete.wait", "complete.decode", "icp",
+          "label", "gate", "finetune", "finetune.feed", "finetune.step", "row", "queue", "deferred",
+          "resolve.wait", "io.prefetch", "fetch.wait", "fetch.decode"}
+
+
+@pytest.mark.parametrize("flags,knobs", [(f, k) for f, ks in KNOBS_BY_FLAGS.items() for k in ks])
+def test_pipelined_spans_nest_and_tag_each_target(world, port_weights, flags, knobs):
+    """The span log of each pipelined run (a) made: the spans nest on each
+    thread (the latency spans aside); each completed target's ids are on
+    its iteration, detect.dispatch, hypotheses, score.dispatch and complete
+    spans, and on one queue span; a deferred span for each completion that
+    waited past later dispatches; one finetune.step span for each of the
+    run's steps, tagged with its event, each after its own finetune.feed
+    span and around the step's parts; the IO and fetch threads' spans
+    lie off the main thread, each frame prefetch tagged with a target's
+    ids; and the main thread's spans cover at least 98% of its run."""
+    from collections import Counter, defaultdict
+
+    from ossid_code_torch.models.dtoid.module import STEP_PARTS
+    from ossid_code_torch.utils.rpc_stats import LATENCY_SPANS
+
+    rows, loop, order, stats = loop_run(world, port_weights, flags, knobs)
+    spans = stats["spans"]
+    assert {n for n, *_ in spans} <= STAGES | set(STEP_PARTS)
+    threads = defaultdict(list)
+    for name, tid, start, end, _ in spans:
+        assert start <= end, name
+        if name not in LATENCY_SPANS:
+            threads[tid].append((start, -end, name))
+    for tid, ivs in threads.items():
+        open_ = []
+        for start, neg_end, name in sorted(ivs):
+            while open_ and open_[-1][0] <= start:
+                open_.pop()
+            assert not open_ or -neg_end <= open_[-1][0], (name, open_[-1])
+            open_.append((-neg_end, name))
+
+    names = defaultdict(Counter)
+    for name, _, _, _, ids in spans:
+        names[ids][name] += 1
+    for r in rows:
+        got = names[(r["obj_id"], r["scene_id"], r["im_id"])]
+        assert all(got[k] >= 1 for k in ("iteration", "detect.dispatch", "hypotheses", "score.dispatch")), got
+        assert got["complete"] == got["queue"] == 1, got
+    assert sum(c["deferred"] for c in names.values()) == sum(k > i + 1 for i, k in order) >= 2
+
+    events = [sum(len(ep) for ep in ev) for ev in loop.finetune_logs]
+    steps = sorted((s, e, ids) for n, _, s, e, ids in spans if n == "finetune.step")
+    feeds = sorted((s, e, ids) for n, _, s, e, ids in spans if n == "finetune.feed")
+    assert Counter(ids for _, _, ids in steps) == dict(enumerate(events)) and len(events) == 2
+    assert len(feeds) == len(steps) and all(f[1] <= s[0] and f[2] == s[2] for f, s in zip(feeds, steps))
+    for part in STEP_PARTS:
+        inside = [sp for n, _, *sp in spans if n == part]
+        assert len(inside) == len(steps)
+        assert all(a[0] <= b[0] <= b[1] <= a[1] for a, b in zip(steps, sorted(inside)))
+
+    main = {tid for n, tid, *_ in spans if n == "iteration"}
+    assert len(main) == 1
+    side = [(n, tid, ids) for n, tid, _, _, ids in spans if n in ("io.prefetch", "fetch.wait", "fetch.decode")]
+    targets = {(r["obj_id"], r["scene_id"], r["im_id"]) for r in rows}
+    assert not any(tid in main for _, tid, _ in side)
+    assert any(n == "io.prefetch" for n, *_ in side) and all(ids in targets for n, _, ids in side if n == "io.prefetch")
+    t0, t1 = loop.run_ns
+    covered, end = 0, t0
+    for start, stop in sorted((s, e) for n, tid, s, e, _ in spans if tid in main and n not in LATENCY_SPANS):
+        covered += max(0, stop - max(start, end))
+        end = max(end, stop)
+    assert covered >= 0.98 * (t1 - t0), covered / (t1 - t0)
 
 
 # ------------------------------------------------------------ the transport
@@ -380,9 +462,9 @@ def test_host_copy_tree_on_the_cpu():
 
 
 def test_rpc_stats_matches_jax():
-    """RunStats: the same summary, fetches per frame and hit rate as the
-    JAX package's on the same records (kinds ending in _wait are not
-    fetches)."""
+    """RunStats: the same counts, fetch timings, fetches per frame and hit
+    rate as the JAX package's on the same records (kinds ending in _wait
+    are not fetches), and no spans while spans are off."""
     from ossid_code_tpu.utils.rpc_stats import RunStats as J
 
     from ossid_code_torch.utils.rpc_stats import RunStats
@@ -395,12 +477,14 @@ def test_rpc_stats_matches_jax():
                           ("complete", 0.004), ("complete_wait", 0.25)):
             s.rpc(kind, sec)
     got, want = stats
-    assert got.snapshot() == want.snapshot()
-    assert got.summary(4) == want.summary(4)
+    with got.span("off"):
+        pass
+    snap = got.snapshot()
+    assert {k: snap[k] for k in ("counts", "rpcs")} == want.snapshot() and snap["spans"] == []
     assert got.fetch_rpcs_per_frame(4) == want.fetch_rpcs_per_frame(4) == 0.75
     assert got.spec_hit_rate() == want.spec_hit_rate() == 0.5
     got.reset()
-    assert got.summary() == "(no rpc stats)" and got.spec_hit_rate() is None
+    assert got.snapshot() == {"counts": {}, "rpcs": {}, "spans": []} and got.spec_hit_rate() is None
 
 
 

@@ -41,38 +41,22 @@ def stepped_clock(monkeypatch):
 
 
 def _drive(mod):
-    """One sequence of timed blocks through a package's Timer and
-    StageTimes: (agg_list, explicitly exited stage times, `with` stage
-    times)."""
+    """One sequence of timed blocks through a package's Timer: its
+    agg_list."""
     agg = []
     for heading in ("a", "b", "a"):
         with mod.Timer(heading=heading, agg_list=agg):
             pass
-    explicit = mod.StageTimes()
-    for name in ("x", "y", "x"):
-        t = explicit.timer(name)
-        t.__enter__()
-        t.__exit__(None, None, None)
-    with_stages = mod.StageTimes()
-    for name in ("x", "y", "x"):
-        with with_stages.timer(name):
-            pass
-    return agg, explicit, with_stages
+    return agg
 
 
 def test_timer_and_stage_times_match_jax(stepped_clock, capsys):
+    """The port's Timer against JAX's (the port has no StageTimes: its
+    stages are spans in utils/rpc_stats.STATS)."""
     from ossid_code_tpu.utils import timing as jtiming
 
-    jagg, jexp, jwith = _drive(jtiming)
-    tagg, texp, twith = _drive(timing)
-    assert tagg == jagg == [("a", STEP), ("b", STEP), ("a", STEP)]
-    # re-entry sums: x twice, y once, in both packages
-    assert list(texp.times.items()) == list(jexp.times.items()) == [("x", 2 * STEP), ("y", STEP)]
-    assert texp.get("z", 7) == jexp.get("z", 7) == 7
-    # a `with` block: JAX's instance-level __exit__ is never called by the
-    # statement (a fault of the reference); the port records the same sums
-    assert jwith.times == {}
-    assert list(twith.times.items()) == [("x", 2 * STEP), ("y", STEP)]
+    assert _drive(timing) == _drive(jtiming) == [("a", STEP), ("b", STEP), ("a", STEP)]
+    assert not hasattr(timing, "StageTimes")
     with timing.Timer(heading="v", verbose=True) as t:
         pass
     assert t.interval == STEP and capsys.readouterr().out == f"v {STEP:.4f}s\n"
@@ -427,7 +411,6 @@ def test_small_helpers_match_jax():
                                       estimate_visib_mask(d_test, d_model, 0.015, mode))
 
 
-
 def test_device_summary_counts_each_kernel_record_and_its_span():
     """The records of each span's kernel, and those inside a span of its name
     (within the span's device range): a record outside every span counts
@@ -453,3 +436,106 @@ def test_device_summary_counts_each_kernel_record_and_its_span():
     assert s["records_in_span"] == {"dw_corr3x3": 1, "sa_mlp_max": 0}
     assert s["device_events"] == 4 and s["device_busy_ms"] == pytest.approx(0.006)
     assert s["kernels_device_ms"]["dw_corr3x3"] == pytest.approx(0.003)
+
+
+def test_spans_turn_on_with_a_profiler_session_and_share_its_clock():
+    """The span log records while a torch.profiler session is active, or
+    while `spans_on` is set, and nothing otherwise; a profiler event inside
+    a span has its kineto start within the span's bounds (one clock)."""
+    import threading
+
+    from ossid_code_torch.utils.rpc_stats import RunStats
+
+    stats = RunStats()
+    with stats.span("before"):
+        pass
+    stats.add_span("before", stats.now())
+    assert not stats.spans_enabled() and stats.now() is None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert stats.spans_enabled()
+        with stats.span("probe", (1, 0, 2)):
+            with torch.profiler.record_function("probe_op"):
+                torch.ones(8).sum()
+    with stats.span("after"):
+        pass
+    stats.spans_on = True
+    stats.add_span("flag", stats.now(), ids=3)
+    stats.spans_on = False
+    spans = stats.snapshot()["spans"]
+    assert [(n, tid, ids) for n, tid, _, _, ids in spans] == [("probe", threading.get_native_id(), (1, 0, 2)),
+                                                             ("flag", threading.get_native_id(), 3)]
+    _, _, start, end, _ = spans[0]
+    ops = [e for e in prof.profiler.kineto_results.events() if e.name() == "probe_op"]
+    assert len(ops) == 1 and start <= ops[0].start_ns() <= ops[0].start_ns() + ops[0].duration_ns() <= end
+    stats.reset()
+    assert stats.snapshot()["spans"] == []
+
+
+def test_device_summary_splits_idle_time_by_the_innermost_host_span():
+    """Idle time (the window less the records' union) goes to the innermost
+    main-thread span over each instant, by overlap; other threads' spans and
+    the latency spans are left out, and time under no span is "(none)".
+    Times in us from the trace's start; the spans on the epoch clock."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    def ev(name, dev, start, end):
+        return NS(name=name, device_type=dev, time_range=NS(start=start, end=end), is_user_annotation=False)
+
+    t0 = 1_700_000_000 * 10**9
+    events = [ev("loop", DeviceType.CPU, 0, 100), ev("k", DeviceType.CUDA, 10, 20), ev("k", DeviceType.CUDA, 15, 30),
+              ev("k", DeviceType.CUDA, 60, 70)]
+    prof = NS(events=lambda: events, key_averages=lambda: [],
+              profiler=NS(kineto_results=NS(trace_start_ns=lambda: t0)))
+
+    def span(name, a, b, tid=1):
+        return (name, tid, t0 + a * 1000, t0 + b * 1000, None)
+
+    spans = [span("queue", 0, 5), span("detect.wait", 25, 40), span("hypotheses", 45, 55), span("label", 74, 80),
+             span("complete", 72, 88), span("iteration", 5, 90), span("fetch.wait", 0, 100, tid=2)]
+    s = profiling.device_summary(prof, spans=spans)
+    want_us = {"iteration": 19, "(none)": 15, "detect.wait": 10, "hypotheses": 10, "complete": 10, "label": 6}
+    assert s["idle_by_span"] == {k: v / 1e3 for k, v in want_us.items()}
+    assert sum(want_us.values()) == 70 and s["device_busy_ms"] == pytest.approx(0.030)
+    assert s["idle_in_stages_share"] == pytest.approx(26 / 70)
+    assert "idle_by_span" not in profiling.device_summary(prof)
+
+
+def test_loop_run_records_its_side_threads_spans_in_a_profiler_session():
+    """A profiler session is its own thread's, and the loop's `run` hands
+    frames and fetches to an IO and a fetch thread: inside a session on the
+    calling thread, `run` (through `STATS.across_threads`) has those
+    threads record their spans too, and after it nothing more is recorded.
+    The loop here is a stub whose run body submits one span to each pool."""
+    import threading
+
+    from ossid_code_torch.loop.online_learning import OnlineLearningLoop
+    from ossid_code_torch.utils.rpc_stats import STATS
+
+    class Stub(OnlineLearningLoop):
+        def __init__(self):
+            self._io_pool = self._fetch_pool = None
+            self._fetch_futs, self._prefetched, self._extras = [], {}, {}
+            self._frame_uploads_lock = threading.Lock()
+            self._frame_uploads, self._frame_uploads_order = {}, []
+
+        def _run(self, progress):
+            def work(name):
+                with STATS.span(name, (1, 0, 2)):
+                    return threading.get_native_id()
+
+            return [self._io_submit(work, "io.prefetch").result(), self._fetch_submit(work, "fetch.wait").result()]
+
+    STATS.reset()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            io_tid, fetch_tid = Stub().run(progress=False)
+        assert not STATS.spans_enabled()
+        Stub().run(progress=False)
+        spans = STATS.snapshot()["spans"]
+    finally:
+        STATS.reset()
+    assert [(name, tid, ids) for name, tid, _, _, ids in spans] == [("io.prefetch", io_tid, (1, 0, 2)),
+                                                                   ("fetch.wait", fetch_tid, (1, 0, 2))]
+    assert threading.get_native_id() not in (io_tid, fetch_tid)
